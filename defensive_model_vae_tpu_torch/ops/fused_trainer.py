@@ -1,0 +1,356 @@
+"""Whole-run fused CVAE trainer: kernel K1 and its plain version.
+
+Port of ``defensive_model_vae_tpu/ops/fused_trainer.py``.  There, one
+Pallas kernel (``_make_kernel`` :326, launched by ``_fused_call`` :375)
+runs an entire E-epoch full-batch training of one scenario CVAE with the
+parameters and Adam state resident in VMEM.  Here the same contract — x,
+cond, optional ε, seed and the initial params in; the final params and an
+(E, 8) metrics block out — is one launch of the CUDA kernel
+``csrc/fused_trainer.cu`` (one thread block runs one whole training run;
+see the design note in that file for its bound and its layout).
+
+Plain parts ported as they are: ``_LAYERS``/``_flatten_params``/
+``_unflatten_params`` (:38-58), the f32 path of ``_forward_loss`` (:61),
+``_adam_step`` (:268), ``fused_inputs`` (:442), ``fused_step_reference``
+(:795) and ``fused_train`` (:405).
+
+Noise: the TPU kernel draws ε from the core PRNG.  K1 draws it from a
+Philox4x32-10 counter generator keyed by the seed with counter (epoch, row,
+column group), then Box–Muller; :func:`philox_normal` is the same generator
+in torch, so the plain version and the kernel draw the same ε.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models import CVAEConfig, LossWeights, init_params, to_relative
+from ..models.cvae import Params
+
+FUSED_METRIC_KEYS = ("total", "recon", "kld", "start", "time")
+
+_LAYERS = (
+    "cond_0", "cond_1",
+    "enc_0", "enc_1", "enc_2", "enc_3",
+    "fc_mu", "fc_logvar",
+    "dec_0", "dec_1", "dec_2", "dec_3",
+)
+
+# the one model shape the CUDA kernel is compiled for (CVAEConfig defaults)
+_K1_CFG = CVAEConfig()
+
+
+def _flatten_params(params: Params) -> List[torch.Tensor]:
+    flat = []
+    for name in _LAYERS:
+        flat.append(params[name]["w"])
+        flat.append(params[name]["b"].reshape(1, -1))
+    return flat
+
+
+def _unflatten_params(flat) -> Params:
+    return {name: {"w": flat[2 * i], "b": flat[2 * i + 1].reshape(-1)}
+            for i, name in enumerate(_LAYERS)}
+
+
+def _forward_loss(plist, x_flat, cond, eps, cfg: CVAEConfig, w: LossWeights,
+                  mask=None, n_valid=None):
+    """Loss over the flat param list on flattened (B, T·D) windows with
+    explicit noise — the f32 path of ``_forward_loss`` (fused_trainer.py:61).
+    Returns (total, [total, recon, kld, start, time])."""
+    p = {n: (plist[2 * i], plist[2 * i + 1]) for i, n in enumerate(_LAYERS)}
+
+    def lin(name, h):
+        return h @ p[name][0] + p[name][1]
+
+    hc = torch.relu(lin("cond_1", torch.relu(lin("cond_0", cond))))
+    h = x_flat
+    for name in ("enc_0", "enc_1", "enc_2", "enc_3"):
+        h = torch.relu(lin(name, h))
+    hcat = torch.cat([h, hc], dim=1)
+    mu = lin("fc_mu", hcat)
+    logvar = lin("fc_logvar", hcat)
+    z = mu + eps * torch.exp(0.5 * logvar)
+    g = torch.cat([z, hc], dim=1)
+    for name in ("dec_0", "dec_1", "dec_2"):
+        g = torch.relu(lin(name, g))
+    recon = lin("dec_3", g)
+
+    T, D = cfg.seq_len, cfg.dim
+    if mask is None:
+        mean_rows = torch.mean
+    else:
+        m_col = mask if mask.ndim == 2 else mask[:, None]
+        denom = (torch.clamp(torch.sum(m_col), min=1.0) if n_valid is None
+                 else torch.tensor(float(n_valid), device=x_flat.device))
+
+        def mean_rows(arr):
+            return torch.sum(arr * m_col) / (denom * arr.shape[1])
+
+    recon_loss = mean_rows((recon - x_flat) ** 2)
+    kld = -0.5 * mean_rows(1.0 + logvar - mu ** 2 - torch.exp(logvar))
+    start_loss = mean_rows((recon[:, 1:3] - x_flat[:, 1:3]) ** 2)
+    t_diffs = recon[:, D::D] - recon[:, 0:T * D - D:D]
+    time_loss = mean_rows(recon[:, 0:1] ** 2) + mean_rows(torch.relu(-t_diffs))
+    total = (w.recon * recon_loss + w.kld * kld
+             + w.start * start_loss + w.time * time_loss)
+    return total, torch.stack([total, recon_loss, kld, start_loss, time_loss])
+
+
+_B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+
+
+def _adam_step(params, grads, m, v, tf, lr):
+    """One Adam update over flat lists (optax defaults; fused_trainer.py:268).
+    ``tf`` is the 1-based step as a float32 tensor; bias correction is
+    ``1 - exp(t·ln b)`` as in the TPU kernel and in K1."""
+    bc1 = 1.0 - torch.exp(tf * math.log(_B1))
+    bc2 = 1.0 - torch.exp(tf * math.log(_B2))
+    new_p, new_m, new_v = [], [], []
+    for p, g, mi, vi in zip(params, grads, m, v):
+        mi = _B1 * mi + (1 - _B1) * g
+        vi = _B2 * vi + (1 - _B2) * g * g
+        new_p.append(p - lr * ((mi / bc1) / (torch.sqrt(vi / bc2) + _ADAM_EPS)))
+        new_m.append(mi)
+        new_v.append(vi)
+    return new_p, new_m, new_v
+
+
+# ---- Philox4x32-10 + Box–Muller (the kernel's noise, in torch) ------------
+
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """(hi, lo) 32-bit halves of a·b for a constant a and int64 tensor b
+    holding uint32 values, in 16-bit pieces so nothing overflows int64."""
+    al, ah = a & 0xFFFF, a >> 16
+    t1 = al * b
+    t2 = ah * b
+    low = t1 + ((t2 & 0xFFFF) << 16)
+    return ((t2 >> 16) + (low >> 32)) & _U32, low & _U32
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 over int64 tensors holding uint32 words.
+    ``ctr`` is a 4-tuple of tensors, ``key`` a 2-tuple of ints."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_normal(seed: int, epoch: int, rows: int, cols: int,
+                  device="cpu") -> torch.Tensor:
+    """(rows, cols) N(0, 1) draws of epoch ``epoch`` — bit for bit the
+    generator in ``csrc/fused_trainer.cu``: counter (epoch, row, col // 4, 0)
+    keyed by (seed low, seed high); words (0, 1) and (2, 3) are two
+    Box–Muller pairs over 24-bit uniforms, u1 = (w0 >> 8 + 1)·2⁻²⁴ ∈ (0, 1],
+    giving r·cos and r·sin for columns 4k..4k+3."""
+    groups = (cols + 3) // 4
+    row = torch.arange(rows, dtype=torch.int64).repeat_interleave(groups)
+    grp = torch.arange(groups, dtype=torch.int64).repeat(rows)
+    zero = torch.zeros_like(row)
+    words = philox4x32(
+        (zero + (epoch & _U32), row, grp, zero),
+        (seed & _U32, (seed >> 32) & _U32),
+    )
+    scale = 1.0 / (1 << 24)
+    out = []
+    for a, b in ((words[0], words[1]), (words[2], words[3])):
+        u1 = ((a >> 8) + 1).to(torch.float32) * scale
+        u2 = (b >> 8).to(torch.float32) * scale
+        r = torch.sqrt(-2.0 * torch.log(u1))
+        th = (2.0 * math.pi) * u2
+        out += [r * torch.cos(th), r * torch.sin(th)]
+    z = torch.stack(out, dim=1).reshape(rows, groups * 4)[:, :cols]
+    return z.contiguous().to(device)
+
+
+# ---- the kernel's flat parameter layout -------------------------------------
+
+def _kernel_blocks(plist):
+    """The 22 arrays of K1's flat layout: the twelve layers in ``_LAYERS``
+    order with fc_mu/fc_logvar merged into one (2H, 2Z) head (manual_grad)."""
+    out = []
+    for i, name in enumerate(_LAYERS):
+        if name == "fc_logvar":
+            continue
+        w, b = plist[2 * i], plist[2 * i + 1]
+        if name == "fc_mu":
+            w = torch.cat([w, plist[2 * i + 2]], dim=1)
+            b = torch.cat([b, plist[2 * i + 3]], dim=1)
+        out += [w, b]
+    return out
+
+
+def pack_kernel_params(plist) -> torch.Tensor:
+    """Flat list → the contiguous (n_params,) f32 buffer the kernel updates."""
+    return torch.cat([a.reshape(-1) for a in _kernel_blocks(plist)]).float().contiguous()
+
+
+def unpack_kernel_params(flat: torch.Tensor, plist_like) -> List[torch.Tensor]:
+    """Inverse of :func:`pack_kernel_params` (shapes from ``plist_like``)."""
+    blocks = _kernel_blocks(plist_like)
+    parts, off = [], 0
+    for a in blocks:
+        parts.append(flat[off:off + a.numel()].reshape(a.shape))
+        off += a.numel()
+    out = []
+    for i, name in enumerate(_LAYERS):
+        if name == "fc_logvar":
+            continue
+        w, b = parts.pop(0), parts.pop(0)
+        if name == "fc_mu":
+            z = plist_like[2 * i].shape[1]
+            out += [w[:, :z], b[:, :z], w[:, z:], b[:, z:]]
+        else:
+            out += [w, b]
+    return [a.contiguous() for a in out]
+
+
+# ---- K1: the wrapper, its kernel and its plain version ----------------------
+
+def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
+    """K1's plain version: per epoch ε (explicit, or Philox), the ported
+    manual backward, Adam; one metrics row [total, recon, kld, start, time,
+    0, 0, 0] per epoch."""
+    from .manual_grad import manual_value_and_grad
+
+    dev = x_flat.device
+    params = [a.clone() for a in plist]
+    m = [torch.zeros_like(a) for a in plist]
+    v = [torch.zeros_like(a) for a in plist]
+    metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=dev)
+    B = x_flat.shape[0]
+    for t in range(epochs):
+        e = eps if eps is not None else philox_normal(seed, t, B, cfg.latent_dim, dev)
+        comps, grads = manual_value_and_grad(params, x_flat, cond, e, cfg, weights)
+        tf = torch.tensor(float(t + 1), dtype=torch.float32, device=dev)
+        params, m, v = _adam_step(params, grads, m, v, tf, lr)
+        metrics[t, :5] = comps
+    return params, metrics
+
+
+def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
+    from ._build import load
+
+    if cfg != _K1_CFG:
+        raise ValueError(f"K1 is compiled for {_K1_CFG}, got {cfg}")
+    B = x_flat.shape[0]
+    F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
+    dev = x_flat.device
+    for name, a, shape in (("x_flat", x_flat, (B, F)), ("cond", cond, (B, C)),
+                           ("eps", eps, (B, Z))):
+        if a is None:
+            continue
+        if a.device != dev or a.dtype != torch.float32 or not a.is_contiguous():
+            raise ValueError(f"K1: {name} must be contiguous float32 on {dev}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"K1: {name} has shape {tuple(a.shape)}, expected {shape}")
+    lib = load("fused_trainer")
+    params = pack_kernel_params(plist)
+    if params.numel() != lib.k1_param_floats() or params.device != dev:
+        raise ValueError("K1: parameter list does not match the compiled model")
+    work = torch.empty(int(lib.k1_work_floats(B)), dtype=torch.float32, device=dev)
+    metrics = torch.empty((epochs, 8), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.k1_fused_train(
+        x_flat.data_ptr(), cond.data_ptr(),
+        None if eps is None else eps.data_ptr(),
+        params.data_ptr(), work.data_ptr(), metrics.data_ptr(),
+        B, epochs, ctypes.c_float(lr),
+        ctypes.c_float(weights.recon), ctypes.c_float(weights.kld),
+        ctypes.c_float(weights.start), ctypes.c_float(weights.time),
+        ctypes.c_ulonglong(seed), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    fused_call.launches += 1
+    return unpack_kernel_params(params, plist), metrics
+
+
+def fused_call(plist, x_flat, cond, seed: int, cfg: CVAEConfig,
+               weights: LossWeights, epochs: int, lr: float,
+               eps: Optional[torch.Tensor] = None):
+    """One whole training run: (final flat params, (epochs, 8) metrics).
+
+    On CUDA tensors this launches K1 (one launch, counted in
+    ``fused_call.launches``) or raises; on CPU tensors it runs K1's plain
+    version.  ``eps`` (B, Z), when given, is held constant across epochs
+    (the TPU kernel's ``eps_input`` mode); otherwise ε is Philox noise."""
+    dev = x_flat.device
+    if dev.type == "cpu":
+        return _fused_call_plain(plist, x_flat, cond, seed, cfg, weights,
+                                 epochs, lr, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got {dev}")
+    return _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights,
+                              epochs, lr, eps)
+
+
+fused_call.launches = 0
+
+
+def fused_inputs(windows, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Windows (B, T, D) → ``(x_flat (B, T·D), start (B, 2))``, through the
+    same :func:`to_relative` as the scan trainer (fused_trainer.py:442)."""
+    batch = torch.as_tensor(np.asarray(windows, np.float32)).to(resolve_device(device))
+    rel, start = to_relative(batch)
+    return rel.reshape(batch.shape[0], -1).contiguous(), start.contiguous()
+
+
+def fused_train(windows: np.ndarray, epochs: int = 3000, lr: float = 1e-3,
+                weights: LossWeights = LossWeights(), seed: int = 0,
+                eps=None, device="cuda") -> Tuple[Params, Dict[str, np.ndarray]]:
+    """Train one scenario CVAE in one K1 launch (fused_trainer.py:405).
+
+    Same init (from ``torch.Generator().manual_seed(seed)``), loss and
+    optimizer as :func:`..train.train`; the noise is K1's Philox stream
+    unless ``eps`` (B, Z) is given.  Returns (params, history)."""
+    dev = resolve_device(device)
+    cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
+    x_flat, start = fused_inputs(windows, dev)
+    params = init_params(torch.Generator().manual_seed(seed), cfg, dev)
+    if eps is not None:
+        eps = torch.as_tensor(np.asarray(eps, np.float32)).to(dev).contiguous()
+    out_plist, metrics = fused_call(_flatten_params(params), x_flat, start,
+                                    seed, cfg, weights, epochs, lr, eps)
+    m = metrics[:, :5].cpu().numpy()
+    history = {k: m[:, i] for i, k in enumerate(FUSED_METRIC_KEYS)}
+    return _unflatten_params(out_plist), history
+
+
+def fused_step_reference(params: Params, windows, eps, lr=1e-3,
+                         weights: LossWeights = LossWeights(),
+                         cfg: Optional[CVAEConfig] = None):
+    """One Adam step with explicit ε by autograd of :func:`_forward_loss` —
+    the oracle K1 is held against (fused_trainer.py:795)."""
+    if cfg is None:
+        cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
+    plist0 = _flatten_params(params)
+    x_flat, start = fused_inputs(windows, plist0[0].device)
+    plist = [a.detach().clone().requires_grad_(True) for a in plist0]
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=x_flat.device)
+    total, comps = _forward_loss(plist, x_flat, start, eps, cfg, weights)
+    grads = torch.autograd.grad(total, plist)
+    new = []
+    with torch.no_grad():
+        for p, g in zip(plist, grads):
+            m = (1 - _B1) * g
+            v = (1 - _B2) * g * g
+            new.append(p - lr * ((m / (1 - _B1)) / (torch.sqrt(v / (1 - _B2)) + _ADAM_EPS)))
+    return _unflatten_params(new), comps.detach()
