@@ -17,8 +17,18 @@ traceback and a non-zero exit:
 5. ``sample``      one trajectory per sce4 start point, with re-draws;
 6. ``track``       the samples tracked by the batched MPC, and the SLSQP
                    golden windows held to the bands of tests/test_mpc.py;
-7. ``kernels``     one line listing every ported kernel with its launches on
-                   the main path, its error, times and bound.
+7. ``k3_vs_plain`` kernels K3 and K4 against their plain torch versions on
+                   the card (f32 and bf16, packed, hbm and prng noise, ragged
+                   corpora, blocks of one 32-row step and of several);
+8. ``train_scale`` the production-scale path at the bench shape:
+                   ``fused_train_scale`` on 131,072 windows, 200 epochs, tile
+                   2048, bf16, hbm noise, in one K3 call; K3's time against
+                   the plain version's, and K3 held against it over the
+                   first 10 epochs; a float32 run; a per-epoch
+                   ``fused_train_scale_dp`` run through K4; K4 timed and held
+                   against its plain version; a checkpoint round trip;
+9. ``kernels``     one line listing every ported kernel with its launches on
+                   its main path, its error, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
 without the port beside this file, it exits non-zero and prints no result.
@@ -39,8 +49,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "defensive_model_vae_tpu_torch"
 
-# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores, HBM
+# H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
+# bf16 dense on the tensor cores, HBM
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 
 # K1 against its plain version, explicit ε (stated tolerances):
@@ -54,6 +66,53 @@ HBM_BYTES_S = 3.35e12
 #   rows, which see every parameter, carry the tight check there.
 K1_TOL = {1: {"params_abs": 1e-4, "metrics_rel": 1e-5},
           50: {"params_abs": 1e-2, "metrics_rel": 1e-3}}
+
+# K3 against its plain version, same inputs and the same ε on both (stated
+# tolerances), by three numbers:
+# - params_abs, the largest gap of any parameter.  Each epoch moves a
+#   parameter by Adam's lr·m̂/(√v̂+1e-8), at most lr = 1e-3, so after E
+#   epochs two runs can differ by at most 2·E·lr: every bound below is a
+#   small part of one step, or (bf16, several epochs) of the travel;
+# - params_frac, the largest share of one array's elements whose gap is
+#   over a tenth of a step (STEP_TENTH): a wrong gradient in any one array
+#   moves most of that array's elements apart;
+# - metrics_rel, the loss rows, which see every parameter.
+# float32: summation order only (32-row steps summed chunk by chunk against
+# tile-sized products): no element may take a step the other way.  One
+# epoch's step is lr·sign(g) wherever |g| is above the noise, so its
+# gap is float32 rounding of the params (1e-5).  bf16: both round the same
+# float32 values to bf16, but an activation one float32 ulp apart can round
+# to the neighbouring bf16 value (2^-8 relative) and a gradient near zero
+# then changes sign; from the second epoch on, a few elements of an array
+# take steps the other way.
+STEP_TENTH = 1e-4
+K3_TOL = {(None, 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-5},
+          (None, 5): {"params_abs": 1e-4, "params_frac": 0.0, "metrics_rel": 1e-4},
+          (None, 20): {"params_abs": 1e-4, "params_frac": 0.0, "metrics_rel": 1e-4},
+          ("bfloat16", 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-5},
+          ("bfloat16", 10): {"params_abs": 5e-3, "params_frac": 0.05, "metrics_rel": 1e-3},
+          ("bfloat16", 20): {"params_abs": 5e-3, "params_frac": 0.05, "metrics_rel": 1e-3}}
+# K4 (one epoch's summed gradients): each array to a fraction of its own max
+# (float32: summation order; bf16: JAX's own bf16 rule), the loss row relative
+K4_TOL = {None: {"grad_rel_max": 1e-5, "row_rel": 1e-5},
+          "bfloat16": {"grad_rel_max": 1e-2, "row_rel": 1e-4}}
+
+# the bench shape of the production-scale trainer (bench.py::bench_scale_fused)
+SCALE_N, SCALE_EPOCHS, SCALE_TILE = 131072, 200, 2048
+PLAIN_BUDGET_S = 30.0   # the plain version runs the full 200 epochs if it fits
+PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
+
+
+def scale_corpus(n, seq_len=10, dim=3):
+    """Synthetic production-scale corpus with reference-like coordinate
+    scales — a copy of ``bench.py::_scale_corpus`` (:346), seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    t = np.cumsum(rng.uniform(0.5, 2.2, (n, seq_len)), axis=1)
+    t -= t[:, :1]
+    xy = rng.normal([[-193.0, 50.0]], [[1.0, 20.0]], (n, seq_len, dim - 1)).cumsum(axis=1)
+    return np.concatenate([t[..., None], xy], axis=-1).astype(np.float32)
 
 
 def emit(obj):
@@ -76,7 +135,8 @@ def fail(msg):
 
 
 def cuda_ms(fn, reps=1):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, by CUDA events."""
+    """(median milliseconds of ``fn()`` over ``reps`` runs by CUDA events,
+    the last run's result)."""
     import torch
 
     times = []
@@ -84,26 +144,80 @@ def cuda_ms(fn, reps=1):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+    return sorted(times)[len(times) // 2], out
 
 
-def k1_flops_bytes(cfg, B, epochs):
-    """K1's work from this run's shapes: the products of the forward, the
-    weight gradients and the activation gradients (none for the inputs of
-    cond_0 and enc_0), and Adam's ~10 operations per parameter; the bytes
-    of x, cond, eps, the params in and out and the metrics."""
+def k3_gaps(kernel, plain, tol):
+    """K3's (params, metrics) against its plain version's → the row of
+    gaps beside ``tol``, and whether they are within it."""
+    (pk, mk), (pp, mp) = kernel, plain
+    p_abs = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+    p_frac = max(float(((a - b).abs() > STEP_TENTH).float().mean()) for a, b in zip(pk, pp))
+    m_rel = float(((mk[:, :5] - mp[:, :5]).abs() / mp[:, :5].abs().clamp(min=1e-6)).max())
+    row = {"params_max_abs": p_abs, "params_tol": tol["params_abs"],
+           "params_frac_over_step_tenth": p_frac, "params_frac_tol": tol["params_frac"],
+           "metrics_max_rel": m_rel, "metrics_tol": tol["metrics_rel"]}
+    ok = (p_abs <= tol["params_abs"] and p_frac <= tol["params_frac"]
+          and m_rel <= tol["metrics_rel"])
+    return row, ok
+
+
+def k4_gaps(kernel, plain, tol):
+    """K4's (gradients, (1, 8) row) against its plain version's (gradients,
+    (5,) row) → the row of gaps beside ``tol``, and whether they are within
+    it."""
+    (gk, rk), (gp, rp) = kernel, plain
+    g_rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(gk, gp))
+    g_abs = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    r_rel = float(((rk[0, :5] - rp).abs() / rp.abs().clamp(min=1e-6)).max())
+    row = {"grad_max_rel_to_array_max": g_rel, "grad_tol": tol["grad_rel_max"],
+           "grad_max_abs": g_abs, "row_max_rel": r_rel, "row_tol": tol["row_rel"]}
+    return row, g_rel <= tol["grad_rel_max"] and r_rel <= tol["row_rel"]
+
+
+def window_epoch_flops(cfg):
+    """The products of one window in one epoch: the forward, the weight
+    gradients and the activation gradients (none for the inputs of cond_0
+    and enc_0), two FLOP a multiply-add."""
     spec = cfg.layer_spec()
     mac = sum(fi * fo for fi, fo in spec.values())
     mac_da = mac - sum(spec[n][0] * spec[n][1] for n in ("cond_0", "enc_0"))
+    return 2 * (2 * mac + mac_da)
+
+
+def k1_flops_bytes(cfg, B, epochs):
+    """K1's work from this run's shapes: the products and Adam's ~10
+    operations per parameter an epoch; the bytes of x, cond, eps, the
+    params in and out and the metrics."""
     n_params = cfg.n_params()
-    flops = epochs * (2 * B * (2 * mac + mac_da) + 10 * n_params)
+    flops = epochs * (B * window_epoch_flops(cfg) + 10 * n_params)
     nbytes = 4 * (B * (cfg.seq_len * cfg.dim + cfg.cond_dim + cfg.latent_dim)
                   + 2 * n_params + 8 * epochs)
     return flops, nbytes
+
+
+def scale_flops_bytes(cfg, n, epochs, adam, itemsize, width):
+    """K3's (adam) or K4's work from this run's shapes: the products (and
+    Adam's ~10 operations per parameter an epoch); the bytes of the corpus
+    and the ε stream, each read once, and the params (in and out) or
+    gradients and the metrics."""
+    n_params = cfg.n_params()
+    flops = epochs * (n * window_epoch_flops(cfg) + (10 * n_params if adam else 0))
+    nbytes = (itemsize * n * (width + epochs * cfg.latent_dim)
+              + 4 * (2 * n_params + 8 * epochs))
+    return flops, nbytes
+
+
+def bound(flops, nbytes, peak):
+    """(bound ms, what bounds it) for work of ``flops`` at ``peak`` FLOP/s
+    moving ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def main() -> int:
@@ -125,6 +239,7 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.control import MPCConfig, track_batch
     from defensive_model_vae_tpu_torch.models import CVAEConfig, LossWeights, init_params
     from defensive_model_vae_tpu_torch.ops import _build
+    from defensive_model_vae_tpu_torch.ops import fused_scale as fs
     from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
     from defensive_model_vae_tpu_torch.pipeline import (
         _draw_valid_samples, default_mpc_cfg, fixture_starts,
@@ -214,9 +329,10 @@ def main() -> int:
         # times on the same inputs: the kernel (median of 3), the plain version
         x, c = ft.fused_inputs(w4, dev)
         plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
-        kernel_ms = cuda_ms(lambda: ft.fused_call(plist, x, c, 0, cfg, lw, epochs, 1e-3), 3)
-        plain_ms = cuda_ms(lambda: ft._fused_call_plain(plist, x, c, 0, cfg, lw,
-                                                        epochs, 1e-3, None))
+        kernel_ms, _ = cuda_ms(lambda: ft.fused_call(plist, x, c, 0, cfg, lw, epochs,
+                                                     1e-3), 3)
+        plain_ms, _ = cuda_ms(lambda: ft._fused_call_plain(plist, x, c, 0, cfg, lw,
+                                                           epochs, 1e-3, None))
         with tempfile.TemporaryDirectory() as d:
             save_checkpoint(d, params, cfg, "sce4", hist)
             loaded, cfg2, _ = load_checkpoint(d, dev)
@@ -290,9 +406,160 @@ def main() -> int:
             if not (pos.max() < 1.0 and pos.mean() < 0.4 and dv.mean() < 0.2):
                 fail(f"tracking outside the SLSQP-oracle bands: {band}")
 
-    # ---- 7. kernels ---------------------------------------------------------
+
+    # ---- 7. K3 and K4 against their plain versions ------------------------
+    # a block takes ceil(steps / SMs) 32-row steps: one in the 4096- and
+    # 1000-row cases, five (and a short last chunk) in the 20,000-row one,
+    # 32 at the bench shape (phase 8)
+    with phase("k3_vs_plain", 90) as info:
+        rows = []
+        for n, tile, cd, noise, epoch_list in ((4096, 512, None, "packed", (1, 20)),
+                                               (4096, 512, "bfloat16", "hbm", (1, 20)),
+                                               (1000, 256, None, "prng", (5,)),
+                                               (20000, 256, None, "prng", (1, 5))):
+            w = scale_corpus(n)
+            eps = (np.random.default_rng(1).standard_normal((n, cfg.latent_dim))
+                   .astype(np.float32) if noise == "packed" else None)
+            nv, packed = fs._scale_inputs(w, cfg, tile, cd, eps, dev)
+            plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
+            for ep in epoch_list:
+                eps_all = (fs.hbm_noise(3, ep, packed.shape[0], cfg.latent_dim, cd, dev)
+                           if noise == "hbm" else None)
+                args = (plist, packed, 3, cfg, lw, ep, 1e-3, tile, float(nv), cd, noise,
+                        eps_all)
+                gaps, ok = k3_gaps(fs._fused_scale_call(*args),
+                                   fs._fused_scale_call_plain(*args), K3_TOL[(cd, ep)])
+                row = {"kernel": "K3", "n": n, "tile": tile, "dtype": cd or "float32",
+                       "noise": noise, "epochs": ep, **gaps}
+                rows.append(row)
+                emit({"k3_vs_plain": row})
+                if not ok:
+                    fail(f"K3 disagrees with its plain version: {row}")
+            if noise == "packed":
+                continue
+            # K4: one epoch's summed gradients and loss row
+            e0 = None if noise == "prng" else fs.hbm_noise(3, 1, packed.shape[0],
+                                                          cfg.latent_dim, cd, dev)
+            src = fs._eps_source(noise, cfg, tile, packed.shape[0], e0, 11, dev)
+            gaps, ok = k4_gaps(
+                fs._grad_epoch_call(plist, packed, 11, cfg, lw, tile, float(nv), cd,
+                                    noise, e0),
+                fs._plain_grad_epoch(plist, packed, tile, cfg, lw, float(nv), cd, src),
+                K4_TOL[cd])
+            row = {"kernel": "K4", "n": n, "tile": tile, "dtype": cd or "float32",
+                   "noise": noise, **gaps}
+            rows.append(row)
+            emit({"k3_vs_plain": row})
+            if not ok:
+                fail(f"K4 disagrees with its plain version: {row}")
+        info["cases"] = len(rows)
+
+    # ---- 8. train_scale: the production-scale path at the bench shape -----
+    ws = scale_corpus(SCALE_N)
+    with phase("train_scale", 120) as info:
+        fs._fused_scale_call.launches = 0
+        fs._grad_epoch_call.launches = 0
+        t0 = time.perf_counter()
+        sparams, shist = fs.fused_train_scale(ws, epochs=SCALE_EPOCHS, tile=SCALE_TILE,
+                                              compute_dtype="bfloat16", noise="hbm",
+                                              seed=0, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        k3_launches = fs._fused_scale_call.launches
+        if k3_launches != 1:
+            fail(f"fused_train_scale launched K3 {k3_launches} times, expected 1")
+        tot = shist["total"]
+        if not np.all(np.isfinite(np.stack(list(shist.values())))):
+            fail("non-finite production-scale training metrics")
+        if not tot[-1] < tot[0]:
+            fail(f"production-scale loss did not descend: {tot[0]} -> {tot[-1]}")
+        # times on the same inputs: K3 (median of 3), its plain version
+        nv, packed = fs._scale_inputs(ws, cfg, SCALE_TILE, "bfloat16", None, dev)
+        n_pad = packed.shape[0]
+        plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
+        eps_all = fs.hbm_noise(0, SCALE_EPOCHS, n_pad, cfg.latent_dim, "bfloat16", dev)
+        args = (plist, packed, 0, cfg, lw, SCALE_EPOCHS, 1e-3, SCALE_TILE, float(nv),
+                "bfloat16", "hbm", eps_all)
+        k3_ms, _ = cuda_ms(lambda: fs._fused_scale_call(*args), 3)
+        # the first PROBE_EPOCHS epochs of the same run: K3 against its plain
+        # version at the shape the main path gives it (32 steps a block)
+        probe = (*args[:5], PROBE_EPOCHS, *args[6:11], eps_all[:PROBE_EPOCHS * n_pad])
+        probe_ms, probe_plain = cuda_ms(lambda: fs._fused_scale_call_plain(*probe))
+        k3_bench, ok = k3_gaps(fs._fused_scale_call(*probe), probe_plain,
+                               K3_TOL[("bfloat16", PROBE_EPOCHS)])
+        k3_bench.update(n=SCALE_N, tile=SCALE_TILE, dtype="bfloat16", noise="hbm",
+                        epochs=PROBE_EPOCHS)
+        emit({"k3_vs_plain": {"kernel": "K3", **k3_bench}})
+        if not ok:
+            fail(f"K3 disagrees with its plain version at the bench shape: {k3_bench}")
+        del probe, probe_plain
+        if probe_ms * SCALE_EPOCHS / PROBE_EPOCHS <= 1e3 * PLAIN_BUDGET_S:
+            plain_epochs = SCALE_EPOCHS
+            k3_plain_ms, _ = cuda_ms(lambda: fs._fused_scale_call_plain(*args))
+        else:
+            plain_epochs = PROBE_EPOCHS
+            k3_plain_ms = probe_ms * SCALE_EPOCHS / PROBE_EPOCHS
+        del eps_all
+        # the CLI's default: pure float32
+        nv32, packed32 = fs._scale_inputs(ws, cfg, SCALE_TILE, None, None, dev)
+        eps32 = fs.hbm_noise(0, SCALE_EPOCHS, packed32.shape[0], cfg.latent_dim, None, dev)
+        k3_f32_ms, _ = cuda_ms(lambda: fs._fused_scale_call(
+            plist, packed32, 0, cfg, lw, SCALE_EPOCHS, 1e-3, SCALE_TILE, float(nv32),
+            None, "hbm", eps32))
+        del eps32, packed32
+        # the per-epoch tier through K4, and K4 alone
+        fs._grad_epoch_call.launches = 0
+        t0 = time.perf_counter()
+        _, dhist = fs.fused_train_scale_dp(ws, epochs=SCALE_EPOCHS, tile=SCALE_TILE,
+                                           compute_dtype="bfloat16", noise="hbm",
+                                           seed=0, device=dev)
+        torch.cuda.synchronize()
+        dp_wall_s = time.perf_counter() - t0
+        k4_launches = fs._grad_epoch_call.launches
+        if k4_launches != SCALE_EPOCHS:
+            fail(f"fused_train_scale_dp launched K4 {k4_launches} times, "
+                 f"expected {SCALE_EPOCHS}")
+        if not (np.all(np.isfinite(dhist["total"]))
+                and dhist["total"][-1] < dhist["total"][0]):
+            fail("the per-epoch tier did not descend")
+        # K4 and its plain version, timed and held against each other
+        e0 = fs.hbm_noise(0, 1, n_pad, cfg.latent_dim, "bfloat16", dev)
+        gargs = (plist, packed, 0, cfg, lw, SCALE_TILE, float(nv), "bfloat16", "hbm", e0)
+        k4_ms, k4_out = cuda_ms(lambda: fs._grad_epoch_call(*gargs), 3)
+        k4_plain_ms, k4_plain = cuda_ms(lambda: fs._plain_grad_epoch(
+            plist, packed, SCALE_TILE, cfg, lw, float(nv), "bfloat16",
+            fs._eps_source("hbm", cfg, SCALE_TILE, n_pad, e0, 0, dev)))
+        k4_bench, ok = k4_gaps(k4_out, k4_plain, K4_TOL["bfloat16"])
+        k4_bench.update(n=SCALE_N, tile=SCALE_TILE, dtype="bfloat16", noise="hbm")
+        emit({"k3_vs_plain": {"kernel": "K4", **k4_bench}})
+        if not ok:
+            fail(f"K4 disagrees with its plain version at the bench shape: {k4_bench}")
+        del k4_out, k4_plain
+        with tempfile.TemporaryDirectory() as d:
+            save_checkpoint(d, sparams, cfg, "scale", shist)
+            loaded, cfg2, _ = load_checkpoint(d, dev)
+            same = all(torch.equal(loaded[k][q], sparams[k][q])
+                       for k in sparams for q in ("w", "b"))
+        if not same or cfg2 != cfg:
+            fail("checkpoint round trip changed the production-scale params")
+        info.update(n=SCALE_N, epochs=SCALE_EPOCHS, tile=SCALE_TILE, dtype="bfloat16",
+                    noise="hbm", k3_launches=k3_launches, main_path_s=wall_s,
+                    loss_first=float(tot[0]), loss_last=float(tot[-1]),
+                    k3_ms=k3_ms, k3_plain_ms=k3_plain_ms, plain_epochs_timed=plain_epochs,
+                    k3_f32_ms=k3_f32_ms, windows_per_s=SCALE_N * SCALE_EPOCHS / (k3_ms / 1e3),
+                    dp_wall_s=dp_wall_s, k4_launches=k4_launches, k4_ms=k4_ms,
+                    k4_plain_ms=k4_plain_ms, dp_loss_last=float(dhist["total"][-1]),
+                    card=card)
+
+    # ---- 9. kernels ---------------------------------------------------------
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)
+    width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1
+    k3_flops, k3_bytes = scale_flops_bytes(cfg, SCALE_N, SCALE_EPOCHS, True, 2, width)
+    k3_bound, k3_by = bound(k3_flops, k3_bytes, BF16_FLOPS)
+    k4_flops, k4_bytes = scale_flops_bytes(cfg, SCALE_N, 1, False, 2, width)
+    k4_bound, k4_by = bound(k4_flops, k4_bytes, BF16_FLOPS)
+    scale_src = f"{PKG}/csrc/fused_scale.cu"
     emit({"kernels": [{
         "name": "k1_fused_trainer",
         "route": "cuda",
@@ -307,6 +574,42 @@ def main() -> int:
         "library_ms": None,
         "one_sm_bound_ms": bound_ms * 132,
         "flops": flops,
+        "card": card,
+    }, {
+        "name": "k3_fused_scale",
+        "route": "cuda",
+        "source": scale_src,
+        "replaces": "defensive_model_vae_tpu/ops/fused_scale.py:191",
+        "launches": k3_launches,
+        # at the bench shape, over its first PROBE_EPOCHS epochs
+        "max_abs_err": k3_bench["params_max_abs"],
+        "max_abs_err_epochs": PROBE_EPOCHS,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3_bound,
+        "bound_by": k3_by,
+        "library_ms": None,
+        "fp32_fma_bound_ms": 1e3 * k3_flops / FP32_FLOPS,
+        "f32_ms": k3_f32_ms,
+        "flops": k3_flops,
+        "card": card,
+    }, {
+        "name": "k4_grad_epoch",
+        "route": "cuda",
+        "source": scale_src,
+        "replaces": "defensive_model_vae_tpu/ops/fused_scale.py:500",
+        "launches": k4_launches,
+        # at the bench shape; its gradients are of order 1e14 at the
+        # initial params, so also the error as a fraction of each array's max
+        "max_abs_err": k4_bench["grad_max_abs"],
+        "max_rel_err": k4_bench["grad_max_rel_to_array_max"],
+        "ms": k4_ms,
+        "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound,
+        "bound_by": k4_by,
+        "library_ms": None,
+        "fp32_fma_bound_ms": 1e3 * k4_flops / FP32_FLOPS,
+        "flops": k4_flops,
         "card": card,
     }]})
     emit({"ok": True, "device": {"platform": "gpu",

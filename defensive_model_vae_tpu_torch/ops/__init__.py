@@ -1,3 +1,5 @@
+from .fused_scale import fused_scale_reference, fused_train_scale, fused_train_scale_dp
 from .fused_trainer import FUSED_METRIC_KEYS, fused_call, fused_train
 
-__all__ = ["FUSED_METRIC_KEYS", "fused_call", "fused_train"]
+__all__ = ["FUSED_METRIC_KEYS", "fused_call", "fused_scale_reference", "fused_train",
+           "fused_train_scale", "fused_train_scale_dp"]

@@ -42,6 +42,34 @@ KERNELS: Dict[str, tuple] = {
         "k1_param_floats": (ctypes.c_longlong, []),
         "k1_work_floats": (ctypes.c_longlong, [ctypes.c_int]),
     }),
+    "fused_scale": ("fused_scale.cu", {
+        "k3_train": (ctypes.c_int, [
+            _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
+            ctypes.c_int, ctypes.c_int,        # bf16, noise mode
+            ctypes.c_longlong, ctypes.c_int,   # n_pad, tile
+            ctypes.c_float, ctypes.c_int,      # n_valid, epochs
+            ctypes.c_float,                    # lr
+            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+            ctypes.c_float, ctypes.c_float,    # start, time
+            ctypes.c_ulonglong,                # seed
+            _P, _P, _P, ctypes.c_int,          # params, m|v, partials, SM count
+            _P, _P,                            # metrics, stream
+        ]),
+        "k4_grad_epoch": (ctypes.c_int, [
+            _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
+            ctypes.c_int, ctypes.c_int,        # bf16, noise mode
+            ctypes.c_longlong, ctypes.c_int,   # n_pad, tile
+            ctypes.c_float,                    # n_valid
+            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+            ctypes.c_float, ctypes.c_float,    # start, time
+            ctypes.c_ulonglong,                # prng stream base
+            _P, _P, ctypes.c_int,              # params, partials, SM count
+            _P, _P, _P,                        # grad, loss row, stream
+        ]),
+        "ks_param_floats": (ctypes.c_longlong, []),
+        "ks_partial_floats": (ctypes.c_longlong, []),
+        "ks_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
+    }),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

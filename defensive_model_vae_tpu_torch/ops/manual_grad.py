@@ -1,17 +1,28 @@
-"""Hand-written backward of the CVAE loss — plain torch, float32.
+"""Hand-written backward of the CVAE loss — plain torch.
 
-Port of the f32 path of ``defensive_model_vae_tpu/ops/manual_grad.py``
-(``manual_value_and_grad`` :65).  It is the plain version of kernel K1's
-backward and the written specification of the CUDA backward in
-``csrc/fused_trainer.cu``, which follows it phase by phase:
+Port of ``defensive_model_vae_tpu/ops/manual_grad.py``
+(``manual_value_and_grad`` :65), its float32 path and its ``f32_acts``
+mixed mode.  It is the plain version of the backward of kernels K1, K3 and
+K4 and the written specification of the CUDA backward in
+``csrc/fused_trainer.cu`` and ``csrc/fused_scale.cu``, which follow it
+phase by phase:
 
 - the μ/logσ² head is merged into one (2H, 2Z) weight, so its forward,
   dW and d_hcat products are each one product;
 - the recon/start/time cotangents are fused into one d_recon;
 - no gradients are taken for the inputs x, cond or ε.
 
-``chain_cd``, the bf16 compute dtype and the ablation modes of the JAX
-function come with the production-scale trainer (K3).
+``compute_dtype="bfloat16"`` is the JAX ``f32_acts`` mode: the two operands
+of every product — forward, activation gradient and weight gradient — are
+rounded to bf16 (round to nearest even) and the product accumulates in
+float32 (a product of two bf16 values is exact in float32).  The time
+differences, the bias gradients (float32 sums of the float32 cotangent),
+the μ/logσ² head math and the loss stay float32 and unrounded.  With
+``compute_dtype=None`` every rounding is the identity, so the float32 path
+is exactly the one K1's plain version has always run.
+
+``chain_cd`` and the ablation levers (``bias_via_dot``, ``dw_mode``,
+``grads_mode``) serve only the JAX ablation script and come with its port.
 """
 
 from __future__ import annotations
@@ -31,32 +42,55 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
                           cond: torch.Tensor, eps: torch.Tensor,
                           cfg: CVAEConfig, w: LossWeights,
                           mask: Optional[torch.Tensor] = None,
-                          n_valid: Optional[float] = None
+                          n_valid: Optional[float] = None,
+                          compute_dtype: Optional[str] = None,
                           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Forward loss + parameter gradients.
 
     Returns ``(comps, grads)``: ``comps`` the (5,) row ``[total, recon,
     kld, start, time]`` and ``grads`` in ``plist``'s flat ``_LAYERS``
     layout ``[W, b(1, -1), ...]`` — what autograd of
-    ``fused_trainer._forward_loss`` returns, up to summation order."""
+    ``fused_trainer._forward_loss`` returns, up to summation order.
+    ``compute_dtype``: None (float32) or ``"bfloat16"`` (the ``f32_acts``
+    mode, module docstring)."""
+    if compute_dtype is None:
+        def dc(a):
+            return a
+    elif compute_dtype == "bfloat16":
+        def dc(a):  # a product operand, rounded to bf16 and held in float32
+            return a.to(torch.bfloat16).float()
+    else:
+        raise ValueError(f"compute_dtype must be None or 'bfloat16' (got {compute_dtype!r})")
+
+    def fdot(a, w):  # forward product
+        return dc(a) @ dc(w)
+
+    def ddot_act(dy, w):  # dy · wᵀ
+        return dc(dy) @ dc(w).t()
+
+    def ddot_w(a, dy):  # aᵀ · dy
+        return dc(a).t() @ dc(dy)
+
     T, D, Z, H = cfg.seq_len, cfg.dim, cfg.latent_dim, cfg.hidden_dim
     F = T * D
     p = {n: (plist[2 * i], plist[2 * i + 1]) for i, n in enumerate(_LAYERS)}
     x = x_flat.float()
+    cond = cond.float()
+    eps = eps.float()
     B = x.shape[0]
 
     # ---- forward (saves post-relu activations) --------------------------
-    c0 = torch.relu(cond @ p["cond_0"][0] + p["cond_0"][1])
-    hc = torch.relu(c0 @ p["cond_1"][0] + p["cond_1"][1])
+    c0 = torch.relu(fdot(cond, p["cond_0"][0]) + p["cond_0"][1])
+    hc = torch.relu(fdot(c0, p["cond_1"][0]) + p["cond_1"][1])
     enc_in = []
     h = x
     for name in _ENC:
         enc_in.append(h)
-        h = torch.relu(h @ p[name][0] + p[name][1])
+        h = torch.relu(fdot(h, p[name][0]) + p[name][1])
     hcat = torch.cat([h, hc], dim=1)
     w_ml = torch.cat([p["fc_mu"][0], p["fc_logvar"][0]], dim=1)
     b_ml = torch.cat([p["fc_mu"][1], p["fc_logvar"][1]], dim=1)
-    ml = hcat @ w_ml + b_ml
+    ml = fdot(hcat, w_ml) + b_ml
     mu, logvar = ml[:, :Z], ml[:, Z:]
     std = torch.exp(0.5 * logvar)
     z = mu + eps * std
@@ -64,9 +98,9 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     dec_in = [gin]
     g = gin
     for name in _DEC[:3]:
-        g = torch.relu(g @ p[name][0] + p[name][1])
+        g = torch.relu(fdot(g, p[name][0]) + p[name][1])
         dec_in.append(g)
-    recon = g @ p["dec_3"][0] + p["dec_3"][1]
+    recon = fdot(g, p["dec_3"][0]) + p["dec_3"][1]
 
     # ---- loss ------------------------------------------------------------
     if mask is None:
@@ -108,8 +142,8 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     grads = {}
 
     def back_linear(name, a_in, dy):
-        grads[name] = (a_in.t() @ dy, torch.sum(dy, dim=0, keepdim=True))
-        return dy @ p[name][0].t()
+        grads[name] = (ddot_w(a_in, dy), torch.sum(dy, dim=0, keepdim=True))
+        return ddot_act(dy, p[name][0])
 
     dy = d_recon
     for i in (3, 2, 1, 0):
@@ -123,11 +157,11 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     d_mu = dz + kS * m_col * mu
     d_logvar = dz * eps * (0.5 * std) - (0.5 * kS) * m_col * (1.0 - torch.exp(logvar))
     d_ml = torch.cat([d_mu, d_logvar], dim=1)
-    dw_ml = hcat.t() @ d_ml
+    dw_ml = ddot_w(hcat, d_ml)
     db_ml = torch.sum(d_ml, dim=0, keepdim=True)
     grads["fc_mu"] = (dw_ml[:, :Z], db_ml[:, :Z])
     grads["fc_logvar"] = (dw_ml[:, Z:], db_ml[:, Z:])
-    d_hcat = d_ml @ w_ml.t()
+    d_hcat = ddot_act(d_ml, w_ml)
     dhc = dhc_dec + d_hcat[:, H:]
 
     enc_out = enc_in[1:] + [h]
@@ -135,12 +169,12 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     for i in (3, 2, 1):
         d_prev = back_linear(_ENC[i], enc_in[i], dy)
         dy = d_prev * (enc_out[i - 1] > 0).float()
-    grads["enc_0"] = (enc_in[0].t() @ dy, torch.sum(dy, dim=0, keepdim=True))
+    grads["enc_0"] = (ddot_w(enc_in[0], dy), torch.sum(dy, dim=0, keepdim=True))
 
     dy = dhc * (hc > 0).float()
     d_c0 = back_linear("cond_1", c0, dy)
     dy = d_c0 * (c0 > 0).float()
-    grads["cond_0"] = (cond.t() @ dy, torch.sum(dy, dim=0, keepdim=True))
+    grads["cond_0"] = (ddot_w(cond, dy), torch.sum(dy, dim=0, keepdim=True))
 
     flat = []
     for name in _LAYERS:
