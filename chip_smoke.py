@@ -27,7 +27,25 @@ traceback and a non-zero exit:
                    first 10 epochs; a float32 run; a per-epoch
                    ``fused_train_scale_dp`` run through K4; K4 timed and held
                    against its plain version; a checkpoint round trip;
-9. ``kernels``     one line listing every ported kernel with its launches on
+9. ``k2_vs_plain`` kernel K2 against its plain (padded and masked) torch
+                   version on the card: the four fixture corpora, explicit ε,
+                   1 and 50 epochs; and K1 on a grid of 4 seeds against K1's
+                   plain version once per seed;
+10. ``multi``      the path that trains every scenario's model:
+                   ``fused_train_multi`` on the four corpora at 3000 epochs
+                   in one K2 launch, each scenario converging (last <
+                   first/5); K2 timed against its plain version; at 300
+                   epochs each scenario held against ``fused_train`` with
+                   seed + i; each model sampled and tracked with its
+                   scenario's tracker, controls within bounds;
+11. ``track_multi`` ``generate_and_track_multi_from_starts`` with 4
+                   generation seeds on the sce2 model, row by row against
+                   per-seed ``generate_and_track_from_starts``;
+12. ``seeds``      the seed sweep: ``fused_train_seeds`` on sce4, 32 seeds ×
+                   3000 epochs in one launch of K1 on 32 blocks, every seed
+                   converging; timed against the plain version; at 300
+                   epochs 4 seeds bit for bit against ``fused_train``;
+13. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -66,6 +84,16 @@ HBM_BYTES_S = 3.35e12
 #   rows, which see every parameter, carry the tight check there.
 K1_TOL = {1: {"params_abs": 1e-4, "metrics_rel": 1e-5},
           50: {"params_abs": 1e-2, "metrics_rel": 1e-3}}
+# K2 and the seed grid against their plain versions: K1_TOL's numbers.  But
+# after fifty epochs a loss component that nears zero (the start loss, or the
+# hinge sum of the time loss) is chaotic: one float32 ulp on the initial
+# params moves it by up to 6e-2 of itself on the plain version alone, while
+# the total moves by 2e-4 (k2_vs_plain measures this beside each 50-epoch
+# row, "plain_one_ulp").  So there each component's gap is held against its
+# row's total loss, which the weighted components sum to; after one epoch
+# against the component itself, as K1's rows.
+GRID_TOL = {1: {**K1_TOL[1], "metrics_vs": "component"},
+            50: {**K1_TOL[50], "metrics_vs": "total"}}
 
 # K3 against its plain version, same inputs and the same ε on both (stated
 # tolerances), by three numbers:
@@ -96,6 +124,15 @@ K3_TOL = {(None, 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-
 # (float32: summation order; bf16: JAX's own bf16 rule), the loss row relative
 K4_TOL = {None: {"grad_rel_max": 1e-5, "row_rel": 1e-5},
           "bfloat16": {"grad_rel_max": 1e-2, "row_rel": 1e-4}}
+
+# the seed sweep of bench.py::bench_seed_grid (:718): 32 seeds of sce4 at
+# the reference depth; the plain versions of K1, K2 and the seed grid are
+# timed over these epochs (and seeds) on the same inputs and scaled up to the
+# kernels' work, which is linear in both
+SWEEP_SEEDS, DEPTH = 32, 3000
+PLAIN_K1_EPOCHS, PLAIN_MULTI_EPOCHS, PLAIN_SEEDS, PLAIN_SEEDS_EPOCHS = 300, 100, 2, 100
+# the bit-for-bit and per-scenario checks of K2 and the seed grid
+CHECK_EPOCHS, CHECK_SEEDS = 300, (0, 9, 22, 31)
 
 # the bench shape of the production-scale trainer (bench.py::bench_scale_fused)
 SCALE_N, SCALE_EPOCHS, SCALE_TILE = 131072, 200, 2048
@@ -180,6 +217,66 @@ def k4_gaps(kernel, plain, tol):
     return row, g_rel <= tol["grad_rel_max"] and r_rel <= tol["row_rel"]
 
 
+def grid_gaps(kernel, plain, tol):
+    """A grid's (stacked params, (S, E, 8) metrics) against its plain
+    version's → the row of gaps beside ``tol`` (GRID_TOL's), and whether
+    they are within it.  Each metrics gap is reported relative to its
+    component and to its row's total; ``tol["metrics_vs"]`` says which is
+    held to ``tol["metrics_rel"]``."""
+    (pk, mk), (pp, mp) = kernel, plain
+    p_abs = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+    d = (mk[..., :5] - mp[..., :5]).abs()
+    m_rel = float((d / mp[..., :5].abs().clamp(min=1e-6)).max())
+    m_rel_total = float((d / mp[..., :1].abs().clamp(min=1e-6)).max())
+    held = m_rel if tol["metrics_vs"] == "component" else m_rel_total
+    row = {"params_max_abs": p_abs, "params_tol": tol["params_abs"],
+           "metrics_max_rel": m_rel, "metrics_max_rel_to_total": m_rel_total,
+           "metrics_tol": tol["metrics_rel"], "metrics_held_vs": tol["metrics_vs"]}
+    return row, p_abs <= tol["params_abs"] and held <= tol["metrics_rel"]
+
+
+def one_ulp(stacked, seed=1):
+    """The stacked params times (1 + 2⁻²³·n), n ~ N(0, 1): one float32 ulp
+    of noise, to measure how far the plain version alone drifts from it."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return tuple(a * (1 + 2.0 ** -23 * torch.randn(a.shape, generator=g).to(a.device))
+                 for a in stacked)
+
+
+def check_tracked(traces, mpc, what):
+    """Finite tracked states whose controls, read off the states, are within
+    the bounds: |Δv| ≤ a_max·dt and |Δθ| ≤ |v|·tan(δ_max)/L·dt.  → steps."""
+    import numpy as np
+
+    steps = 0
+    for tr in traces:
+        if not np.all(np.isfinite(tr)):
+            fail(f"non-finite tracked states ({what})")
+        dv = np.abs(np.diff(tr[:, 3]))
+        dth = np.abs(np.diff(tr[:, 2]))
+        lim = np.abs(tr[:-1, 3]) * np.tan(mpc.max_steer) / mpc.wheelbase * mpc.dt
+        if dv.max() > mpc.max_accel * mpc.dt * (1 + 1e-4) or np.any(dth > lim * (1 + 1e-4) + 1e-6):
+            fail(f"tracked states imply controls outside the bounds ({what})")
+        steps += len(tr) - 1
+    return steps
+
+
+def converged(hist_by, what):
+    """Every run's loss finite and its last epoch below a fifth of its first
+    (bench.py:704-712) → {run: [first, last]}."""
+    import numpy as np
+
+    out = {}
+    for k, h in hist_by.items():
+        first, last = float(h["total"][0]), float(h["total"][-1])
+        if not (np.all(np.isfinite(np.stack(list(h.values())))) and last < first / 5):
+            fail(f"{what}: run {k} did not converge: loss {first} -> {last}")
+        out[str(k)] = [first, last]
+    return out
+
+
 def window_epoch_flops(cfg):
     """The products of one window in one epoch: the forward, the weight
     gradients and the activation gradients (none for the inputs of cond_0
@@ -198,6 +295,18 @@ def k1_flops_bytes(cfg, B, epochs):
     flops = epochs * (B * window_epoch_flops(cfg) + 10 * n_params)
     nbytes = 4 * (B * (cfg.seq_len * cfg.dim + cfg.cond_dim + cfg.latent_dim)
                   + 2 * n_params + 8 * epochs)
+    return flops, nbytes
+
+
+def grid_flops_bytes(cfg, rows, input_rows, epochs):
+    """A grid of whole runs (K2, the seed grid) from this run's shapes: each
+    run's products on its ``rows[s]`` rows and its Adam; the bytes of the
+    ``input_rows`` rows of x and cond read once, each run's params in and
+    out and its metrics (Philox noise reads nothing)."""
+    n_params = cfg.n_params()
+    flops = epochs * sum(b * window_epoch_flops(cfg) + 10 * n_params for b in rows)
+    nbytes = 4 * (input_rows * (cfg.seq_len * cfg.dim + cfg.cond_dim)
+                  + len(rows) * (2 * n_params + 8 * epochs))
     return flops, nbytes
 
 
@@ -243,7 +352,7 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
     from defensive_model_vae_tpu_torch.pipeline import (
         _draw_valid_samples, default_mpc_cfg, fixture_starts,
-        generate_and_track_from_starts)
+        generate_and_track_from_starts, generate_and_track_multi_from_starts)
     from defensive_model_vae_tpu_torch.train import load_checkpoint, save_checkpoint
 
     dev = resolve_device("cuda")
@@ -275,7 +384,7 @@ def main() -> int:
         built = _build.build_all()
         for name, b in built.items():
             ptxas = [ln.strip() for ln in b["log"].splitlines()
-                     if "registers" in ln or "spill" in ln]
+                     if "registers" in ln or "spill" in ln or "entry function" in ln]
             info[name] = {"seconds": b["seconds"], "cached": b["cached"], "ptxas": ptxas}
             _build.load(name)
 
@@ -331,8 +440,9 @@ def main() -> int:
         plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
         kernel_ms, _ = cuda_ms(lambda: ft.fused_call(plist, x, c, 0, cfg, lw, epochs,
                                                      1e-3), 3)
-        plain_ms, _ = cuda_ms(lambda: ft._fused_call_plain(plist, x, c, 0, cfg, lw,
-                                                           epochs, 1e-3, None))
+        plain_part_ms, _ = cuda_ms(lambda: ft._fused_call_plain(
+            plist, x, c, 0, cfg, lw, PLAIN_K1_EPOCHS, 1e-3, None))
+        plain_ms = plain_part_ms * epochs / PLAIN_K1_EPOCHS
         with tempfile.TemporaryDirectory() as d:
             save_checkpoint(d, params, cfg, "sce4", hist)
             loaded, cfg2, _ = load_checkpoint(d, dev)
@@ -342,7 +452,8 @@ def main() -> int:
             fail("checkpoint round trip changed the params")
         info.update(epochs=epochs, B=len(w4), launches=launches, main_path_s=wall,
                     loss_first=float(tot[0]), loss_last=float(tot[-1]),
-                    kernel_ms=kernel_ms, plain_ms=plain_ms, card=card)
+                    kernel_ms=kernel_ms, plain_ms=plain_ms,
+                    plain_epochs_timed=PLAIN_K1_EPOCHS, card=card)
 
     # ---- 5. sample ----------------------------------------------------------
     starts, inits = fixture_starts(w4)
@@ -363,18 +474,7 @@ def main() -> int:
         info["generate_and_track_s"] = time.perf_counter() - t0
         if len(traces) != int(ok.sum()):
             fail("tracked fewer paths than valid samples")
-        steps = 0
-        for tr in traces:
-            if not np.all(np.isfinite(tr)):
-                fail("non-finite tracked states")
-            # bounded controls, read off the states: |Δv| ≤ a_max·dt and
-            # |Δθ| ≤ |v|·tan(δ_max)/L·dt
-            dv = np.abs(np.diff(tr[:, 3]))
-            dth = np.abs(np.diff(tr[:, 2]))
-            lim = np.abs(tr[:-1, 3]) * np.tan(mpc.max_steer) / mpc.wheelbase * mpc.dt
-            if dv.max() > mpc.max_accel * mpc.dt * (1 + 1e-4) or np.any(dth > lim * (1 + 1e-4) + 1e-6):
-                fail("tracked states imply controls outside the bounds")
-            steps += len(tr) - 1
+        steps = check_tracked(traces, mpc, "sce4")
         info.update(n_tracked=len(traces), tracked_steps=steps)
 
         # the SLSQP golden windows (tests/test_mpc.py:124-148)
@@ -551,7 +651,181 @@ def main() -> int:
                     k4_plain_ms=k4_plain_ms, dp_loss_last=float(dhist["total"][-1]),
                     card=card)
 
-    # ---- 9. kernels ---------------------------------------------------------
+    # ---- 9. K2 and the seed grid against their plain versions ------------
+    corpora = {k: np.load(scenarios.get(k).fixture_windows)
+               for k in ("sce1", "sce2", "sce3", "sce4")}
+    keys = sorted(corpora)
+
+    def ragged(seeds):
+        """The four corpora as fused_train_multi hands them to K2, with the
+        runs' initial params from ``seeds``."""
+        ins = [ft.fused_inputs(corpora[k], dev) for k in keys]
+        off = np.concatenate([[0], np.cumsum([len(a) for a, _ in ins])]).tolist()
+        st = ft.stack_flat_params([init_params(torch.Generator().manual_seed(q), cfg, dev)
+                                   for q in seeds])
+        return (st, torch.cat([a for a, _ in ins]).contiguous(),
+                torch.cat([b for _, b in ins]).contiguous(), off)
+
+    k2_err, seeds_err = {}, {}
+    with phase("k2_vs_plain", 120) as info:
+        rows = []
+        mseeds = list(range(len(keys)))
+        st, x, c, off = ragged(mseeds)
+        eps = torch.as_tensor(np.random.default_rng(9).standard_normal(
+            (x.shape[0], cfg.latent_dim)).astype(np.float32)).to(dev)
+        for ep in (1, 50):
+            plain = ft._fused_multi_call_plain(st, x, c, off, mseeds, cfg, lw, ep, 1e-3, eps)
+            gaps, ok = grid_gaps(ft._fused_multi_call(st, x, c, off, mseeds, cfg, lw, ep,
+                                                      1e-3, eps), plain, GRID_TOL[ep])
+            row = {"kernel": "K2", "rows": off, "epochs": ep, **gaps}
+            if ep > 1:
+                row["plain_one_ulp"] = grid_gaps(ft._fused_multi_call_plain(
+                    one_ulp(st), x, c, off, mseeds, cfg, lw, ep, 1e-3, eps), plain,
+                    GRID_TOL[ep])[0]
+            rows.append(row)
+            emit({"k2_vs_plain": row})
+            if not ok:
+                fail(f"K2 disagrees with its plain version: {row}")
+            k2_err["max_abs_err"] = gaps["params_max_abs"]
+        x4, c4 = ft.fused_inputs(w4, dev)
+        gseeds = [0, 1, 2, 3]
+        st4 = ft.stack_flat_params([init_params(torch.Generator().manual_seed(q), cfg, dev)
+                                    for q in gseeds])
+        eps4 = torch.as_tensor(np.random.default_rng(9).standard_normal(
+            (len(gseeds), len(w4), cfg.latent_dim)).astype(np.float32)).to(dev)
+        gaps, ok = grid_gaps(ft._fused_seeds_call(st4, x4, c4, gseeds, cfg, lw, 50, 1e-3, eps4),
+                             ft._fused_seeds_call_plain(st4, x4, c4, gseeds, cfg, lw, 50, 1e-3,
+                                                        eps4), GRID_TOL[50])
+        row = {"kernel": "K1 seed grid", "B": len(w4), "seeds": len(gseeds), "epochs": 50,
+               **gaps}
+        rows.append(row)
+        emit({"k2_vs_plain": row})
+        if not ok:
+            fail(f"the seed grid disagrees with its plain version: {row}")
+        seeds_err["max_abs_err"] = gaps["params_max_abs"]
+        info["cases"] = len(rows)
+
+    # ---- 10. multi: every scenario's model in one K2 launch ---------------
+    with phase("multi", 300) as info:
+        ft._fused_multi_call.launches = 0
+        t0 = time.perf_counter()
+        mparams, mhist = ft.fused_train_multi(corpora, epochs=DEPTH, seed=0, device=dev)
+        torch.cuda.synchronize()
+        multi_wall = time.perf_counter() - t0
+        k2_launches = ft._fused_multi_call.launches
+        if k2_launches != 1:
+            fail(f"fused_train_multi launched K2 {k2_launches} times, expected 1")
+        losses = converged(mhist, "fused_train_multi")
+        # K2 and its plain version on the main path's inputs
+        st, x, c, off = ragged(range(len(keys)))
+        k2_ms, _ = cuda_ms(lambda: ft._fused_multi_call(st, x, c, off, range(len(keys)), cfg,
+                                                        lw, DEPTH, 1e-3))
+        plain_part_ms, _ = cuda_ms(lambda: ft._fused_multi_call_plain(
+            st, x, c, off, range(len(keys)), cfg, lw, PLAIN_MULTI_EPOCHS, 1e-3))
+        k2_plain_ms = plain_part_ms * DEPTH / PLAIN_MULTI_EPOCHS
+        # the ragged design: scenario i is fused_train with seed i, exactly
+        p_chk, h_chk = ft.fused_train_multi(corpora, epochs=CHECK_EPOCHS, seed=0, device=dev)
+        vs_single = {}
+        for i, k in enumerate(keys):
+            p1, h1 = ft.fused_train(corpora[k], epochs=CHECK_EPOCHS, seed=i, device=dev)
+            vs_single[k] = {
+                "params_max_abs": max(float((p_chk[k][n][q] - p1[n][q]).abs().max())
+                                      for n in p1 for q in ("w", "b")),
+                "metrics_max_abs": max(float(np.abs(h_chk[k][m] - h1[m]).max()) for m in h1)}
+        gap = max(v["params_max_abs"] for v in vs_single.values())
+        emit({"multi_vs_fused_train": {"epochs": CHECK_EPOCHS, "per_scenario": vs_single,
+                                       "params_tol": K1_TOL[50]["params_abs"]}})
+        if gap > K1_TOL[50]["params_abs"]:
+            fail(f"K2's runs differ from fused_train per scenario by {gap}")
+        # each scenario's model sampled and tracked with its own tracker
+        tracked, seed0_traces = {}, {}
+        for k in keys:
+            sce = scenarios.get(k)
+            starts_k, inits_k = fixture_starts(corpora[k])
+            mpc_k = default_mpc_cfg(sce)
+            t0 = time.perf_counter()
+            traces_k, idx_k = generate_and_track_from_starts(mparams[k], cfg, starts_k, inits_k,
+                                                             seed=0, mpc_cfg=mpc_k)
+            if not len(traces_k):
+                fail(f"no valid sample of the {k} model")
+            tracked[k] = {"n_starts": len(starts_k), "n_tracked": len(traces_k),
+                          "tracked_steps": check_tracked(traces_k, mpc_k, k),
+                          "seconds": time.perf_counter() - t0}
+            seed0_traces[k] = (traces_k, idx_k)
+        info.update(epochs=DEPTH, rows=off, k2_launches=k2_launches, main_path_s=multi_wall,
+                    losses=losses, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
+                    plain_epochs_timed=PLAIN_MULTI_EPOCHS, vs_fused_train_max_abs=gap,
+                    tracked=tracked, card=card)
+
+    # ---- 11. track_multi: several generation seeds in one tracking batch --
+    with phase("track_multi", 120) as info:
+        sce2 = scenarios.get("sce2")
+        starts2, inits2 = fixture_starts(corpora["sce2"])
+        mpc2 = default_mpc_cfg(sce2)
+        gseeds = [0, 1, 2, 3]
+        t0 = time.perf_counter()
+        multi = generate_and_track_multi_from_starts(mparams["sce2"], cfg, starts2, inits2,
+                                                     gseeds, mpc2)
+        info["multi_s"] = time.perf_counter() - t0
+        # the JAX package's tolerance for the same comparison
+        # (tests/test_pipeline.py:99): sce2's coordinates are 108-186 m,
+        # where one float32 ulp is 1.53e-5 m, and batched products of another
+        # batch width may round a step's state an ulp or two apart
+        worst, rows_n, close = 0.0, 0, True
+        for q in gseeds:
+            ref = (seed0_traces["sce2"] if q == 0 else generate_and_track_from_starts(
+                mparams["sce2"], cfg, starts2, inits2, seed=q, mpc_cfg=mpc2))
+            traces_q, idx_q = multi[q]
+            if not np.array_equal(idx_q, ref[1]) or len(traces_q) != len(ref[0]):
+                fail(f"multi-seed tracker kept other rows than seed {q}'s own call")
+            check_tracked(traces_q, mpc2, f"multi-seed tracker, seed {q}")
+            for a, b in zip(traces_q, ref[0]):
+                if a.shape != b.shape:
+                    fail(f"multi-seed tracker: another step count than seed {q}'s own call")
+                worst = max(worst, float(np.abs(a[:, :2] - b[:, :2]).max()))
+                close &= bool(np.allclose(a, b, rtol=1e-5, atol=1e-4))
+            rows_n += len(traces_q)
+        info.update(seeds=gseeds, rows=rows_n, pos_max_abs_m=worst, rtol=1e-5, atol=1e-4)
+        if not close:
+            fail(f"multi-seed tracker differs from per-seed tracking (pos {worst} m)")
+
+    # ---- 12. seeds: the seed sweep in one launch of K1 on 32 blocks -------
+    with phase("seeds", 300) as info:
+        sweep = list(range(SWEEP_SEEDS))
+        ft._fused_seeds_call.launches = 0
+        t0 = time.perf_counter()
+        _, swhist = ft.fused_train_seeds(w4, sweep, epochs=DEPTH, device=dev)
+        torch.cuda.synchronize()
+        seeds_wall = time.perf_counter() - t0
+        seeds_launches = ft._fused_seeds_call.launches
+        if seeds_launches != 1:
+            fail(f"fused_train_seeds launched {seeds_launches} times, expected 1")
+        losses = converged(swhist, "fused_train_seeds")
+        x4, c4 = ft.fused_inputs(w4, dev)
+        st = ft.stack_flat_params([init_params(torch.Generator().manual_seed(q), cfg, dev)
+                                   for q in sweep])
+        seeds_ms, _ = cuda_ms(lambda: ft._fused_seeds_call(st, x4, c4, sweep, cfg, lw, DEPTH,
+                                                           1e-3))
+        st_p = tuple(a[:PLAIN_SEEDS] for a in st)
+        plain_part_ms, _ = cuda_ms(lambda: ft._fused_seeds_call_plain(
+            st_p, x4, c4, sweep[:PLAIN_SEEDS], cfg, lw, PLAIN_SEEDS_EPOCHS, 1e-3))
+        seeds_plain_ms = (plain_part_ms * (SWEEP_SEEDS / PLAIN_SEEDS)
+                          * (DEPTH / PLAIN_SEEDS_EPOCHS))
+        # bit for bit against fused_train, at the main path's grid of 32
+        p_chk, h_chk = ft.fused_train_seeds(w4, sweep, epochs=CHECK_EPOCHS, device=dev)
+        for q in CHECK_SEEDS:
+            p1, h1 = ft.fused_train(w4, epochs=CHECK_EPOCHS, seed=q, device=dev)
+            if not (all(torch.equal(p_chk[q][n][k], p1[n][k]) for n in p1 for k in ("w", "b"))
+                    and all(np.array_equal(h_chk[q][m], h1[m]) for m in h1)):
+                fail(f"seed {q} of the seed grid is not fused_train's run bit for bit")
+        info.update(seeds=SWEEP_SEEDS, epochs=DEPTH, B=len(w4), launches=seeds_launches,
+                    main_path_s=seeds_wall, kernel_ms=seeds_ms, plain_ms=seeds_plain_ms,
+                    plain_timed=[PLAIN_SEEDS, PLAIN_SEEDS_EPOCHS],
+                    bit_identical_seeds=list(CHECK_SEEDS), check_epochs=CHECK_EPOCHS,
+                    loss_first_max=max(v[0] for v in losses.values()),
+                    loss_last_max=max(v[1] for v in losses.values()), card=card)
+
+    # ---- 13. kernels --------------------------------------------------------
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)
     width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1
@@ -560,6 +834,13 @@ def main() -> int:
     k4_flops, k4_bytes = scale_flops_bytes(cfg, SCALE_N, 1, False, 2, width)
     k4_bound, k4_by = bound(k4_flops, k4_bytes, BF16_FLOPS)
     scale_src = f"{PKG}/csrc/fused_scale.cu"
+    k2_rows = [len(corpora[k]) for k in keys]
+    k2_flops, k2_bytes = grid_flops_bytes(cfg, k2_rows, sum(k2_rows), DEPTH)
+    k2_bound, k2_by = bound(k2_flops, k2_bytes, FP32_FLOPS)
+    sw_flops, sw_bytes = grid_flops_bytes(cfg, [len(w4)] * SWEEP_SEEDS, len(w4), DEPTH)
+    sw_bound, sw_by = bound(sw_flops, sw_bytes, FP32_FLOPS)
+    # a block runs on one SM: the largest run alone at one SM's share
+    one_sm_ms = 1e3 * grid_flops_bytes(cfg, [max(k2_rows)], 0, DEPTH)[0] / (FP32_FLOPS / 132)
     emit({"kernels": [{
         "name": "k1_fused_trainer",
         "route": "cuda",
@@ -574,6 +855,40 @@ def main() -> int:
         "library_ms": None,
         "one_sm_bound_ms": bound_ms * 132,
         "flops": flops,
+        "card": card,
+    }, {
+        "name": "k1_fused_trainer_seed_grid",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/fused_trainer.cu",
+        "replaces": "defensive_model_vae_tpu/ops/fused_trainer.py:326",
+        "launches": seeds_launches,
+        "blocks": SWEEP_SEEDS,
+        # the 4-seed grid against its plain version, 50 epochs, explicit ε
+        "max_abs_err": seeds_err["max_abs_err"],
+        "ms": seeds_ms,
+        "plain_ms": seeds_plain_ms,
+        "bound_ms": sw_bound,
+        "bound_by": sw_by,
+        "library_ms": None,
+        "one_sm_per_block_bound_ms": one_sm_ms,
+        "flops": sw_flops,
+        "card": card,
+    }, {
+        "name": "k2_fused_train_multi",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/fused_trainer.cu",
+        "replaces": "defensive_model_vae_tpu/ops/fused_trainer.py:454",
+        "launches": k2_launches,
+        "blocks": len(keys),
+        # the four corpora against the plain version, 50 epochs, explicit ε
+        "max_abs_err": k2_err["max_abs_err"],
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+        "one_sm_largest_block_bound_ms": one_sm_ms,
+        "flops": k2_flops,
         "card": card,
     }, {
         "name": "k3_fused_scale",

@@ -1,6 +1,6 @@
-// K1: the whole-run fused CVAE trainer, one thread block per training run.
+// K1 and K2: whole-run fused CVAE trainers, one thread block per training run.
 //
-// Replaces the Pallas kernel defensive_model_vae_tpu/ops/fused_trainer.py::
+// K1 replaces the Pallas kernel defensive_model_vae_tpu/ops/fused_trainer.py::
 // _make_kernel (:326), launched there by _fused_call (:375).  Same contract:
 // x (B, 30), cond (B, 2), an optional explicit eps (B, 8) held constant over
 // the epochs, a seed and the initial parameters go in; the final parameters
@@ -11,27 +11,43 @@
 // specification, phase by phase), and Adam with bias correction
 // 1 - exp(t ln b).
 //
+// K2 replaces _make_multi_kernel (:454), launched by _fused_multi_call
+// (:531): K1's run once per grid program over S models, each on its own
+// corpus and seed.  The same grid trains S seeds of one corpus
+// (fused_train_seeds, which the TPU runs as S launches of K1).
+//
 // Design.  The TPU kernel keeps params, Adam m and v and the activations in
 // VMEM for the whole run.  On Hopper, p + m + v of the 128,942-parameter
 // model come to 1.55 MB: more than one SM's 227 KB of shared memory, far
-// less than the 50 MB L2.  So this first version keeps them, the gradients
-// and the saved activations (about B x 1.9k floats) in device memory, where
-// they stay L2-resident, and runs the whole run in ONE thread block: a loop
-// over epochs inside the kernel, __syncthreads() between phases, and no
-// synchronisation between blocks (a grid-wide barrier deadlocks when the
-// blocks are not all resident).  Each layer's product is a 64 x 64 output
-// tile loop over shared-memory tiles in plain float32 FMA: no TF32 and no
-// tensor cores, which keeps parity with the float32 JAX reference.  The
-// grid is (1,); a grid of S blocks is K2's shape.
+// less than the 50 MB L2.  So one run keeps them, the gradients and the
+// saved activations (about B x 1.9k floats) in device memory, where they
+// stay L2-resident, and runs in ONE thread block: a loop over epochs inside
+// the kernel, __syncthreads() between phases, and no synchronisation
+// between blocks (a grid-wide barrier deadlocks when the blocks are not all
+// resident).  Each layer's product is a 64 x 64 output tile loop over
+// shared-memory tiles in plain float32 FMA: no TF32 and no tensor cores,
+// which keeps parity with the float32 JAX reference.  The run is one device
+// function, train_run; K1 is a grid of (1,) around it and the grid kernel
+// one of (S,), so K1, K2 and the seed grid cannot drift apart.
 //
-// Bound.  One epoch is about 6 B 128,942 FLOP (forward, dW and the
-// activation gradients), 104 MFLOP at B = 134; 3000 epochs are about
-// 311 GFLOP.  At the card's 67 TFLOP/s of float32 (H100 SXM) the whole-card
-// floor is about 4.6 ms; one SM has 1/132 of that rate, so this one-block
-// design cannot beat about 0.6 s.  The bytes (inputs, params in and out,
-// the metrics) are a few MB, so the work is bound by operations.  Later
-// work closes the gap: split each epoch across the SMs of a cluster
-// (distributed shared memory instead of a grid barrier), and tensor cores.
+// K2's rows are ragged, not padded.  The TPU pads each corpus to n_max and
+// masks, because a BlockSpec has one shape.  Here block s reads only its own
+// B_s rows of a concatenated (sum B_s, 30) corpus through an (S+1) row-offset
+// array, and its means over B_s rows are JAX's masked means with
+// max(sum mask, 1) = B_s as the denominator: padded rows cost no work.  Its
+// Philox counter is (epoch, row within its own corpus, group), so block s
+// draws exactly what K1 draws for that corpus and seed.  The seed grid has
+// no offsets: every block reads the one shared corpus.
+//
+// Bound.  One epoch is 758,272 B + 10 x 128,942 FLOP (the forward, dW and
+// the activation gradients, then Adam): 103 MFLOP at B = 134, 309 GFLOP for
+// 3000 epochs, 4.6 ms on the whole card at 67 TFLOP/s of float32 (H100 SXM);
+// one SM has 1/132 of that rate, so one block cannot beat about 0.6 s.  A
+// grid's blocks run side by side on their own SMs, so the largest block
+// bounds it.  The bytes (inputs, params in and out, the metrics) are a few
+// MB, so the work is bound by operations.  Later work closes the gap: split
+// each epoch across the SMs of a cluster (distributed shared memory instead
+// of a grid barrier), and tensor cores.
 //
 // Interface: plain C, built by nvcc into a shared library and called
 // through ctypes (ops/_build.py).  The caller allocates everything.
@@ -197,8 +213,9 @@ __device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) 
   }
 }
 
-__global__ void __launch_bounds__(NT)
-k1_kernel(const float* __restrict__ x, const float* __restrict__ cond,
+// One whole training run on B rows: the work of one block.
+__device__ __forceinline__ void
+train_run(const float* __restrict__ x, const float* __restrict__ cond,
           const float* __restrict__ eps_in, float* P,
           float* work, float* __restrict__ metrics, int B,
           int epochs, float lr, float w_recon, float w_kld, float w_start,
@@ -370,6 +387,42 @@ k1_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   }
 }
 
+__global__ void __launch_bounds__(NT)
+k1_kernel(const float* __restrict__ x, const float* __restrict__ cond,
+          const float* __restrict__ eps_in, float* P,
+          float* work, float* __restrict__ metrics, int B,
+          int epochs, float lr, float w_recon, float w_kld, float w_start,
+          float w_time, unsigned long long seed) {
+  train_run(x, cond, eps_in, P, work, metrics, B, epochs, lr, w_recon, w_kld,
+            w_start, w_time, seed);
+}
+
+// Block s trains run s.  With row_off (S+1 offsets), its rows are
+// row_off[s]..row_off[s+1] of x, cond and eps (K2); without, every block
+// reads all B rows of x and cond, and rows s B..(s+1) B of eps (the seed
+// grid).  Params (S, N_PARAMS), metrics (S, epochs, 8); block s's work
+// region starts after those of blocks 0..s-1, whose sizes carve() gives.
+__global__ void __launch_bounds__(NT)
+grid_kernel(const float* __restrict__ x, const float* __restrict__ cond,
+            const float* __restrict__ eps_in, const int* __restrict__ row_off,
+            int B, const unsigned long long* __restrict__ seeds, float* P,
+            float* work, float* __restrict__ metrics, int epochs, float lr,
+            float w_recon, float w_kld, float w_start, float w_time) {
+  const int s = blockIdx.x;
+  long long x0 = 0, e0 = (long long)s * B;
+  int n = B;
+  if (row_off) {
+    x0 = e0 = row_off[s];
+    n = row_off[s + 1] - row_off[s];
+  }
+  const long long run_floats = carve(nullptr, 0, nullptr);
+  const long long row_floats = carve(nullptr, 1, nullptr) - run_floats;
+  train_run(x + x0 * F, cond + x0 * C, eps_in ? eps_in + e0 * Z : nullptr,
+            P + (long long)s * N_PARAMS, work + s * run_floats + e0 * row_floats,
+            metrics + (long long)s * epochs * 8, n, epochs, lr, w_recon, w_kld,
+            w_start, w_time, seeds[s]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -388,6 +441,37 @@ int k1_fused_train(const float* x, const float* cond, const float* eps,
   k1_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
       x, cond, eps, params, work, metrics, B, epochs, lr, w_recon, w_kld,
       w_start, w_time, seed);
+  return (int)cudaGetLastError();
+}
+
+// K2: S runs, run s on rows row_off[s]..row_off[s+1] (device int32, S+1) of
+// x, cond and eps, keyed by seeds[s] (device uint64, S).  work holds
+// S k1_work_floats(0) + row_off[S] (k1_work_floats(1) - k1_work_floats(0))
+// floats.
+int k2_fused_train_multi(const float* x, const float* cond, const float* eps,
+                         const int* row_off, const unsigned long long* seeds,
+                         int S, float* params, float* work, float* metrics,
+                         int epochs, float lr, float w_recon, float w_kld,
+                         float w_start, float w_time, void* stream) {
+  if (S <= 0 || epochs <= 0 || !row_off) return (int)cudaErrorInvalidValue;
+  grid_kernel<<<S, NT, 0, (cudaStream_t)stream>>>(
+      x, cond, eps, row_off, 0, seeds, params, work, metrics, epochs, lr,
+      w_recon, w_kld, w_start, w_time);
+  return (int)cudaGetLastError();
+}
+
+// K1 on a grid: S runs on the same B rows of x and cond, run s keyed by
+// seeds[s] with eps rows s B..(s+1) B when eps is given.  work holds
+// S k1_work_floats(B) floats.
+int k1_fused_train_seeds(const float* x, const float* cond, const float* eps,
+                         const unsigned long long* seeds, int S, float* params,
+                         float* work, float* metrics, int B, int epochs,
+                         float lr, float w_recon, float w_kld, float w_start,
+                         float w_time, void* stream) {
+  if (S <= 0 || B <= 0 || epochs <= 0) return (int)cudaErrorInvalidValue;
+  grid_kernel<<<S, NT, 0, (cudaStream_t)stream>>>(
+      x, cond, eps, nullptr, B, seeds, params, work, metrics, epochs, lr,
+      w_recon, w_kld, w_start, w_time);
   return (int)cudaGetLastError();
 }
 

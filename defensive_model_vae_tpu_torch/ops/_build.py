@@ -39,6 +39,25 @@ KERNELS: Dict[str, tuple] = {
             ctypes.c_float, ctypes.c_float,    # start, time
             ctypes.c_ulonglong, _P,            # seed, stream
         ]),
+        "k2_fused_train_multi": (ctypes.c_int, [
+            _P, _P, _P,                        # x, cond, eps (sum B_s rows)
+            _P, _P, ctypes.c_int,              # row offsets, seeds, S
+            _P, _P, _P,                        # params, work, metrics
+            ctypes.c_int, ctypes.c_float,      # epochs, lr
+            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+            ctypes.c_float, ctypes.c_float,    # start, time
+            _P,                                # stream
+        ]),
+        "k1_fused_train_seeds": (ctypes.c_int, [
+            _P, _P, _P,                        # x, cond (B rows), eps (S B rows)
+            _P, ctypes.c_int,                  # seeds, S
+            _P, _P, _P,                        # params, work, metrics
+            ctypes.c_int, ctypes.c_int,        # B, epochs
+            ctypes.c_float,                    # lr
+            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+            ctypes.c_float, ctypes.c_float,    # start, time
+            _P,                                # stream
+        ]),
         "k1_param_floats": (ctypes.c_longlong, []),
         "k1_work_floats": (ctypes.c_longlong, [ctypes.c_int]),
     }),

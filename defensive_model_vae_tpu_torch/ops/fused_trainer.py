@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -224,10 +224,12 @@ def unpack_kernel_params(flat: torch.Tensor, plist_like) -> List[torch.Tensor]:
 
 # ---- K1: the wrapper, its kernel and its plain version ----------------------
 
-def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
+def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
+                      mask=None):
     """K1's plain version: per epoch ε (explicit, or Philox), the ported
     manual backward, Adam; one metrics row [total, recon, kld, start, time,
-    0, 0, 0] per epoch."""
+    0, 0, 0] per epoch.  ``mask`` (B, 1) makes the means masked ones over
+    max(Σ mask, 1) rows (K2's padded rows)."""
     from .manual_grad import manual_value_and_grad
 
     dev = x_flat.device
@@ -238,29 +240,38 @@ def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
     B = x_flat.shape[0]
     for t in range(epochs):
         e = eps if eps is not None else philox_normal(seed, t, B, cfg.latent_dim, dev)
-        comps, grads = manual_value_and_grad(params, x_flat, cond, e, cfg, weights)
+        comps, grads = manual_value_and_grad(params, x_flat, cond, e, cfg, weights,
+                                             mask=mask)
         tf = torch.tensor(float(t + 1), dtype=torch.float32, device=dev)
         params, m, v = _adam_step(params, grads, m, v, tf, lr)
         metrics[t, :5] = comps
     return params, metrics
 
 
-def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
-    from ._build import load
-
+def _check_kernel_inputs(kernel, cfg, dev, *arrays):
+    """Refuse what the compiled kernel does not take: another model shape,
+    or an input (name, tensor or None, shape) that is not contiguous float32
+    of that shape on ``dev``."""
     if cfg != _K1_CFG:
-        raise ValueError(f"K1 is compiled for {_K1_CFG}, got {cfg}")
-    B = x_flat.shape[0]
-    F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
-    dev = x_flat.device
-    for name, a, shape in (("x_flat", x_flat, (B, F)), ("cond", cond, (B, C)),
-                           ("eps", eps, (B, Z))):
+        raise ValueError(f"{kernel} is compiled for {_K1_CFG}, got {cfg}")
+    for name, a, shape in arrays:
         if a is None:
             continue
         if a.device != dev or a.dtype != torch.float32 or not a.is_contiguous():
-            raise ValueError(f"K1: {name} must be contiguous float32 on {dev}")
+            raise ValueError(f"{kernel}: {name} must be contiguous float32 on {dev}")
         if tuple(a.shape) != shape:
-            raise ValueError(f"K1: {name} has shape {tuple(a.shape)}, expected {shape}")
+            raise ValueError(f"{kernel}: {name} has shape {tuple(a.shape)}, "
+                             f"expected {shape}")
+
+
+def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
+    from ._build import load
+
+    B = x_flat.shape[0]
+    F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
+    dev = x_flat.device
+    _check_kernel_inputs("K1", cfg, dev, ("x_flat", x_flat, (B, F)),
+                         ("cond", cond, (B, C)), ("eps", eps, (B, Z)))
     lib = load("fused_trainer")
     params = pack_kernel_params(plist)
     if params.numel() != lib.k1_param_floats() or params.device != dev:
@@ -305,12 +316,191 @@ def fused_call(plist, x_flat, cond, seed: int, cfg: CVAEConfig,
 fused_call.launches = 0
 
 
+# ---- many runs in one launch: K2, and K1 on a grid of seeds -----------------
+#
+# ``stacked`` is the flat ``_LAYERS`` list with a leading run axis on every
+# array, (S, in, out) and (S, 1, out), as JAX's ``_fused_multi_call`` takes
+# it.  There is no epoch limit: the TPU's (``_check_grid_epoch_budget``) is
+# VMEM's, and here the (S, E, 8) metrics and the S work regions of
+# 3·128,942 + 2,164·B floats each lie in device memory, whose allocation
+# raises before any launch when it does not fit.
+
+def stack_flat_params(params_list) -> Tuple[torch.Tensor, ...]:
+    """Per-run params → the stacked flat list the grid calls take."""
+    flats = [_flatten_params(p) for p in params_list]
+    return tuple(torch.stack(col) for col in zip(*flats))
+
+
+def _run_params(stacked, s: int) -> List[torch.Tensor]:
+    return [a[s] for a in stacked]
+
+
+def _stack_runs(outs):
+    """[(flat params, metrics)] of S runs → (stacked params, (S, E, 8))."""
+    return (tuple(torch.stack(col) for col in zip(*(p for p, _ in outs))),
+            torch.stack([m for _, m in outs]))
+
+
+def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
+                      weights, epochs, lr, rows, row_off=None):
+    """Launch S K1 runs in one grid through the library function ``entry``,
+    with ``rows`` rows of ε and of work in all; → (stacked params,
+    (S, E, 8))."""
+    from ._build import load
+
+    dev = x_flat.device
+    S = len(seeds)
+    lib = load("fused_trainer")
+    plists = [_run_params(stacked, s) for s in range(S)]
+    params = torch.stack([pack_kernel_params(p) for p in plists])
+    if params.shape[1] != lib.k1_param_floats() or params.device != dev:
+        raise ValueError(f"{kernel}: parameter list does not match the compiled model")
+    w0, w1 = int(lib.k1_work_floats(0)), int(lib.k1_work_floats(1))
+    work = torch.empty(S * w0 + rows * (w1 - w0), dtype=torch.float32, device=dev)
+    metrics = torch.empty((S, epochs, 8), dtype=torch.float32, device=dev)
+    # the seeds' 64 bits as int64, which the kernel reads as uint64 (as
+    # ``fused_call`` passes one seed through ``c_ulonglong``)
+    seeds_t = torch.tensor([(int(s) + 2 ** 63) % 2 ** 64 - 2 ** 63 for s in seeds],
+                           dtype=torch.int64).to(dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = [x_flat.data_ptr(), cond.data_ptr(), None if eps is None else eps.data_ptr()]
+    tail = [ctypes.c_float(lr), ctypes.c_float(weights.recon),
+            ctypes.c_float(weights.kld), ctypes.c_float(weights.start),
+            ctypes.c_float(weights.time), stream]
+    body = [params.data_ptr(), work.data_ptr(), metrics.data_ptr()]
+    if row_off is None:
+        err = getattr(lib, entry)(*head, seeds_t.data_ptr(), S, *body, x_flat.shape[0],
+                                  epochs, *tail)
+    else:
+        off_t = torch.tensor(row_off, dtype=torch.int32).to(dev)
+        err = getattr(lib, entry)(*head, off_t.data_ptr(), seeds_t.data_ptr(), S, *body,
+                                  epochs, *tail)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+    outs = [unpack_kernel_params(params[s], plists[s]) for s in range(S)]
+    return tuple(torch.stack(col) for col in zip(*outs)), metrics
+
+
+def _check_grid(kernel, stacked, x_flat, seeds, epochs):
+    dev = x_flat.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{kernel} runs on CUDA or (plain) CPU tensors, got {dev}")
+    S = len(seeds)
+    if S < 1 or epochs < 1:
+        raise ValueError(f"{kernel}: needs at least one run and one epoch")
+    if any(a.shape[0] != S or a.device != dev for a in stacked):
+        raise ValueError(f"{kernel}: every stacked parameter needs {S} runs on {dev}")
+    return dev
+
+
+def _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg, weights,
+                            epochs, lr, eps=None):
+    """K2's plain version in JAX's padded-and-masked form
+    (fused_trainer.py:596-641): each run's rows padded to n_max with copies
+    of its first row (ε rows zero), a (n_max, 1) row mask, masked means over
+    max(Σ mask, 1) rows, Philox noise keyed by ``seeds[s]`` over n_max rows."""
+    n = [row_off[s + 1] - row_off[s] for s in range(len(seeds))]
+    n_max = max(n)
+    outs = []
+    for s, (lo, hi) in enumerate(zip(row_off[:-1], row_off[1:])):
+        pad = n_max - n[s]
+
+        def padded(a, fill):
+            return torch.cat([a[lo:hi], fill.expand(pad, -1)])
+
+        mask = torch.cat([torch.ones((n[s], 1)), torch.zeros((pad, 1))]).to(x_flat.device)
+        e = None if eps is None else padded(eps, torch.zeros_like(eps[:1]))
+        outs.append(_fused_call_plain(
+            _run_params(stacked, s), padded(x_flat, x_flat[lo:lo + 1]),
+            padded(cond, cond[lo:lo + 1]), int(seeds[s]), cfg, weights, epochs, lr,
+            e, mask=mask))
+    return _stack_runs(outs)
+
+
+def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
+                      cfg: CVAEConfig, weights: LossWeights, epochs: int, lr: float,
+                      eps: Optional[torch.Tensor] = None):
+    """S whole training runs on ragged corpora: (stacked params, (S, E, 8)).
+
+    Run s trains ``stacked[:, s]`` on rows ``row_off[s]:row_off[s + 1]`` of
+    the concatenated ``x_flat`` (Σ B_s, T·D) and ``cond`` (Σ B_s, 2), with
+    Philox noise keyed by ``seeds[s]`` or the same rows of an explicit
+    ``eps`` (Σ B_s, Z) held constant over the epochs.  On CUDA tensors this
+    launches K2 (one launch of S blocks, counted in
+    ``_fused_multi_call.launches``) or raises; on CPU tensors it runs K2's
+    plain version."""
+    dev = _check_grid("K2", stacked, x_flat, seeds, epochs)
+    row_off = [int(r) for r in row_off]
+    if (len(row_off) != len(seeds) + 1 or row_off[0] != 0
+            or row_off[-1] != x_flat.shape[0]
+            or any(b <= a for a, b in zip(row_off[:-1], row_off[1:]))):
+        raise ValueError(f"K2: row offsets {row_off} must rise from 0 to "
+                         f"{x_flat.shape[0]} by at least one row a run")
+    if dev.type == "cpu":
+        return _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg,
+                                       weights, epochs, lr, eps)
+    R = x_flat.shape[0]
+    F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
+    _check_kernel_inputs("K2", cfg, dev, ("x_flat", x_flat, (R, F)),
+                         ("cond", cond, (R, C)), ("eps", eps, (R, Z)))
+    out = _grid_call_kernel("k2_fused_train_multi", "K2", stacked,
+                            x_flat, cond, eps, seeds, cfg, weights, epochs, lr, R,
+                            row_off)
+    _fused_multi_call.launches += 1
+    return out
+
+
+_fused_multi_call.launches = 0
+
+
+def _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights, epochs, lr,
+                            eps=None):
+    """The seed grid's plain version: K1's, once per seed."""
+    return _stack_runs([
+        _fused_call_plain(_run_params(stacked, s), x_flat, cond, int(seed), cfg,
+                          weights, epochs, lr, None if eps is None else eps[s])
+        for s, seed in enumerate(seeds)])
+
+
+def _fused_seeds_call(stacked, x_flat, cond, seeds, cfg: CVAEConfig,
+                      weights: LossWeights, epochs: int, lr: float,
+                      eps: Optional[torch.Tensor] = None):
+    """S whole training runs of one corpus: (stacked params, (S, E, 8)).
+
+    Run s trains ``stacked[:, s]`` on all of ``x_flat``/``cond`` with
+    Philox noise keyed by ``seeds[s]`` or the explicit ``eps[s]`` (of an
+    (S, B, Z) ``eps``).  On CUDA tensors this launches K1 on a grid of S
+    blocks (one launch, counted in ``_fused_seeds_call.launches``), each
+    block K1's own run, or raises; on CPU tensors it runs K1's plain version
+    once per seed."""
+    dev = _check_grid("the seed grid", stacked, x_flat, seeds, epochs)
+    if dev.type == "cpu":
+        return _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights,
+                                       epochs, lr, eps)
+    B, S = x_flat.shape[0], len(seeds)
+    F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
+    _check_kernel_inputs("K1", cfg, dev, ("x_flat", x_flat, (B, F)),
+                         ("cond", cond, (B, C)), ("eps", eps, (S, B, Z)))
+    out = _grid_call_kernel("k1_fused_train_seeds", "K1", stacked,
+                            x_flat, cond, eps, seeds, cfg, weights, epochs, lr, S * B)
+    _fused_seeds_call.launches += 1
+    return out
+
+
+_fused_seeds_call.launches = 0
+
+
 def fused_inputs(windows, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Windows (B, T, D) → ``(x_flat (B, T·D), start (B, 2))``, through the
     same :func:`to_relative` as the scan trainer (fused_trainer.py:442)."""
     batch = torch.as_tensor(np.asarray(windows, np.float32)).to(resolve_device(device))
     rel, start = to_relative(batch)
     return rel.reshape(batch.shape[0], -1).contiguous(), start.contiguous()
+
+
+def _history(metrics) -> Dict[str, np.ndarray]:
+    m = metrics[:, :5]
+    return {k: m[:, i] for i, k in enumerate(FUSED_METRIC_KEYS)}
 
 
 def fused_train(windows: np.ndarray, epochs: int = 3000, lr: float = 1e-3,
@@ -329,9 +519,75 @@ def fused_train(windows: np.ndarray, epochs: int = 3000, lr: float = 1e-3,
         eps = torch.as_tensor(np.asarray(eps, np.float32)).to(dev).contiguous()
     out_plist, metrics = fused_call(_flatten_params(params), x_flat, start,
                                     seed, cfg, weights, epochs, lr, eps)
-    m = metrics[:, :5].cpu().numpy()
-    history = {k: m[:, i] for i, k in enumerate(FUSED_METRIC_KEYS)}
-    return _unflatten_params(out_plist), history
+    return _unflatten_params(out_plist), _history(metrics.cpu().numpy())
+
+
+def fused_train_multi(windows_by_scenario: Dict[str, np.ndarray], epochs: int = 3000,
+                      lr: float = 1e-3, weights: LossWeights = LossWeights(),
+                      seed: int = 0, eps_by_scenario: Optional[Dict[str, np.ndarray]] = None,
+                      device="cuda") -> Tuple[Dict[str, Params],
+                                              Dict[str, Dict[str, np.ndarray]]]:
+    """Train every scenario's model in ONE K2 launch (fused_trainer.py:574).
+
+    Scenarios in sorted key order; scenario i is initialised from
+    ``torch.Generator().manual_seed(seed + i)`` and draws Philox noise keyed
+    by ``seed + i``, so it is :func:`fused_train` on its own windows with
+    seed ``seed + i`` — not a per-scenario call with the same base seed.
+    ``eps_by_scenario`` ({key: (B_i, Z)}) replaces the noise by explicit ε
+    held constant over the epochs.  → ({key: params}, {key: history})."""
+    dev = resolve_device(device)
+    keys = sorted(windows_by_scenario)
+    first = windows_by_scenario[keys[0]]
+    cfg = CVAEConfig(seq_len=first.shape[1], dim=first.shape[2])
+    inputs = [fused_inputs(windows_by_scenario[k], dev) for k in keys]
+    row_off = np.concatenate([[0], np.cumsum([len(x) for x, _ in inputs])]).tolist()
+    x_flat = torch.cat([x for x, _ in inputs]).contiguous()
+    cond = torch.cat([c for _, c in inputs]).contiguous()
+    stacked = stack_flat_params(
+        [init_params(torch.Generator().manual_seed(seed + i), cfg, dev)
+         for i in range(len(keys))])
+    eps = None
+    if eps_by_scenario is not None:
+        eps = torch.as_tensor(np.concatenate(
+            [np.asarray(eps_by_scenario[k], np.float32) for k in keys])).to(dev)
+    out, metrics = _fused_multi_call(stacked, x_flat, cond, row_off,
+                                     [seed + i for i in range(len(keys))], cfg,
+                                     weights, epochs, lr, eps)
+    metrics = metrics.cpu().numpy()
+    return ({k: _unflatten_params(_run_params(out, i)) for i, k in enumerate(keys)},
+            {k: _history(metrics[i]) for i, k in enumerate(keys)})
+
+
+def fused_train_seeds(windows: np.ndarray, seeds, epochs: int = 3000, lr: float = 1e-3,
+                      weights: LossWeights = LossWeights(),
+                      eps_by_seed: Optional[Dict[int, np.ndarray]] = None,
+                      device="cuda") -> Tuple[Dict[int, Params],
+                                              Dict[int, Dict[str, np.ndarray]]]:
+    """Train one corpus under many seeds in ONE launch of K1 on a grid of
+    S blocks (fused_trainer.py:661).
+
+    Seed s is :func:`fused_train` with ``seed=s`` — the same init, the same
+    Philox stream and the same per-block code — so its params and history
+    are bit for bit those of the single run.  ``eps_by_seed`` ({seed:
+    (B, Z)}) replaces the noise by explicit ε.  Duplicate seeds are refused
+    (results are keyed by seed).  → ({seed: params}, {seed: history})."""
+    seeds = [int(s) for s in seeds]
+    if len(set(seeds)) != len(seeds):
+        raise ValueError("duplicate seeds in fused_train_seeds")
+    dev = resolve_device(device)
+    cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
+    x_flat, start = fused_inputs(windows, dev)
+    stacked = stack_flat_params([init_params(torch.Generator().manual_seed(s), cfg, dev)
+                                 for s in seeds])
+    eps = None
+    if eps_by_seed is not None:
+        eps = torch.as_tensor(np.stack(
+            [np.asarray(eps_by_seed[s], np.float32) for s in seeds])).to(dev)
+    out, metrics = _fused_seeds_call(stacked, x_flat, start, seeds, cfg, weights,
+                                     epochs, lr, eps)
+    metrics = metrics.cpu().numpy()
+    return ({s: _unflatten_params(_run_params(out, i)) for i, s in enumerate(seeds)},
+            {s: _history(metrics[i]) for i, s in enumerate(seeds)})
 
 
 def fused_step_reference(params: Params, windows, eps, lr=1e-3,

@@ -31,10 +31,15 @@ NumpyParams = Dict[str, Dict[str, np.ndarray]]
 
 
 def params_from_numpy(flat: Union[NumpyParams, Sequence[np.ndarray]],
-                      device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+                      device="cuda", stacked: bool = False):
     """The JAX package's params as numpy — ``{layer: {"w", "b"}}`` or the
     flat ``_LAYERS`` list ``[W, b, ...]`` (b may be (1, out)) — → the port's
-    float32 params on ``device``."""
+    float32 params on ``device``.
+
+    ``stacked=True`` takes every array with a leading run axis, (S, in, out)
+    and (S, [1,] out) — JAX's per-scenario or per-seed init, as
+    ``fused_train_multi`` stacks it or ``_stacked_init`` returns it — and
+    gives the list of the S runs' params."""
     dev = resolve_device(device)
     if not isinstance(flat, dict):
         flat = list(flat)
@@ -42,6 +47,11 @@ def params_from_numpy(flat: Union[NumpyParams, Sequence[np.ndarray]],
             raise ValueError(f"expected {2 * len(_LAYERS)} arrays, got {len(flat)}")
         flat = {n: {"w": flat[2 * i], "b": flat[2 * i + 1]}
                 for i, n in enumerate(_LAYERS)}
+    if stacked:
+        runs = len(flat[_LAYERS[0]]["w"])
+        return [params_from_numpy({n: {k: np.asarray(a)[s] for k, a in layer.items()}
+                                   for n, layer in flat.items()}, dev)
+                for s in range(runs)]
     return {
         name: {
             "w": torch.as_tensor(np.array(layer["w"], np.float32)).to(dev),

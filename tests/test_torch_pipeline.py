@@ -158,20 +158,29 @@ def test_slice_runs_with_banned_modules_blocked(tmp_path):
         import numpy as np
         from defensive_model_vae_tpu_torch import cli, scenarios
         from defensive_model_vae_tpu_torch.control import MPCConfig
-        from defensive_model_vae_tpu_torch.ops import fused_train
+        from defensive_model_vae_tpu_torch.ops import (
+            fused_train, fused_train_multi, fused_train_seeds)
         from defensive_model_vae_tpu_torch.pipeline import (
-            fixture_starts, generate_and_track_from_starts)
+            fixture_starts, generate_and_track_from_starts,
+            generate_and_track_multi_from_starts)
         from defensive_model_vae_tpu_torch.train import load_checkpoint, train, TrainConfig
         import chip_smoke
         w = np.load(scenarios.get("sce2").fixture_windows)
         p, h = fused_train(w, epochs=3, device="cpu")
         p2, h2 = train(w, train_cfg=TrainConfig(epochs=2), device="cpu")
+        pm, hm = fused_train_multi(dict(a=w, b=w[:3]), epochs=2, device="cpu")
+        ps, hs = fused_train_seeds(w, [0, 1], epochs=2, device="cpu")
+        assert sorted(pm) == ["a", "b"] and sorted(ps) == [0, 1]
         ck, cfg, _ = load_checkpoint({str(SCE2_CKPT)!r}, "cpu")
         s, i = fixture_starts(w[:2])
         tr, idx = generate_and_track_from_starts(
             ck, cfg, s, i, seed=0, mpc_cfg=MPCConfig(prediction_horizon=6, control_horizon=3,
                                              dt=0.1))
         assert len(tr) == 2 and all(np.isfinite(t).all() for t in tr)
+        multi = generate_and_track_multi_from_starts(
+            ck, cfg, s, i, seeds=[0, 1], mpc_cfg=MPCConfig(prediction_horizon=6,
+                                                          control_horizon=3, dt=0.1))
+        assert all(len(multi[k][0]) == 2 for k in (0, 1))
         banned = [m for m in sys.modules if m.split(".")[0] in {BANNED!r}
                   and sys.modules[m] is not None]
         assert not banned, banned
