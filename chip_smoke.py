@@ -45,7 +45,23 @@ traceback and a non-zero exit:
                    3000 epochs in one launch of K1 on 32 blocks, every seed
                    converging; timed against the plain version; at 300
                    epochs 4 seeds bit for bit against ``fused_train``;
-13. ``kernels``    one line listing every ported kernel with its launches on
+13. ``ablation_vs_plain`` the K3 ablation's kernels against their plain
+                   versions on an 8,448-row bf16 corpus with packed ε (tiles
+                   of 352: two 32-row steps a block, one chunk straddling the
+                   last tile): K3 under each of its six ``_ablate`` knobs at
+                   1 and 3 epochs, K3 with ``_ablate=()`` and K4 bit for
+                   bit their earlier build (``scripts/k3_digest.py``), P1's
+                   stream, sol, fwd and dx kernels, sol's and dx's limit
+                   held below plain versions with one deliberate error; P2
+                   at the full 200 × 131,072 × 8 bf16 stream;
+14. ``ablation``   the ported ``scripts/scale_ablation.py`` at the bench
+                   width (131,072 windows, tile 2048, bf16), 20 epochs, 1
+                   warm + 2 timed reps of every variant, its breakdown line;
+                   the ported P2 probe's two variants at full shape; every
+                   ablation kernel launched (the CUDA launches as the C
+                   entries count them); P1 held against its plain versions
+                   there, as in phase 13, and timed;
+15. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -120,6 +136,17 @@ K3_TOL = {(None, 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-
           ("bfloat16", 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-5},
           ("bfloat16", 10): {"params_abs": 5e-3, "params_frac": 0.05, "metrics_rel": 1e-3},
           ("bfloat16", 20): {"params_abs": 5e-3, "params_frac": 0.05, "metrics_rel": 1e-3}}
+# three epochs under an ablation knob (ablation_vs_plain): the ten-epoch
+# row's numbers, since from the second epoch on a few elements can take
+# steps the other way, as above
+K3_TOL[("bfloat16", 3)] = K3_TOL[("bfloat16", 10)]
+# noacc: Adam's step reads one tile's gradient sum (352 rows in
+# ablation_vs_plain), in which more elements sit at bf16 rounding level than
+# in the whole corpus's, and such an element can step the other way each
+# epoch: its params are held to that travel (2·E·lr) and to the share of
+# elements over a tenth of a step (5%), its gradient itself to K4's rule
+NOACC_TOL = {ep: {"params_abs": 2 * ep * 1e-3 + 1e-5, "params_frac": 0.05,
+                  "metrics_rel": K3_TOL[("bfloat16", ep)]["metrics_rel"]} for ep in (1, 3)}
 # K4 (one epoch's summed gradients): each array to a fraction of its own max
 # (float32: summation order; bf16: JAX's own bf16 rule), the loss row relative
 K4_TOL = {None: {"grad_rel_max": 1e-5, "row_rel": 1e-5},
@@ -140,16 +167,61 @@ PLAIN_BUDGET_S = 30.0   # the plain version runs the full 200 epochs if it fits
 PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
 
 
-def scale_corpus(n, seq_len=10, dim=3):
-    """Synthetic production-scale corpus with reference-like coordinate
-    scales — a copy of ``bench.py::_scale_corpus`` (:346), seed 0."""
-    import numpy as np
+# the K3 ablation (phases 13 and 14).  P1 and P2 against their plain
+# versions: each sum within a fraction of the sum of the absolute values of
+# its terms — float32 sums in another order (stream, P2: 1e-5); fwd's loss
+# components rtol 1e-5, as K3's one-epoch rows.  sol's and dx's sums pass
+# through chains of products whose float32 sums, taken in another order,
+# can round an intermediate to the neighbouring bf16 value; their limit
+# lies between the sound runs' gaps and those of plain versions with one
+# deliberate error each (p1_wrong_sums), which both phases print and hold
+# above it.
+ABL_N, ABL_TILE = 8448, 352
+ABL_EPOCHS, ABL_REPS, ABL_PLAIN_EPOCHS = 20, 3, 2
+P1_TOL = {"stream": 1e-5, "sol": 1e-6, "dx": 1e-6, "fwd_rel": 1e-5}
+P2_TOL = 1e-5
+P2_EPOCHS = 200
 
-    rng = np.random.default_rng(0)
-    t = np.cumsum(rng.uniform(0.5, 2.2, (n, seq_len)), axis=1)
-    t -= t[:, :1]
-    xy = rng.normal([[-193.0, 50.0]], [[1.0, 20.0]], (n, seq_len, dim - 1)).cumsum(axis=1)
-    return np.concatenate([t[..., None], xy], axis=-1).astype(np.float32)
+
+def p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, nv, w_in, w_ch, n_chain):
+    """P1-sol's or P1-dx's sum from its plain version with one deliberate
+    error each: {what is wrong: the sum}."""
+    import dataclasses
+
+    import torch
+
+    if mode == "sol":
+        h = packed.float() @ w_in.float()
+        for _ in range(n_chain):
+            h = h @ w_ch.float()
+        return {"one_product_fewer": float(sa._sol_h(packed, w_in, w_ch, n_chain - 1).sum()),
+                "no_bf16_rounding": float(h.sum())}
+    x, cond, mask, eps = sa._split(packed, cfg)
+    xv = x.float().requires_grad_(True)
+    total, _ = ft._forward_loss(plist, xv, cond.float(), eps.float(), cfg, lw, mask,
+                                n_valid=nv)
+    out = {"float32_autodiff": float(torch.autograd.grad(total, xv)[0].sum())}
+    for term in ("recon", "start"):
+        gx = sa._dx_plain(packed, plist, cfg, dataclasses.replace(lw, **{term: 0.0}), nv)
+        out[f"no_{term}_term"] = float(gx.float().sum())
+    return out
+
+
+def p1_sum_row(mode, kernel, plain, terms, wrong):
+    """P1's compared sum (column 0, dx's column 5): kernel and plain beside
+    its limit, and the wrong versions' gaps → (row, within the limit, every
+    wrong version outside it)."""
+    col = 5 if mode == "dx" else 0
+    gap = float((kernel[:, col] - plain[:, col]).abs().max())
+    tol = P1_TOL[mode] * terms
+    ref = float(plain[0, col])
+    row = {"kernel_sum": float(kernel[0, col]), "plain_sum": ref, "sum_gap": gap,
+           "abs_terms": terms, "tol": tol, "tol_frac": P1_TOL[mode]}
+    wrong_gaps = {k: abs(v - ref) for k, v in wrong.items()}
+    if wrong_gaps:
+        row["wrong_gaps"] = wrong_gaps
+        row["wrong_gaps_frac"] = {k: v / terms for k, v in wrong_gaps.items()}
+    return row, gap <= tol, all(v > tol for v in wrong_gaps.values())
 
 
 def emit(obj):
@@ -201,6 +273,26 @@ def k3_gaps(kernel, plain, tol):
     ok = (p_abs <= tol["params_abs"] and p_frac <= tol["params_frac"]
           and m_rel <= tol["metrics_rel"])
     return row, ok
+
+
+def knob_grad_gaps(knob, args, tol):
+    """One epoch of K3 under ``knob`` with noadam beside it: the summed
+    gradients its reduce writes to the sink, against the plain gradient
+    pass under the same knob, as K4's are (``k4_gaps``)."""
+    import torch
+
+    from defensive_model_vae_tpu_torch.ops import fused_scale as fs
+    from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
+
+    plist, packed, seed, cfg, lw, _, lr, tile, nv, cd, noise, eps_all = args
+    bits = fs._check_ablate(("noadam", knob), cd)
+    sink = torch.empty(ft.pack_kernel_params(plist).numel(), dtype=torch.float32,
+                       device=packed.device)
+    _, mk = fs._fused_scale_call_kernel(plist, packed, seed, cfg, lw, 1, lr, tile, nv, cd,
+                                        noise, eps_all, bits, sink)
+    src = fs._eps_source(noise, cfg, tile, packed.shape[0], None, seed, packed.device)
+    gp, rp = fs._plain_grad_epoch(plist, packed, tile, cfg, lw, nv, cd, src, (knob,))
+    return k4_gaps((ft.unpack_kernel_params(sink, plist), mk[:1]), (gp, rp), tol)
 
 
 def k4_gaps(kernel, plain, tol):
@@ -322,6 +414,23 @@ def scale_flops_bytes(cfg, n, epochs, adam, itemsize, width):
     return flops, nbytes
 
 
+def p1_flops(cfg):
+    """P1's products a window-epoch: sol (the entry product and the chain),
+    fwd (the forward, 2·Σ in·out) and dx (the forward and the chain back to
+    x: dec_3..dec_1, dec_0's dz columns, the μ and logσ² heads, enc_3..enc_0)."""
+    spec = cfg.layer_spec()
+    width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1 + cfg.latent_dim
+    H, Z = cfg.hidden_dim, cfg.latent_dim
+    n_chain = round((6 * sum(fi * fo for fi, fo in spec.values()) - 2 * width * 128)
+                    / (2 * 128 * 128))
+    fwd = 2 * sum(fi * fo for fi, fo in spec.values())
+    chain = (sum(spec[n][0] * spec[n][1] for n in ("dec_3", "dec_2", "dec_1", "enc_3",
+                                                   "enc_2", "enc_1", "enc_0"))
+             + Z * H + 2 * H * Z)
+    return {"sol": 2 * width * 128 + n_chain * 2 * 128 * 128, "fwd": fwd,
+            "dx": fwd + 2 * chain}
+
+
 def bound(flops, nbytes, peak):
     """(bound ms, what bounds it) for work of ``flops`` at ``peak`` FLOP/s
     moving ``nbytes`` at the HBM rate."""
@@ -350,6 +459,11 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.ops import _build
     from defensive_model_vae_tpu_torch.ops import fused_scale as fs
     from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
+    from defensive_model_vae_tpu_torch.ops import scale_ablation as sa
+    from defensive_model_vae_tpu_torch.scripts import noise_consumer_probe as ncp
+    from defensive_model_vae_tpu_torch.scripts import k3_digest as k3d
+    from defensive_model_vae_tpu_torch.scripts import scale_ablation as sab
+    from defensive_model_vae_tpu_torch.scripts.scale_ablation import scale_corpus
     from defensive_model_vae_tpu_torch.pipeline import (
         _draw_valid_samples, default_mpc_cfg, fixture_starts,
         generate_and_track_from_starts, generate_and_track_multi_from_starts)
@@ -435,11 +549,11 @@ def main() -> int:
             fail("non-finite training metrics")
         if not tot[-1] < tot[0]:
             fail(f"loss did not descend: {tot[0]} -> {tot[-1]}")
-        # times on the same inputs: the kernel (median of 3), the plain version
+        # times on the same inputs: the kernel (one run), the plain version
         x, c = ft.fused_inputs(w4, dev)
         plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
         kernel_ms, _ = cuda_ms(lambda: ft.fused_call(plist, x, c, 0, cfg, lw, epochs,
-                                                     1e-3), 3)
+                                                     1e-3))
         plain_part_ms, _ = cuda_ms(lambda: ft._fused_call_plain(
             plist, x, c, 0, cfg, lw, PLAIN_K1_EPOCHS, 1e-3, None))
         plain_ms = plain_part_ms * epochs / PLAIN_K1_EPOCHS
@@ -573,14 +687,14 @@ def main() -> int:
             fail("non-finite production-scale training metrics")
         if not tot[-1] < tot[0]:
             fail(f"production-scale loss did not descend: {tot[0]} -> {tot[-1]}")
-        # times on the same inputs: K3 (median of 3), its plain version
+        # times on the same inputs: K3 (one run), its plain version
         nv, packed = fs._scale_inputs(ws, cfg, SCALE_TILE, "bfloat16", None, dev)
         n_pad = packed.shape[0]
         plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
         eps_all = fs.hbm_noise(0, SCALE_EPOCHS, n_pad, cfg.latent_dim, "bfloat16", dev)
         args = (plist, packed, 0, cfg, lw, SCALE_EPOCHS, 1e-3, SCALE_TILE, float(nv),
                 "bfloat16", "hbm", eps_all)
-        k3_ms, _ = cuda_ms(lambda: fs._fused_scale_call(*args), 3)
+        k3_ms, _ = cuda_ms(lambda: fs._fused_scale_call(*args))
         # the first PROBE_EPOCHS epochs of the same run: K3 against its plain
         # version at the shape the main path gives it (32 steps a block)
         probe = (*args[:5], PROBE_EPOCHS, *args[6:11], eps_all[:PROBE_EPOCHS * n_pad])
@@ -825,7 +939,199 @@ def main() -> int:
                     loss_first_max=max(v[0] for v in losses.values()),
                     loss_last_max=max(v[1] for v in losses.values()), card=card)
 
-    # ---- 13. kernels --------------------------------------------------------
+    # ---- 13. the K3 ablation's kernels against their plain versions --------
+    abl_err = {}
+    with phase("ablation_vs_plain", 150) as info:
+        rows = []
+        eps = np.random.default_rng(1).standard_normal((ABL_N, cfg.latent_dim)).astype(np.float32)
+        nv, packed = fs._scale_inputs(scale_corpus(ABL_N), cfg, ABL_TILE, "bfloat16", eps, dev)
+        plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
+        for ep in (1, 3):
+            args = (plist, packed, 3, cfg, lw, ep, 1e-3, ABL_TILE, float(nv), "bfloat16",
+                    "packed", None)
+            default = fs._fused_scale_call_plain(*args)
+            for knob in fs.ABLATE_BITS:
+                plain = fs._fused_scale_call_plain(*args, _ablate=(knob,))
+                tol = NOACC_TOL[ep] if knob == "noacc" else K3_TOL[("bfloat16", ep)]
+                gaps, ok = k3_gaps(fs._fused_scale_call(*args, _ablate=(knob,)), plain, tol)
+                if ep == 1:
+                    ggaps, gok = knob_grad_gaps(knob, args, K4_TOL["bfloat16"])
+                    gaps.update({f"summed_{k}": v for k, v in ggaps.items()})
+                    ok &= gok
+                # how far the knob moves the run: after one epoch, those
+                # that change the parameters must move some by more than a
+                # tenth of a step
+                off = max(float((a - b).abs().max()) for a, b in zip(plain[0], default[0]))
+                row = {"kernel": "K3", "knob": knob, "epochs": ep, **gaps,
+                       "plain_vs_no_knob_params_max_abs": off}
+                rows.append(row)
+                emit({"ablation_vs_plain": row})
+                if not ok:
+                    fail(f"K3 under {knob} disagrees with its plain version: {row}")
+                if (ep == 1 and knob in ("noadam", "noacc", "nodw", "fwdonly")
+                        and off <= STEP_TENTH):
+                    fail(f"the {knob} knob does not change the run: {row}")
+        # K3 and K4 with _ablate=() against their build before the device
+        # code moved into csrc/scale_common.cuh, bit for bit
+        sms = k3d.sm_count(dev)
+        ref, got = k3d.REFERENCE.get(sms), k3d.digests(dev, _ablate=())
+        emit({"ablation_vs_plain": {"kernel": "K3/K4", "knob": "()", "sms": sms,
+                                    "digests": got, "reference": ref,
+                                    "bit_identical": got == ref}})
+        if ref is None:
+            fail(f"no reference digests of K3/K4 for a card of {sms} SMs")
+        if got != ref:
+            fail("K3/K4 with _ablate=() are not their earlier build bit for bit")
+        # P1 on the same corpus
+        n_chain = sa.sol_chain_length(cfg)
+        g = torch.Generator().manual_seed(5)
+        w_in = (torch.randn((packed.shape[1], 128), generator=g)
+                / packed.shape[1] ** 0.5).to(torch.bfloat16).to(dev)
+        w_ch = (torch.randn((128, 128), generator=g) / 128 ** 0.5).to(torch.bfloat16).to(dev)
+        for mode in ("stream", "sol", "fwd", "dx"):
+            wrong = {}
+            if mode == "stream":
+                k, p = sa.p1_stream(packed, 3, ABL_TILE), sa._p1_stream_plain(packed, 3, ABL_TILE)
+                scale = float(packed.float().abs().sum())
+            elif mode == "sol":
+                k = sa.p1_sol(packed, w_in, w_ch, n_chain, 3, ABL_TILE)
+                p = sa._p1_sol_plain(packed, w_in, w_ch, n_chain, 3, ABL_TILE)
+                scale = float(sa._sol_h(packed, w_in, w_ch, n_chain).abs().sum())
+            else:
+                k = sa.p1_ablation(packed, plist, mode, cfg, lw, float(nv), 3, ABL_TILE)
+                p = sa._p1_ablation_plain(packed, plist, mode, cfg, lw, float(nv), 3)
+                scale = float(sa._dx_plain(packed, plist, cfg, lw, float(nv)).float().abs().sum())
+            if mode in ("sol", "dx"):
+                wrong = p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, float(nv), w_in,
+                                      w_ch, n_chain)
+            row = {"kernel": f"P1-{mode}", "n": ABL_N, "epochs": 3,
+                   "epochs_equal": bool(torch.equal(k[0], k[-1]))}
+            ok, caught = row["epochs_equal"], True
+            if mode in ("fwd", "dx"):
+                rel = float(((k[:, :5] - p[:, :5]).abs() / p[:, :5].abs().clamp(min=1e-30)).max())
+                row.update(loss_max_rel=rel, loss_tol=P1_TOL["fwd_rel"])
+                ok &= rel <= P1_TOL["fwd_rel"]
+            if mode != "fwd":
+                srow, sok, caught = p1_sum_row(mode, k, p, scale, wrong)
+                row.update(srow)
+                ok &= sok
+            rows.append(row)
+            emit({"ablation_vs_plain": row})
+            if not ok:
+                fail(f"P1-{mode} disagrees with its plain version: {row}")
+            if not caught:
+                fail(f"P1-{mode}'s limit passes a wrong plain version: {row}")
+        # P2 at the full stream
+        eps2 = fs.hbm_noise(5, P2_EPOCHS, SCALE_N, cfg.latent_dim, "bfloat16", dev)
+        k, p = sa.p2_stream_sum(eps2, SCALE_TILE), sa._p2_plain(eps2, SCALE_TILE)
+        scale = float(eps2.float().abs().sum())
+        gap = float((k - p).abs().max())
+        row = {"kernel": "P2", "rows": eps2.shape[0], "bytes": eps2.numel() * 2, "sum_gap": gap,
+               "abs_terms": scale, "tol": P2_TOL * scale, "tol_frac": P2_TOL,
+               "lanes_equal": bool(torch.all(k == k[0, 0]))}
+        rows.append(row)
+        emit({"ablation_vs_plain": row})
+        if not (gap <= P2_TOL * scale and row["lanes_equal"]):
+            fail(f"P2 disagrees with its plain version: {row}")
+        abl_err["p2"] = gap
+        del eps2
+        info["cases"] = len(rows)
+
+    # ---- 14. ablation: the ported K3 ablation at the bench width -----------
+    with phase("ablation", 300) as info:
+        counters = (fs._fused_scale_call, sa.p1_stream, sa.p1_sol, sa.p1_ablation,
+                    sa.p2_stream_sum)
+        for f in counters:
+            f.launches = 0
+        sa.p1_ablation.mode_launches = dict.fromkeys(sa.P1_MODES, 0)
+        cuda_before = sa.cuda_launches()
+        t0 = time.perf_counter()
+        out, last = sab.run_ablation(SCALE_N, ABL_EPOCHS, SCALE_TILE, ABL_REPS, dev)
+        abl_wall = time.perf_counter() - t0
+        probe_rc = ncp.main(["--reps", str(ABL_REPS)])  # prints its own line
+        abl_launches = {f.__name__: f.launches for f in counters}
+        abl_launches.update({f"p1_ablation_{m}": c
+                             for m, c in sa.p1_ablation.mode_launches.items()})
+        # the CUDA launches the C entries issued, as they counted them
+        abl_cuda = {k: v - cuda_before[k] for k, v in sa.cuda_launches().items()}
+        emit({"scale_ablation": out})
+        if probe_rc != 0:
+            fail("the noise consumer probe failed")
+        idle = sorted(k for k, c in {**abl_launches, **abl_cuda}.items() if c == 0)
+        if idle:
+            fail(f"the ablation's main path launched none of {idle}")
+        for v, m in last.items():
+            if not np.all(np.isfinite(m)):
+                fail(f"ablation variant {v}: non-finite metrics")
+        fw, dx, me, hb = (last[k] for k in ("fwd", "dx", "manual_eps", "hbm"))
+        if not (np.allclose(fw[0, :5], fw[-1, :5], rtol=1e-4)
+                and np.allclose(dx[0, :5], fw[0, :5], rtol=1e-4)
+                and np.allclose(me[0, :5], fw[0, :5], rtol=1e-4)
+                and hb[-1, 0] < hb[0, 0] and me[-1, 0] < me[0, 0]):
+            fail("ablation variants disagree on the epoch-0 loss or do not descend")
+        # P1 at the bench width against its plain versions over the first
+        # epochs, each timed (plain scaled to ABL_EPOCHS), and the library call
+        rng = np.random.default_rng(7)
+        nv, packed = fs._scale_inputs(ws, cfg, SCALE_TILE, "bfloat16",
+                                      rng.standard_normal((SCALE_N, cfg.latent_dim))
+                                      .astype(np.float32), dev)
+        plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
+        g = torch.Generator().manual_seed(5)
+        w_in = (torch.randn((packed.shape[1], 128), generator=g)
+                / packed.shape[1] ** 0.5).to(torch.bfloat16).to(dev)
+        w_ch = (torch.randn((128, 128), generator=g) / 128 ** 0.5).to(torch.bfloat16).to(dev)
+        n_chain = sa.sol_chain_length(cfg)
+        E, scale_up = ABL_PLAIN_EPOCHS, ABL_EPOCHS / ABL_PLAIN_EPOCHS
+        p1_res = {}
+        for mode, kern, plain in (
+                ("stream", lambda: sa.p1_stream(packed, E, SCALE_TILE),
+                 lambda: sa._p1_stream_plain(packed, E, SCALE_TILE)),
+                ("sol", lambda: sa.p1_sol(packed, w_in, w_ch, n_chain, E, SCALE_TILE),
+                 lambda: sa._p1_sol_plain(packed, w_in, w_ch, n_chain, E, SCALE_TILE)),
+                ("fwd", lambda: sa.p1_ablation(packed, plist, "fwd", cfg, lw, float(nv), E,
+                                               SCALE_TILE),
+                 lambda: sa._p1_ablation_plain(packed, plist, "fwd", cfg, lw, float(nv), E)),
+                ("dx", lambda: sa.p1_ablation(packed, plist, "dx", cfg, lw, float(nv), E,
+                                              SCALE_TILE),
+                 lambda: sa._p1_ablation_plain(packed, plist, "dx", cfg, lw, float(nv), E))):
+            k = kern()
+            p1_plain_ms, p = cuda_ms(plain)
+            res = {}
+            if mode == "fwd":
+                err = float((k[:, :5] - p[:, :5]).abs().max())
+                ok, caught = (float(((k[:, :5] - p[:, :5]).abs() / p[:, :5].abs()).max())
+                              <= P1_TOL["fwd_rel"]), True
+            else:
+                terms = (float(packed.float().abs().sum()) if mode == "stream" else
+                         float(sa._sol_h(packed, w_in, w_ch, n_chain).abs().sum())
+                         if mode == "sol" else
+                         float(sa._dx_plain(packed, plist, cfg, lw, float(nv)).float().abs().sum()))
+                wrong = ({} if mode == "stream" else
+                         p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, float(nv), w_in,
+                                       w_ch, n_chain))
+                res, ok, caught = p1_sum_row(mode, k, p, terms, wrong)
+                err = res["sum_gap"]
+            if not ok:
+                fail(f"P1-{mode} disagrees with its plain version at the bench width: "
+                     f"{err} {res}")
+            if not caught:
+                fail(f"P1-{mode}'s limit passes a wrong plain version at the bench width: {res}")
+            p1_res[mode] = {"max_abs_err": err, "plain_ms": p1_plain_ms * scale_up,
+                            "ms": 1e3 * out["variants"][mode]["best_s"], **res}
+        p1_res["stream"]["library_ms"] = cuda_ms(
+            lambda: [torch.sum(packed, dtype=torch.float32) for _ in range(ABL_EPOCHS)])[0]
+        del packed
+        eps2 = fs.hbm_noise(6, P2_EPOCHS, SCALE_N, cfg.latent_dim, "bfloat16", dev)
+        p2_ms, _ = cuda_ms(lambda: sa.p2_stream_sum(eps2, SCALE_TILE), 3)
+        p2_plain_ms, _ = cuda_ms(lambda: sa._p2_plain(eps2, SCALE_TILE), 3)
+        p2_lib_ms, _ = cuda_ms(lambda: torch.sum(eps2, dtype=torch.float32), 3)
+        del eps2
+        info.update(n=SCALE_N, epochs=ABL_EPOCHS, tile=SCALE_TILE, reps=ABL_REPS,
+                    main_path_s=abl_wall, launches=abl_launches, cuda_launches=abl_cuda,
+                    p1=p1_res, p2_ms=p2_ms,
+                    p2_plain_ms=p2_plain_ms, p2_library_ms=p2_lib_ms, card=card)
+
+    # ---- 15. kernels --------------------------------------------------------
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)
     width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1
@@ -841,6 +1147,33 @@ def main() -> int:
     sw_bound, sw_by = bound(sw_flops, sw_bytes, FP32_FLOPS)
     # a block runs on one SM: the largest run alone at one SM's share
     one_sm_ms = 1e3 * grid_flops_bytes(cfg, [max(k2_rows)], 0, DEPTH)[0] / (FP32_FLOPS / 132)
+    abl_src = f"{PKG}/csrc/scale_ablation.cu"
+    pf = p1_flops(cfg)
+    width41 = width + cfg.latent_dim
+    corpus_bytes = ABL_EPOCHS * SCALE_N * width41 * 2
+    p1_rows = []
+    for name, mode, line, p1_ops, extra_bytes, lib_note in (
+            ("p1_stream", "stream", 182, ABL_EPOCHS * SCALE_N * width41, 0, None),
+            ("p1_sol", "sol", 148, ABL_EPOCHS * SCALE_N * pf["sol"], 4 * (width41 + 128) * 128,
+             "no single PyTorch call: a chain of 24 products"),
+            ("p1_ablation_fwd", "fwd", 94, ABL_EPOCHS * SCALE_N * pf["fwd"],
+             4 * cfg.n_params(), "no single PyTorch call: the CVAE's forward and loss"),
+            ("p1_ablation_dx", "dx", 94, ABL_EPOCHS * SCALE_N * pf["dx"], 4 * cfg.n_params(),
+             "no single PyTorch call: the forward and the gradient in x")):
+        b_ms, b_by = bound(p1_ops, corpus_bytes + extra_bytes + 4 * 8 * ABL_EPOCHS,
+                           FP32_FLOPS if mode == "stream" else BF16_FLOPS)
+        p1_rows.append({
+            "name": name, "route": "cuda", "source": abl_src,
+            "replaces": f"scripts/scale_ablation.py:{line}",
+            "launches": abl_launches[name], "cuda_launches": abl_cuda[mode],
+            "max_abs_err": p1_res[mode]["max_abs_err"], "ms": p1_res[mode]["ms"],
+            "plain_ms": p1_res[mode]["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": p1_res[mode].get("library_ms"),
+            **({"library_note": lib_note} if lib_note else {}),
+            **({"fp32_fma_bound_ms": 1e3 * p1_ops / FP32_FLOPS} if mode != "stream" else {}),
+            "epochs": ABL_EPOCHS, "flops": p1_ops, "card": card})
+    p2_bytes = P2_EPOCHS * SCALE_N * cfg.latent_dim * 2 + 32
+    p2_bound, p2_by = bound(P2_EPOCHS * SCALE_N * cfg.latent_dim, p2_bytes, FP32_FLOPS)
     emit({"kernels": [{
         "name": "k1_fused_trainer",
         "route": "cuda",
@@ -906,6 +1239,7 @@ def main() -> int:
         "library_ms": None,
         "fp32_fma_bound_ms": 1e3 * k3_flops / FP32_FLOPS,
         "f32_ms": k3_f32_ms,
+        "ablation_calls": abl_launches["_fused_scale_call"],
         "flops": k3_flops,
         "card": card,
     }, {
@@ -925,6 +1259,21 @@ def main() -> int:
         "library_ms": None,
         "fp32_fma_bound_ms": 1e3 * k4_flops / FP32_FLOPS,
         "flops": k4_flops,
+        "card": card,
+    }] + p1_rows + [{
+        "name": "p2_stream_sum",
+        "route": "cuda",
+        "source": abl_src,
+        "replaces": "scripts/noise_consumer_probe.py:78",
+        "launches": abl_launches["p2_stream_sum"],
+        "cuda_launches": abl_cuda["p2"],
+        "max_abs_err": abl_err["p2"],
+        "ms": p2_ms,
+        "plain_ms": p2_plain_ms,
+        "bound_ms": p2_bound,
+        "bound_by": p2_by,
+        "library_ms": p2_lib_ms,
+        "bytes": p2_bytes,
         "card": card,
     }]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each source under ``csrc/`` has a plain C interface (no PyTorch headers),
-so ``nvcc`` builds it into a shared library in seconds.  The library lands
-in ``defensive_model_vae_tpu_torch/build/`` (listed in ``.gitignore``),
-named by a hash of the source and the flags, so a changed source is rebuilt
-and an unchanged one is loaded as it is.  Nothing is built at import time:
-:func:`load` builds at a kernel's first launch, and :func:`build_all`
-builds every kernel at once, one ``nvcc`` per source, all started together.
+so ``nvcc`` builds it in seconds.  A kernel library is one or more objects:
+each (source, defines) pair of its entry compiles to an object, every
+object of every library in its own ``nvcc`` started together, and the
+objects are linked into one shared library.  It lands in
+``defensive_model_vae_tpu_torch/build/`` (listed in ``.gitignore``), named
+by a hash of its sources, the headers under ``csrc/`` and the flags, so a
+changed source is rebuilt and an unchanged one is loaded as it is.
+Nothing is built at import time: :func:`load` builds at a kernel's first
+launch, and :func:`build_all` builds every kernel at once.
 """
 
 from __future__ import annotations
@@ -25,12 +28,13 @@ CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel name → (source, {C function: (restype, argtypes)})
+# kernel name → ((source, extra nvcc flags) per object,
+#                {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
 KERNELS: Dict[str, tuple] = {
-    "fused_trainer": ("fused_trainer.cu", {
+    "fused_trainer": ((("fused_trainer.cu", ()),), {
         "k1_fused_train": (ctypes.c_int, [
             _P, _P, _P, _P, _P, _P,            # x, cond, eps, params, work, metrics
             ctypes.c_int, ctypes.c_int,        # B, epochs
@@ -61,7 +65,9 @@ KERNELS: Dict[str, tuple] = {
         "k1_param_floats": (ctypes.c_longlong, []),
         "k1_work_floats": (ctypes.c_longlong, [ctypes.c_int]),
     }),
-    "fused_scale": ("fused_scale.cu", {
+    # K3's production instances, then one object per ablation knob
+    "fused_scale": ((("fused_scale.cu", ()),) + tuple(
+        ("fused_scale_knob.cu", (f"-DKS_KNOB={bit}",)) for bit in (2, 4, 8, 16, 32)), {
         "k3_train": (ctypes.c_int, [
             _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
             ctypes.c_int, ctypes.c_int,        # bf16, noise mode
@@ -72,7 +78,8 @@ KERNELS: Dict[str, tuple] = {
             ctypes.c_float, ctypes.c_float,    # start, time
             ctypes.c_ulonglong,                # seed
             _P, _P, _P, ctypes.c_int,          # params, m|v, partials, SM count
-            _P, _P,                            # metrics, stream
+            _P, ctypes.c_int, _P,              # metrics, ablation bits, noadam sink
+            _P,                                # stream
         ]),
         "k4_grad_epoch": (ctypes.c_int, [
             _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
@@ -89,6 +96,34 @@ KERNELS: Dict[str, tuple] = {
         "ks_partial_floats": (ctypes.c_longlong, []),
         "ks_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
     }),
+    "scale_ablation": ((("scale_ablation.cu", ()),), {
+        "p1_stream": (ctypes.c_int, [
+            _P, ctypes.c_longlong, ctypes.c_int,  # packed corpus, its elements, epochs
+            _P, ctypes.c_int, _P, _P,          # partials, SM count, metrics, stream
+        ]),
+        "p1_sol": (ctypes.c_int, [
+            _P, ctypes.c_int, ctypes.c_longlong,  # packed corpus, width, rows
+            _P, _P, ctypes.c_int,              # w_in, w_chain, chain length
+            ctypes.c_int, _P, ctypes.c_int,    # epochs, partials, SM count
+            _P, _P,                            # metrics, stream
+        ]),
+        "p1_ablation": (ctypes.c_int, [
+            _P, ctypes.c_int, ctypes.c_longlong,  # packed corpus, width, rows
+            ctypes.c_float, ctypes.c_int,      # n_valid, mode (0 fwd, 1 dx)
+            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+            ctypes.c_float, ctypes.c_float,    # start, time
+            _P, ctypes.c_int, _P, ctypes.c_int,  # params, epochs, partials, SMs
+            _P, _P,                            # metrics, stream
+        ]),
+        "p2_stream_sum": (ctypes.c_int, [
+            _P, ctypes.c_longlong, _P, ctypes.c_int,  # eps, elements, partials, SMs
+            _P, _P,                            # (1, 8) out, stream
+        ]),
+        "sa_param_floats": (ctypes.c_longlong, []),
+        "sa_cuda_launches": (ctypes.c_longlong, [ctypes.c_int]),
+        "sa_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
+        "sa_sum_blocks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
+    }),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -102,41 +137,66 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = CSRC / KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src, defines in KERNELS[name][0]:
+        h.update(src.encode() + " ".join(defines).encode() + (CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str):
-    """Start ``nvcc`` for one kernel; → (Popen, tmp path, final path) or
-    None when the library for this source is already built."""
+    """Start one ``nvcc`` per object of kernel ``name``; → (the processes
+    with their object paths, final path) or None when the library for
+    these sources is already built."""
     out = _lib_path(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, out
+    procs = []
+    for i, (src, defines) in enumerate(KERNELS[name][0]):
+        obj = out.with_suffix(f".{i}.{os.getpid()}.o")
+        cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(CSRC / src)]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True), obj))
+    return procs, out
 
 
 def _finish_build(name: str, started, timeout: float) -> str:
-    proc, tmp, out = started
+    """Wait for the objects, link them into the library → nvcc's output."""
+    procs, out = started
+    deadline = time.monotonic() + timeout
+    logs, failed = [], None
+    for proc, obj in procs:
+        try:
+            log, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for p, _ in procs:
+                p.kill()
+                p.communicate()
+            raise RuntimeError(f"nvcc for {name} did not finish in {timeout} s")
+        logs.append(log)
+        if proc.returncode != 0 and failed is None:
+            failed = log
+    objs = [obj for _, obj in procs]
     try:
-        log, _ = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise RuntimeError(f"nvcc for {name} did not finish in {timeout} s")
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-    os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
-    return log
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed for {name}:\n{failed}")
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True,
+                              timeout=max(1.0, deadline - time.monotonic()))
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc could not link {name}:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, out)  # atomic: a reader never sees a half-written .so
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(logs)
 
 
 def build_all(timeout: float = 300.0) -> Dict[str, dict]:
-    """Build every kernel, one ``nvcc`` per source started together.
+    """Build every kernel, one ``nvcc`` per object, all started together.
     → {name: {"seconds": wall time, "log": nvcc's output (ptxas -v)}}."""
     t0 = time.perf_counter()
     started = {n: _start_build(n) for n in KERNELS}

@@ -35,6 +35,15 @@ Noise (``noise=``), as in JAX:
   on the device, cast to the compute dtype and read epoch-major: step
   (e, i) reads rows e·n_pad + i·tile.  The stream is torch's, not JAX's
   ``rbg``; :func:`hbm_noise_impl` names it for the manifest.
+
+``_fused_scale_call(..., _ablate=(...))`` takes K3's ablation knobs
+(JAX :194-281), each of which removes one layer of work, for the ablation
+script ``scripts/scale_ablation.py``: ``noadam`` (params, m and v never
+updated), ``noacc`` (Adam takes the last tile's gradient sum only; the
+metrics still sum every tile), and ``biasdot``, ``chaincd``, ``nodw`` and
+``fwdonly``, which are ``manual_value_and_grad``'s levers ``bias_via_dot``,
+``chain_cd``, ``grads_mode="nodw"`` and ``grads_mode="none"``.  JAX's
+``dwT`` knob is not ported.  Production callers leave ``_ablate`` empty.
 """
 
 from __future__ import annotations
@@ -65,6 +74,13 @@ from .manual_grad import manual_value_and_grad
 _KERNEL_CFG = CVAEConfig()
 
 NOISE_MODES = {"packed": 0, "hbm": 1, "prng": 2}
+
+# K3's ablation knobs as the bits of k3_train's ``ablate`` argument, and the
+# manual-backward lever each of the per-tile ones turns (JAX :246-253)
+ABLATE_BITS = {"noadam": 1, "noacc": 2, "biasdot": 4, "chaincd": 8, "nodw": 16,
+               "fwdonly": 32}
+_KNOB_LEVERS = {"biasdot": ("bias_via_dot", True), "chaincd": ("chain_cd", True),
+                "fwdonly": ("grads_mode", "none"), "nodw": ("grads_mode", "nodw")}
 
 # Guards, restated for an 80 GB H100 and this port:
 # - the tile is the unit of the noise stream (prng keys, hbm row blocks)
@@ -194,24 +210,54 @@ def hbm_noise(seed: int, epochs: int, n_pad: int, latent_dim: int,
 
 # ---- the plain version of one epoch's gradient pass -------------------------
 
+def _check_ablate(ablate, compute_dtype) -> int:
+    """K3's knob names → their bitmask; refuses what JAX refuses and what
+    the port does not have."""
+    ablate = tuple(ablate)
+    if "dwT" in ablate:
+        raise NotImplementedError("the 'dwT' knob (dW by an explicit transpose) is "
+                                  "not ported yet")
+    bad = [k for k in ablate if k not in ABLATE_BITS]
+    if bad:
+        raise ValueError(f"unknown _ablate knobs {bad}; known: {sorted(ABLATE_BITS)}")
+    if "chaincd" in ablate and compute_dtype is None:
+        raise ValueError("chain_cd requires a compute dtype (it keeps the "
+                         "dY chain in that dtype)")
+    return sum(ABLATE_BITS[k] for k in set(ablate))
+
+
+def _manual_levers(ablate) -> dict:
+    """The manual-backward levers that ``ablate`` turns (nodw before
+    fwdonly, as JAX :248-253 orders them)."""
+    out = {}
+    for k in ("biasdot", "chaincd", "fwdonly", "nodw"):
+        if k in ablate:
+            name, val = _KNOB_LEVERS[k]
+            out[name] = val
+    return out
+
+
 def _plain_grad_epoch(plist, packed, tile, cfg, weights, n_valid, compute_dtype,
-                      eps_of_tile):
+                      eps_of_tile, ablate=()):
     """Tile-summed gradients and loss row of one epoch: per tile the ported
     manual backward with the loss scaled by the global ``n_valid``, summed
-    over the tiles in order, as the TPU kernels accumulate them."""
+    over the tiles in order, as the TPU kernels accumulate them.  Under
+    the ``noacc`` knob each tile's gradient replaces the sum, so the last
+    tile's is returned; the loss row sums every tile either way."""
     _check_plain_tile(tile)
     F, C = cfg.seq_len * cfg.dim, cfg.cond_dim
+    levers = _manual_levers(ablate)
     acc, row = None, None
     for i in range(packed.shape[0] // tile):
         blk = packed[i * tile:(i + 1) * tile]
         comps, grads = manual_value_and_grad(
             plist, blk[:, :F], blk[:, F:F + C], eps_of_tile(i, blk), cfg, weights,
             blk[:, F + C:F + C + 1].float(), n_valid=n_valid,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, **levers)
         if acc is None:
             acc, row = grads, comps
         else:
-            acc = [a + g for a, g in zip(acc, grads)]
+            acc = grads if "noacc" in ablate else [a + g for a, g in zip(acc, grads)]
             row = row + comps
     return acc, row
 
@@ -227,7 +273,10 @@ def _eps_source(noise, cfg, tile, n_pad, eps_rows, seed_base, device):
     return lambda i, blk: philox_normal(seed_base + i, 0, tile, Z, device)
 
 
-def _check_noise(noise, packed, cfg, eps, rows):
+def _check_noise(noise, packed, cfg, eps, rows, tile):
+    if packed.shape[0] == 0 or packed.shape[0] % tile:
+        raise ValueError(f"{packed.shape[0]} corpus rows are not a positive multiple "
+                         f"of tile={tile}")
     width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1
     if noise not in NOISE_MODES:
         raise ValueError(f"noise must be one of {sorted(NOISE_MODES)} (got {noise!r})")
@@ -280,19 +329,48 @@ def _weights_args(weights: LossWeights):
             ctypes.c_float(weights.start), ctypes.c_float(weights.time))
 
 
+_STEP_ROWS = 32  # the rows of one step of the CUDA gradient kernel
+
+
+def _check_kernel_knobs(bits, compute_dtype, tile):
+    """What the CUDA kernel takes of the knobs: one per-tile knob at a time
+    (each is its own compiled instance, built for bf16 only), with noadam
+    beside it; noacc needs tiles of whole 32-row steps."""
+    knobs = bits & ~ABLATE_BITS["noadam"]
+    if knobs & (knobs - 1):
+        raise NotImplementedError("K3 is compiled for one ablation knob at a time "
+                                  "(besides noadam)")
+    if knobs and compute_dtype != "bfloat16":
+        raise NotImplementedError("K3's ablation knobs are compiled for "
+                                  "compute_dtype='bfloat16' only")
+    if bits & ABLATE_BITS["noacc"] and tile % _STEP_ROWS:
+        raise ValueError(f"the noacc knob needs a tile of whole {_STEP_ROWS}-row "
+                         f"kernel steps (got {tile})")
+
+
 def _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile,
-                             n_valid, compute_dtype, noise, eps_all):
+                             n_valid, compute_dtype, noise, eps_all, bits=0, sink=None):
+    """K3's launch.  Under the noadam bit the reduce writes each epoch's
+    summed gradients, in the kernel's flat layout, to ``sink`` (allocated
+    here when None), which is how a check reads a knob's gradients."""
+    _check_kernel_knobs(bits, compute_dtype, tile)
     lib, params, partial, sms, stream = _kernel_common(plist, packed, eps_all, cfg,
                                                        compute_dtype, tile, "K3")
     mv = torch.zeros(2 * params.numel(), dtype=torch.float32, device=packed.device)
     metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=packed.device)
+    if bits & ABLATE_BITS["noadam"] and sink is None:
+        sink = torch.empty_like(params)
+    if sink is not None and (sink.numel() != params.numel() or sink.device != params.device
+                             or sink.dtype != torch.float32 or not sink.is_contiguous()):
+        raise ValueError("K3: the sink must be a contiguous float32 tensor of the "
+                         "kernel's parameter count on the corpus's device")
     err = lib.k3_train(
         packed.data_ptr(), packed.shape[1], _ptr(eps_all),
         int(packed.dtype == torch.bfloat16), NOISE_MODES[noise],
         packed.shape[0], tile, ctypes.c_float(n_valid), epochs, ctypes.c_float(lr),
         *_weights_args(weights), ctypes.c_ulonglong(seed),
         params.data_ptr(), mv.data_ptr(), partial.data_ptr(), sms,
-        metrics.data_ptr(), stream)
+        metrics.data_ptr(), bits, _ptr(sink), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     _fused_scale_call.launches += 1
@@ -321,10 +399,11 @@ def _grad_epoch_call_kernel(plist, packed, stream_base, cfg, weights, tile,
 # ---- K3 ----------------------------------------------------------------------
 
 def _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr, tile,
-                            n_valid, compute_dtype, noise, eps_all=None):
+                            n_valid, compute_dtype, noise, eps_all=None, _ablate=()):
     """K3's plain version: per epoch the plain gradient pass over the tiles
-    in order, then Adam; one metrics row [total, recon, kld, start, time,
-    0, 0, 0] per epoch."""
+    in order, then Adam (none under the ``noadam`` knob); one metrics row
+    [total, recon, kld, start, time, 0, 0, 0] per epoch."""
+    _check_ablate(_ablate, compute_dtype)
     dev = packed.device
     n_pad = packed.shape[0]
     n_tiles = n_pad // tile
@@ -336,9 +415,10 @@ def _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr, tile,
         rows = None if eps_all is None else eps_all[e * n_pad:(e + 1) * n_pad]
         src = _eps_source(noise, cfg, tile, n_pad, rows, seed + e * n_tiles, dev)
         grads, row = _plain_grad_epoch(params, packed, tile, cfg, weights, n_valid,
-                                       compute_dtype, src)
-        tf = torch.tensor(float(e + 1), dtype=torch.float32, device=dev)
-        params, m, v = _adam_step(params, grads, m, v, tf, lr)
+                                       compute_dtype, src, _ablate)
+        if "noadam" not in _ablate:
+            tf = torch.tensor(float(e + 1), dtype=torch.float32, device=dev)
+            params, m, v = _adam_step(params, grads, m, v, tf, lr)
         metrics[e, :5] = row
     return params, metrics
 
@@ -346,7 +426,7 @@ def _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr, tile,
 def _fused_scale_call(plist, packed, seed: int, cfg: CVAEConfig,
                       weights: LossWeights, epochs: int, lr: float, tile: int,
                       n_valid: float, compute_dtype, noise: str,
-                      eps_all: Optional[torch.Tensor] = None):
+                      eps_all: Optional[torch.Tensor] = None, _ablate=()):
     """A whole production-scale run: (final flat params, (epochs, 8) metrics).
 
     ``packed`` is the (n_pad, F+C+1[+Z]) corpus from :func:`_pack_corpus`,
@@ -354,19 +434,22 @@ def _fused_scale_call(plist, packed, seed: int, cfg: CVAEConfig,
     ``noise="hbm"``, ``eps_all`` is the (epochs·n_pad, Z) stream; when it is
     None it is drawn here by :func:`hbm_noise`.  On CUDA tensors this
     launches K3 (counted in ``_fused_scale_call.launches``) or raises; on
-    CPU tensors it runs K3's plain version."""
+    CPU tensors it runs K3's plain version.  ``_ablate`` names the
+    ablation knobs (module docstring)."""
+    bits = _check_ablate(_ablate, compute_dtype)
     dev = packed.device
     if noise == "hbm" and eps_all is None:
         eps_all = hbm_noise(seed, epochs, packed.shape[0], cfg.latent_dim,
                             compute_dtype, dev)
-    _check_noise(noise, packed, cfg, eps_all, epochs * packed.shape[0])
+    _check_noise(noise, packed, cfg, eps_all, epochs * packed.shape[0], tile)
     if dev.type == "cpu":
         return _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr,
-                                       tile, n_valid, compute_dtype, noise, eps_all)
+                                       tile, n_valid, compute_dtype, noise, eps_all,
+                                       tuple(_ablate))
     if dev.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or (plain) CPU tensors, got {dev}")
     return _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr,
-                                    tile, n_valid, compute_dtype, noise, eps_all)
+                                    tile, n_valid, compute_dtype, noise, eps_all, bits)
 
 
 _fused_scale_call.launches = 0
@@ -436,7 +519,7 @@ def _grad_epoch_call(plist, packed, stream_base: int, cfg: CVAEConfig,
     ``_grad_epoch_call.launches``) or raises; on CPU tensors it runs K4's
     plain version."""
     dev = packed.device
-    _check_noise(noise, packed, cfg, eps_epoch, packed.shape[0])
+    _check_noise(noise, packed, cfg, eps_epoch, packed.shape[0], tile)
     if dev.type == "cpu":
         src = _eps_source(noise, cfg, tile, packed.shape[0], eps_epoch,
                           stream_base, dev)

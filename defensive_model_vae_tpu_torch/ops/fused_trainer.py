@@ -10,7 +10,8 @@ cond, optional ε, seed and the initial params in; the final params and an
 see the design note in that file for its bound and its layout).
 
 Plain parts ported as they are: ``_LAYERS``/``_flatten_params``/
-``_unflatten_params`` (:38-58), the f32 path of ``_forward_loss`` (:61),
+``_unflatten_params`` (:38-58), ``_forward_loss`` (:61; float32 and the
+``f32_acts`` mixed mode),
 ``_adam_step`` (:268), ``fused_inputs`` (:442), ``fused_step_reference``
 (:795) and ``fused_train`` (:405).
 
@@ -59,15 +60,38 @@ def _unflatten_params(flat) -> Params:
             for i, name in enumerate(_LAYERS)}
 
 
+def bf16_rounder(compute_dtype):
+    """→ dc(a): a product operand in the compute dtype, held in float32 —
+    ``a.to(bfloat16).float()`` (round to nearest even) for ``"bfloat16"``,
+    the identity for None."""
+    if compute_dtype is None:
+        return lambda a: a
+    if compute_dtype == "bfloat16":
+        return lambda a: a.to(torch.bfloat16).float()
+    raise ValueError(f"compute_dtype must be None or 'bfloat16' (got {compute_dtype!r})")
+
+
 def _forward_loss(plist, x_flat, cond, eps, cfg: CVAEConfig, w: LossWeights,
-                  mask=None, n_valid=None):
+                  mask=None, n_valid=None, compute_dtype=None):
     """Loss over the flat param list on flattened (B, T·D) windows with
-    explicit noise — the f32 path of ``_forward_loss`` (fused_trainer.py:61).
-    Returns (total, [total, recon, kld, start, time])."""
+    explicit noise (fused_trainer.py:61).  Returns (total, [total, recon,
+    kld, start, time]).
+
+    ``compute_dtype="bfloat16"`` is JAX's ``f32_acts`` mode: the inputs are
+    taken to float32 once, both operands of every product are rounded to
+    bf16 and the product accumulates in float32; everything else stays
+    float32.  Under autograd each rounding's backward casts its cotangent
+    to bf16 and back, which is where JAX's autodiff rounds in this mode:
+    the float32 cotangent enters each activation-gradient product
+    unrounded and the product's output is rounded to bf16.  With None the
+    roundings are absent and this is the float32 path as it always was."""
+    dc = bf16_rounder(compute_dtype)
+    if compute_dtype is not None:
+        x_flat, cond, eps = x_flat.float(), cond.float(), eps.float()
     p = {n: (plist[2 * i], plist[2 * i + 1]) for i, n in enumerate(_LAYERS)}
 
     def lin(name, h):
-        return h @ p[name][0] + p[name][1]
+        return dc(h) @ dc(p[name][0]) + p[name][1]
 
     hc = torch.relu(lin("cond_1", torch.relu(lin("cond_0", cond))))
     h = x_flat

@@ -21,8 +21,24 @@ the μ/logσ² head math and the loss stay float32 and unrounded.  With
 ``compute_dtype=None`` every rounding is the identity, so the float32 path
 is exactly the one K1's plain version has always run.
 
-``chain_cd`` and the ablation levers (``bias_via_dot``, ``dw_mode``,
-``grads_mode``) serve only the JAX ablation script and come with its port.
+Three of the four levers of JAX's ``manual_value_and_grad``, which the K3
+ablation (``scripts/scale_ablation.py``, kernel knobs of
+``ops/fused_scale.py``) turns one at a time; the fourth, ``dw_mode``, has
+no user in the port until the ``dwT`` kernel knob is ported:
+
+- ``chain_cd`` (bf16 only): the dY chain in bf16.  ``d_recon`` is rounded
+  once; each activation-gradient product rounds its output to bf16, and so
+  does the sum of the two cotangents of hc; the relu mask and the weight
+  and bias gradients then read those bf16 values.  The μ/logσ² head math
+  stays float32.
+- ``bias_via_dot``: db as a ones-row product.  In float32 only the order of
+  the sum changes; in bf16 the sum reads the bf16-rounded dy (JAX
+  :140-152), a change of precision.
+- ``grads_mode="nodw"`` runs the whole dY chain but returns zero weight and
+  bias gradients, except that every element of cond_0's bias gradient is
+  the float32 checksum Σ dy_enc0 + Σ dy_cond0 of the two chains' last
+  cotangents (JAX :316-337); ``"none"`` returns zero gradients after the
+  forward.
 """
 
 from __future__ import annotations
@@ -32,7 +48,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..models import CVAEConfig, LossWeights
-from .fused_trainer import _LAYERS
+from .fused_trainer import _LAYERS, bf16_rounder
 
 _ENC = _LAYERS[2:6]
 _DEC = _LAYERS[8:12]
@@ -44,6 +60,8 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           n_valid: Optional[float] = None,
                           compute_dtype: Optional[str] = None,
+                          bias_via_dot: bool = False,
+                          chain_cd: bool = False, grads_mode: str = "full",
                           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Forward loss + parameter gradients.
 
@@ -52,24 +70,30 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     layout ``[W, b(1, -1), ...]`` — what autograd of
     ``fused_trainer._forward_loss`` returns, up to summation order.
     ``compute_dtype``: None (float32) or ``"bfloat16"`` (the ``f32_acts``
-    mode, module docstring)."""
-    if compute_dtype is None:
-        def dc(a):
-            return a
-    elif compute_dtype == "bfloat16":
-        def dc(a):  # a product operand, rounded to bf16 and held in float32
-            return a.to(torch.bfloat16).float()
-    else:
-        raise ValueError(f"compute_dtype must be None or 'bfloat16' (got {compute_dtype!r})")
+    mode, module docstring).  ``bias_via_dot``, ``chain_cd`` and
+    ``grads_mode`` are the ablation levers of the module docstring."""
+    dc = bf16_rounder(compute_dtype)
+    if chain_cd and compute_dtype is None:
+        raise ValueError("chain_cd requires a compute dtype (it keeps the "
+                         "dY chain in that dtype)")
+    if grads_mode not in ("full", "nodw", "none"):
+        raise ValueError(f"grads_mode must be 'full', 'nodw' or 'none' "
+                         f"(got {grads_mode!r})")
+    rc = dc if chain_cd else (lambda a: a)  # the chain's own rounding
 
     def fdot(a, w):  # forward product
         return dc(a) @ dc(w)
 
-    def ddot_act(dy, w):  # dy · wᵀ
-        return dc(dy) @ dc(w).t()
+    def ddot_act(dy, w):  # dy · wᵀ, in the chain's dtype
+        return rc(dc(dy) @ dc(w).t())
 
     def ddot_w(a, dy):  # aᵀ · dy
         return dc(a).t() @ dc(dy)
+
+    def dbias(dy):  # (1, fo), float32
+        if bias_via_dot:
+            return torch.ones((1, dy.shape[0]), device=dy.device) @ dc(dy)
+        return torch.sum(dy, dim=0, keepdim=True)
 
     T, D, Z, H = cfg.seq_len, cfg.dim, cfg.latent_dim, cfg.hidden_dim
     F = T * D
@@ -125,6 +149,9 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     comps = torch.stack([total, recon_loss, kld, start_loss, time_loss])
 
     # ---- backward ----------------------------------------------------------
+    if grads_mode == "none":
+        return comps, [torch.zeros_like(q) for q in plist]
+    skip_dw = grads_mode == "nodw"
     S = 1.0 / denom
     col = torch.arange(F, device=x.device)[None, :]
     start_cols = ((col == 1) | (col == 2)).float()
@@ -142,10 +169,11 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     grads = {}
 
     def back_linear(name, a_in, dy):
-        grads[name] = (ddot_w(a_in, dy), torch.sum(dy, dim=0, keepdim=True))
+        if not skip_dw:
+            grads[name] = (ddot_w(a_in, dy), dbias(dy))
         return ddot_act(dy, p[name][0])
 
-    dy = d_recon
+    dy = rc(d_recon)
     for i in (3, 2, 1, 0):
         d_prev = back_linear(_DEC[i], dec_in[i], dy)
         if i > 0:
@@ -157,24 +185,35 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     d_mu = dz + kS * m_col * mu
     d_logvar = dz * eps * (0.5 * std) - (0.5 * kS) * m_col * (1.0 - torch.exp(logvar))
     d_ml = torch.cat([d_mu, d_logvar], dim=1)
-    dw_ml = ddot_w(hcat, d_ml)
-    db_ml = torch.sum(d_ml, dim=0, keepdim=True)
-    grads["fc_mu"] = (dw_ml[:, :Z], db_ml[:, :Z])
-    grads["fc_logvar"] = (dw_ml[:, Z:], db_ml[:, Z:])
+    if not skip_dw:
+        dw_ml = ddot_w(hcat, d_ml)
+        db_ml = dbias(d_ml)
+        grads["fc_mu"] = (dw_ml[:, :Z], db_ml[:, :Z])
+        grads["fc_logvar"] = (dw_ml[:, Z:], db_ml[:, Z:])
     d_hcat = ddot_act(d_ml, w_ml)
-    dhc = dhc_dec + d_hcat[:, H:]
+    dhc = rc(dhc_dec + d_hcat[:, H:])
 
     enc_out = enc_in[1:] + [h]
     dy = d_hcat[:, :H] * (enc_out[3] > 0).float()
     for i in (3, 2, 1):
         d_prev = back_linear(_ENC[i], enc_in[i], dy)
         dy = d_prev * (enc_out[i - 1] > 0).float()
-    grads["enc_0"] = (ddot_w(enc_in[0], dy), torch.sum(dy, dim=0, keepdim=True))
+    dy_enc = dy
+    if not skip_dw:
+        grads["enc_0"] = (ddot_w(enc_in[0], dy), dbias(dy))
 
     dy = dhc * (hc > 0).float()
     d_c0 = back_linear("cond_1", c0, dy)
     dy = d_c0 * (c0 > 0).float()
-    grads["cond_0"] = (ddot_w(cond, dy), torch.sum(dy, dim=0, keepdim=True))
+    if skip_dw:
+        # both chains' last cotangents depend on every chain product, so
+        # their checksum keeps the whole dY chain live
+        chk = torch.sum(dy_enc) + torch.sum(dy)
+        flat = [torch.zeros_like(q) for q in plist]
+        ci = 2 * _LAYERS.index("cond_0") + 1
+        flat[ci] = flat[ci] + chk
+        return comps, flat
+    grads["cond_0"] = (ddot_w(cond, dy), dbias(dy))
 
     flat = []
     for name in _LAYERS:
