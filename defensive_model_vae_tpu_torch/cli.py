@@ -9,13 +9,15 @@ package's ``defvae train`` / ``defvae generate`` (cli.py:45-170, :711,
         --windows fixtures/trajectory_sce4_cond.npy --ckpt ckpt/ --fused
     python -m defensive_model_vae_tpu_torch.cli train --scenario big \\
         --windows corpus.npy --ckpt ckpt/ --fused-scale --epochs 200 \\
-        --dtype bfloat16
+        --dtype bfloat16 [--backward auto] [--noise prng]
     python -m defensive_model_vae_tpu_torch.cli generate --ckpt ckpt/ \\
         --start-x 11 --start-y 0 -n 5
 
 ``--fused-scale`` is the production-scale trainer (kernel K3; with
 ``--mesh``, the per-epoch tier through kernel K4, on one device until the
-data-parallel slice).  ``--device`` defaults to ``cuda``; ``--device cpu``
+data-parallel slice); ``--backward auto`` runs its autodiff instance.
+Without ``--fused``/``--fused-scale``, ``--dtype bfloat16`` runs the scan
+trainer's bf16 chain.  ``--device`` defaults to ``cuda``; ``--device cpu``
 runs on the CPU (the kernels' plain versions).
 """
 
@@ -45,9 +47,9 @@ def _cmd_train(args):
     if args.fused and args.dtype:
         raise SystemExit("--dtype applies to --fused-scale (the --fused kernel is "
                          "float32); drop one")
-    if not (args.fused or args.fused_scale) and (args.dtype or args.mesh):
-        raise SystemExit("--dtype and --mesh of the scan trainer are not ported "
-                         "yet; use --fused-scale")
+    if not (args.fused or args.fused_scale) and args.mesh:
+        raise SystemExit("--mesh of the scan trainer is not ported yet; use "
+                         "--fused-scale")
     noise = (args.noise or "hbm") if args.fused_scale else None
     recipe = {}
     if args.fused:
@@ -70,7 +72,8 @@ def _cmd_train(args):
                                compute_dtype=args.dtype, noise=noise,
                                backward=args.backward, device=args.device)
     else:
-        tc = TrainConfig(epochs=args.epochs, lr=args.lr, seed=args.seed, weights=weights)
+        tc = TrainConfig(epochs=args.epochs, lr=args.lr, seed=args.seed, weights=weights,
+                         compute_dtype=args.dtype)
         params, hist = train(windows, train_cfg=tc, device=args.device)
     cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
     save_checkpoint(
@@ -120,16 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the production-scale streaming trainer (kernel K3; "
                         "with --mesh the per-epoch tier, kernel K4)")
     t.add_argument("--dtype", default=None, choices=["bfloat16"],
-                   help="--fused-scale compute dtype (bf16 product operands over "
-                        "float32 masters); default pure float32")
+                   help="compute dtype: --fused-scale's bf16 product operands over "
+                        "float32 masters, or the scan trainer's bf16 chain; "
+                        "default pure float32")
     t.add_argument("--mesh", action="store_true",
                    help="--fused-scale: the per-epoch data-parallel tier (one "
                         "device in this port so far)")
     t.add_argument("--tile", type=int, default=2048,
                    help="--fused-scale rows per tile")
     t.add_argument("--backward", choices=("auto", "manual"), default=None,
-                   help="--fused-scale gradient path; the port runs 'manual' "
-                        "('auto' is not ported yet)")
+                   help="--fused-scale gradient path: 'manual' (the default) or "
+                        "'auto' (the arithmetic of autodiff, its own kernel instance)")
     t.add_argument("--noise", choices=("hbm", "prng"), default=None,
                    help="--fused-scale noise: 'hbm' (default) draws every epoch's "
                         "eps ahead of the kernel; 'prng' draws it in the kernel")

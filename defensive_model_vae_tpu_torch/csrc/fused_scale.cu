@@ -71,7 +71,21 @@
 //            gradient is zero and Adam runs on them, as in JAX.
 //   fwdonly  (a) runs forward and loss only; (b) reads no gradient row and
 //            runs Adam on zeros (params unchanged), and writes the loss.
-//   biasdot, chaincd  only (a) changes.
+//   biasdot, chaincd, dwT  only (a) changes (dwT: each weight gradient
+//            through its activations transposed into shared memory, the
+//            same sums bit for bit).
+//
+// The autodiff instances (backward="auto"; JAX's jax.value_and_grad of
+// _forward_loss inside the kernel) are (a) compiled once per dtype mode
+// from fused_scale_auto.cu: float32, f32_acts and bf16_chain, the last the
+// scan trainer's bf16 recipe, which has no manual backward.  Autodiff
+// returns each tile's gradients, rounded to bf16 where its weights (and,
+// in bf16_chain, biases) are bf16, and the tiles' sum adds those in
+// float32.  So these instances cut each tile into its own chunks (no chunk
+// straddles a tile; as many a tile as fill the SMs: two of 32 steps at the
+// bench shape, the manual layout), and their reduce (b) sums a tile's
+// chunks in order, rounds that sum, then adds the tiles in order.  The
+// manual instances and their reduce are the code they were.
 //
 // Interface: plain C, built by nvcc into a shared library and called
 // through ctypes (ops/_build.py).  The caller allocates everything.
@@ -83,8 +97,42 @@ KS_KNOB_LAUNCHER(4);
 KS_KNOB_LAUNCHER(8);
 KS_KNOB_LAUNCHER(16);
 KS_KNOB_LAUNCHER(32);
+KS_KNOB_LAUNCHER(64);
+KS_AUTO_LAUNCHER(0);
+KS_AUTO_LAUNCHER(1);
+KS_AUTO_LAUNCHER(2);
 
 namespace {
+
+// Adam (optax defaults) on parameter i with gradient g, bias correction
+// 1 - exp(t ln b)
+__device__ __forceinline__ void adam_at(int i, float g, float* P, float* mv, float lr,
+                                        float tf) {
+  const float LN_B1 = -0.10536051565782630f, LN_B2 = -0.0010005003335835335f;
+  const float bc1 = 1.f - expf(tf * LN_B1), bc2 = 1.f - expf(tf * LN_B2);
+  float* m = mv;
+  float* v = mv + N_PARAMS;
+  const float mi = 0.9f * m[i] + 0.1f * g;
+  const float vi = 0.999f * v[i] + 0.001f * g * g;
+  m[i] = mi;
+  v[i] = vi;
+  P[i] = P[i] - lr * ((mi / bc1) / (sqrtf(vi / bc2) + 1e-8f));
+}
+
+// the loss row of the epoch from the loss sums of every chunk, in order
+// (thread 0..4 of block 0)
+__device__ __forceinline__ void reduce_loss_row(const float* __restrict__ partial,
+                                                int n_chunks, float n_valid, LossW lw,
+                                                float* row) {
+  __shared__ float red[5];
+  if (threadIdx.x < 5) {
+    float s = 0.f;
+    for (int c = 0; c < n_chunks; ++c) s += partial[(long long)c * PART_STRIDE + LOSS_OFF + threadIdx.x];
+    red[threadIdx.x] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) loss_row(red, n_valid, lw, row);
+}
 
 // (b): sum the partial rows in chunk order; Adam (adam != 0) or the sum
 // into grad_out; block 0 writes the loss row.  Gradient rows are summed
@@ -95,34 +143,66 @@ __global__ void __launch_bounds__(256)
 ks_reduce_kernel(const float* __restrict__ partial, int n_chunks, int first_chunk,
                  int grad_mode, float* P, float* mv, float* grad_out, float* row,
                  int adam, float lr, float tf, float n_valid, LossW lw) {
-  __shared__ float red[5];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < N_PARAMS) {
     float g = 0.f;
     if (grad_mode == 0 || (grad_mode == 1 && i >= b_off(L_C0) && i < b_off(L_C0) + H))
       for (int c = first_chunk; c < n_chunks; ++c) g += partial[(long long)c * PART_STRIDE + i];
-    if (adam) {
-      const float LN_B1 = -0.10536051565782630f, LN_B2 = -0.0010005003335835335f;
-      const float bc1 = 1.f - expf(tf * LN_B1), bc2 = 1.f - expf(tf * LN_B2);
-      float* m = mv;
-      float* v = mv + N_PARAMS;
-      const float mi = 0.9f * m[i] + 0.1f * g;
-      const float vi = 0.999f * v[i] + 0.001f * g * g;
-      m[i] = mi;
-      v[i] = vi;
-      P[i] = P[i] - lr * ((mi / bc1) / (sqrtf(vi / bc2) + 1e-8f));
-    } else {
-      grad_out[i] = g;
-    }
+    if (adam) adam_at(i, g, P, mv, lr, tf);
+    else grad_out[i] = g;
   }
-  if (blockIdx.x == 0) {
-    if (threadIdx.x < 5) {
+  if (blockIdx.x == 0) reduce_loss_row(partial, n_chunks, n_valid, lw, row);
+}
+
+// layer by layer with each offset a constant: w_off called with a loop index
+// compiles to a recursive call with a stack frame
+template <int L = 0>
+__device__ __forceinline__ bool is_weight(int i) {
+  if constexpr (L == 11) {
+    return false;
+  } else {
+    constexpr int wo = w_off(L), bo = b_off(L);
+    return (i >= wo && i < bo) || is_weight<L + 1>(i);
+  }
+}
+
+// (b) of the autodiff instances: per tile the sum of its cpt chunks' rows in
+// order, rounded to bf16 where autodiff rounds (mode A_ACTS: weights;
+// A_CHAIN: weights and biases), the tiles added in order; then Adam or the
+// sum into grad_out, and block 0 writes the loss row
+__global__ void __launch_bounds__(256)
+ks_reduce_auto_kernel(const float* __restrict__ partial, int n_tiles, int cpt, int mode,
+                      float* P, float* mv, float* grad_out, float* row, int adam, float lr,
+                      float tf, float n_valid, LossW lw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N_PARAMS) {
+    const bool round_tile = mode == A_CHAIN || (mode == A_ACTS && is_weight(i));
+    float g = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
       float s = 0.f;
-      for (int c = 0; c < n_chunks; ++c) s += partial[(long long)c * PART_STRIDE + LOSS_OFF + threadIdx.x];
-      red[threadIdx.x] = s;
+      for (int j = 0; j < cpt; ++j) s += partial[((long long)t * cpt + j) * PART_STRIDE + i];
+      g += round_tile ? rnd<true>(s) : s;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) loss_row(red, n_valid, lw, row);
+    if (adam) adam_at(i, g, P, mv, lr, tf);
+    else grad_out[i] = g;
+  }
+  if (blockIdx.x == 0) reduce_loss_row(partial, n_tiles * cpt, n_valid, lw, row);
+}
+
+int launch_auto(int mode, const void* packed, int width, const void* eps, int noise,
+                long long n_pad, int tile, float n_valid, LossW lw,
+                unsigned long long seed_base, const float* P, float* partial, int cpt,
+                int per, cudaStream_t stream) {
+  switch (mode) {
+#define KS_AUTO_CASE(m)                                                             \
+    case m:                                                                         \
+      return ks_launch_grad_auto_##m(packed, width, eps, noise, n_pad, tile,       \
+                                     n_valid, lw.recon, lw.kld, lw.start, lw.time, \
+                                     seed_base, P, partial, cpt, per, (void*)stream);
+    KS_AUTO_CASE(0) KS_AUTO_CASE(1) KS_AUTO_CASE(2)
+#undef KS_AUTO_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -138,6 +218,7 @@ int launch_knob(int knob, const void* packed, int width, const void* eps, int no
                                        lw.time, seed_base, P, partial, sms,        \
                                        (void*)stream);
     KS_KNOB_CASE(2) KS_KNOB_CASE(4) KS_KNOB_CASE(8) KS_KNOB_CASE(16) KS_KNOB_CASE(32)
+    KS_KNOB_CASE(64)
 #undef KS_KNOB_CASE
     default:
       return (int)cudaErrorInvalidValue;
@@ -163,6 +244,14 @@ long long ks_partial_floats() { return PART_STRIDE; }
 
 long long ks_chunks(long long n_pad, int sms) { return n_chunks_of(n_pad, sms); }
 
+// the partial rows of the autodiff instances (chunks within tiles)
+long long ks_chunks_auto(long long n_pad, int tile, int sms) {
+  if (n_pad <= 0 || tile <= 0 || sms <= 0) return 0;
+  int cpt, per;
+  auto_chunking(n_pad, tile, sms, &cpt, &per);
+  return n_pad / tile * cpt;
+}
+
 // K3: `epochs` epochs of (a) then (b) with Adam, on `stream`.  With hbm
 // noise, eps is the (epochs n_pad, Z) stream; prng keys tile i of epoch e
 // by seed + e n_tiles + i.  params (n_params) is updated in place; mv is
@@ -178,7 +267,7 @@ int k3_train(const void* packed, int width, const void* eps, int bf16, int noise
   if (err || epochs <= 0) return err ? err : (int)cudaErrorInvalidValue;
   const int knob = ablate & ~K_NOADAM;
   const bool noadam = (ablate & K_NOADAM) != 0;
-  if ((ablate & ~63) || (knob & (knob - 1)) || (knob && !bf16) || (noadam && !sink) ||
+  if ((ablate & ~127) || (knob & (knob - 1)) || (knob && !bf16) || (noadam && !sink) ||
       (knob == K_NOACC && tile % R))
     return (int)cudaErrorInvalidValue;
   const LossW lw{w_recon, w_kld, w_start, w_time};
@@ -231,6 +320,61 @@ int k4_grad_epoch(const void* packed, int width, const void* eps, int bf16, int 
   ks_reduce_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
       partial, (int)n_chunks_of(n_pad, sms), 0, 0, nullptr, nullptr, grad, row, 0, 0.f,
       0.f, n_valid, lw);
+  return (int)cudaGetLastError();
+}
+
+// K3's autodiff instance in dtype mode `mode` (0 float32, 1 f32_acts, 2
+// bf16_chain; the corpus and eps stream bf16 in modes 1 and 2): `epochs`
+// epochs of its (a) then its reduce with Adam, on `stream`, arguments as
+// k3_train's; partial holds ks_chunks_auto rows.
+int k3_train_auto(const void* packed, int width, const void* eps, int mode, int noise,
+                  long long n_pad, int tile, float n_valid, int epochs, float lr,
+                  float w_recon, float w_kld, float w_start, float w_time,
+                  unsigned long long seed, float* params, float* mv, float* partial,
+                  int sms, float* metrics, void* stream) {
+  int err = check_args(width, eps, noise, n_pad, tile, n_valid, sms);
+  if (err || epochs <= 0 || mode < A_F32 || mode > A_CHAIN)
+    return err ? err : (int)cudaErrorInvalidValue;
+  const LossW lw{w_recon, w_kld, w_start, w_time};
+  const cudaStream_t st = (cudaStream_t)stream;
+  const long long n_tiles = n_pad / tile;
+  int cpt, per;
+  auto_chunking(n_pad, tile, sms, &cpt, &per);
+  const size_t esize = mode == A_F32 ? 4 : 2;
+  for (int e = 0; e < epochs; ++e) {
+    const void* eps_e = noise == HBM
+        ? (const void*)((const char*)eps + (size_t)e * n_pad * Z * esize) : eps;
+    err = launch_auto(mode, packed, width, eps_e, noise, n_pad, tile, n_valid, lw,
+                      seed + (unsigned long long)e * n_tiles, params, partial, cpt, per, st);
+    if (err) return err;
+    ks_reduce_auto_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
+        partial, (int)n_tiles, cpt, mode, params, mv, nullptr, metrics + (long long)e * 8,
+        1, lr, (float)(e + 1), n_valid, lw);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
+}
+
+// K4's autodiff instance: one epoch of k3_train_auto's (a) then its reduce
+// without Adam, arguments as k4_grad_epoch's with `mode` for bf16.
+int k4_grad_epoch_auto(const void* packed, int width, const void* eps, int mode,
+                       int noise, long long n_pad, int tile, float n_valid,
+                       float w_recon, float w_kld, float w_start, float w_time,
+                       unsigned long long stream_base, const float* params,
+                       float* partial, int sms, float* grad, float* row, void* stream) {
+  int err = check_args(width, eps, noise, n_pad, tile, n_valid, sms);
+  if (err || mode < A_F32 || mode > A_CHAIN) return err ? err : (int)cudaErrorInvalidValue;
+  const LossW lw{w_recon, w_kld, w_start, w_time};
+  const cudaStream_t st = (cudaStream_t)stream;
+  int cpt, per;
+  auto_chunking(n_pad, tile, sms, &cpt, &per);
+  err = launch_auto(mode, packed, width, eps, noise, n_pad, tile, n_valid, lw, stream_base,
+                    params, partial, cpt, per, st);
+  if (err) return err;
+  ks_reduce_auto_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
+      partial, (int)(n_pad / tile), cpt, mode, nullptr, nullptr, grad, row, 0, 0.f, 0.f,
+      n_valid, lw);
   return (int)cudaGetLastError();
 }
 

@@ -7,10 +7,10 @@
 #include "scale_common.cuh"
 
 #ifndef KS_KNOB
-#error "compile once per knob with -DKS_KNOB=<bit> (2, 4, 8, 16 or 32)"
+#error "compile once per knob with -DKS_KNOB=<bit> (2, 4, 8, 16, 32 or 64)"
 #endif
 static_assert(KS_KNOB == K_NOACC || KS_KNOB == K_BIASDOT || KS_KNOB == K_CHAINCD ||
-                  KS_KNOB == K_NODW || KS_KNOB == K_FWDONLY,
+                  KS_KNOB == K_NODW || KS_KNOB == K_FWDONLY || KS_KNOB == K_DWT,
               "one per-tile knob");
 
 // one level of indirection, so KS_KNOB expands before it is pasted

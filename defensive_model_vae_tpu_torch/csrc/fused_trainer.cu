@@ -49,11 +49,33 @@
 // each epoch across the SMs of a cluster (distributed shared memory instead
 // of a grid barrier), and tensor cores.
 //
+// The autodiff instance (backward="auto", JAX's _epoch_body with
+// jax.value_and_grad of _forward_loss): train_run<true>, the same run with
+// the arithmetic of autodiff in float32.  It differs from the manual
+// backward only in summation trees (JAX ops/manual_grad.py:15-41): the mu
+// and logvar heads' activation gradients are two products, added; the loss
+// terms' cotangents are added term by term, the time term as the two-term
+// sum of the +-1 difference product's transpose; the heads' cotangents are
+// formed as autodiff forms them.  This source compiled with -DK1_AUTO
+// (ops/_build.py) is its own object holding only that instance and its
+// entries (the *_auto functions), so the manual instances are the code
+// they were.
+//
 // Interface: plain C, built by nvcc into a shared library and called
 // through ctypes (ops/_build.py).  The caller allocates everything.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// this object's instance: the manual backward, or with -DK1_AUTO the
+// autodiff one, whose entries carry the suffix _auto
+#ifdef K1_AUTO
+#define K1_AUTO_BIT true
+#define K1_ENTRY(name) name##_auto
+#else
+#define K1_AUTO_BIT false
+#define K1_ENTRY(name) name
+#endif
 
 namespace {
 
@@ -213,7 +235,9 @@ __device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) 
   }
 }
 
-// One whole training run on B rows: the work of one block.
+// One whole training run on B rows: the work of one block.  AUTO: the
+// autodiff instance (the note at the top).
+template <bool AUTO>
 __device__ __forceinline__ void
 train_run(const float* __restrict__ x, const float* __restrict__ cond,
           const float* __restrict__ eps_in, float* P,
@@ -295,17 +319,37 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
       const bool is_start = (f == 1 || f == 2);
       if (is_start) s_start += d * d;
       if (f == 0) s_t0 += r * r;
-      float g = d * (c_rec + (is_start ? c_start : 0.f)) + r * (f == 0 ? c_t0 : 0.f);
-      if (f % D == 0) {
-        const int j = f / D;
-        if (j >= 1 && r - w.recon[i - D] < 0.f) g += c_td;
-        if (j <= T - 2) {
-          const float td = w.recon[i + D] - r;
-          s_tinc += fmaxf(-td, 0.f);
-          if (td < 0.f) g -= c_td;
+      if constexpr (AUTO) {
+        // term by term: recon, start, the time differences (one two-term
+        // sum), t0
+        float g = c_rec * d;
+        if (is_start) g += c_start * d;
+        if (f % D == 0) {
+          const int j = f / D;
+          float up = 0.f, down = 0.f;
+          if (j >= 1 && r - w.recon[i - D] < 0.f) up = c_td;
+          if (j <= T - 2) {
+            const float td = w.recon[i + D] - r;
+            s_tinc += fmaxf(-td, 0.f);
+            if (td < 0.f) down = c_td;
+          }
+          g += up - down;
         }
+        if (f == 0) g += c_t0 * r;
+        w.d_recon[i] = g;
+      } else {
+        float g = d * (c_rec + (is_start ? c_start : 0.f)) + r * (f == 0 ? c_t0 : 0.f);
+        if (f % D == 0) {
+          const int j = f / D;
+          if (j >= 1 && r - w.recon[i - D] < 0.f) g += c_td;
+          if (j <= T - 2) {
+            const float td = w.recon[i + D] - r;
+            s_tinc += fmaxf(-td, 0.f);
+            if (td < 0.f) g -= c_td;
+          }
+        }
+        w.d_recon[i] = g;
       }
-      w.d_recon[i] = g;
     }
     for (int i = tid; i < B * Z; i += NT) {
       const int b = i / Z, j = i % Z;
@@ -346,11 +390,30 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
       const float mu = w.ml[b * Z2 + j], lv = w.ml[b * Z2 + Z + j];
       const float dz = w.d_gin[b * GIN + j];
       const float sd = expf(0.5f * lv);
-      w.d_ml[b * Z2 + j] = dz + kS * mu;
-      w.d_ml[b * Z2 + Z + j] = dz * eps[i] * (0.5f * sd) - (0.5f * kS) * (1.f - expf(lv));
+      if constexpr (AUTO) {
+        const float c = -0.5f * kS;  // the kld term's cotangent
+        w.d_ml[b * Z2 + j] = dz + -c * (2.f * mu);
+        w.d_ml[b * Z2 + Z + j] = dz * eps[i] * sd * 0.5f + (c - c * expf(lv));
+      } else {
+        w.d_ml[b * Z2 + j] = dz + kS * mu;
+        w.d_ml[b * Z2 + Z + j] = dz * eps[i] * (0.5f * sd) - (0.5f * kS) * (1.f - expf(lv));
+      }
     }
     __syncthreads();
-    bwd<L_ML>(B, w.hcat, H2, w.d_ml, Z2, P, w.grad, w.d_hcat, H2, nullptr, 0, As, Bs);
+    if constexpr (AUTO) {
+      // dW and db of the merged head are each head's own, column by column;
+      // d_hcat is the mu head's product plus the logvar head's (in buf1 and
+      // buf2, adjacent: B x 2H floats, free after the decoder)
+      bwd<L_ML>(B, w.hcat, H2, w.d_ml, Z2, P, w.grad, nullptr, 0, nullptr, 0, As, Bs);
+      gemm(B, H2, Z, w.d_ml, Z2, 1, P + w_off(L_ML), 1, Z2, w.d_hcat, H2, nullptr, false,
+           nullptr, 0, As, Bs);
+      gemm(B, H2, Z, w.d_ml + Z, Z2, 1, P + w_off(L_ML) + Z, 1, Z2, w.buf1, H2, nullptr,
+           false, nullptr, 0, As, Bs);
+      for (int i = tid; i < B * H2; i += NT) w.d_hcat[i] = w.d_hcat[i] + w.buf1[i];
+      __syncthreads();
+    } else {
+      bwd<L_ML>(B, w.hcat, H2, w.d_ml, Z2, P, w.grad, w.d_hcat, H2, nullptr, 0, As, Bs);
+    }
     // condition cotangent from both concats, relu-masked by hc
     for (int i = tid; i < B * H; i += NT) {
       const int b = i / H, j = i % H;
@@ -393,8 +456,8 @@ k1_kernel(const float* __restrict__ x, const float* __restrict__ cond,
           float* work, float* __restrict__ metrics, int B,
           int epochs, float lr, float w_recon, float w_kld, float w_start,
           float w_time, unsigned long long seed) {
-  train_run(x, cond, eps_in, P, work, metrics, B, epochs, lr, w_recon, w_kld,
-            w_start, w_time, seed);
+  train_run<K1_AUTO_BIT>(x, cond, eps_in, P, work, metrics, B, epochs, lr, w_recon,
+                        w_kld, w_start, w_time, seed);
 }
 
 // Block s trains run s.  With row_off (S+1 offsets), its rows are
@@ -417,7 +480,7 @@ grid_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   }
   const long long run_floats = carve(nullptr, 0, nullptr);
   const long long row_floats = carve(nullptr, 1, nullptr) - run_floats;
-  train_run(x + x0 * F, cond + x0 * C, eps_in ? eps_in + e0 * Z : nullptr,
+  train_run<K1_AUTO_BIT>(x + x0 * F, cond + x0 * C, eps_in ? eps_in + e0 * Z : nullptr,
             P + (long long)s * N_PARAMS, work + s * run_floats + e0 * row_floats,
             metrics + (long long)s * epochs * 8, n, epochs, lr, w_recon, w_kld,
             w_start, w_time, seeds[s]);
@@ -427,12 +490,14 @@ grid_kernel(const float* __restrict__ x, const float* __restrict__ cond,
 
 extern "C" {
 
+#ifndef K1_AUTO
 long long k1_param_floats() { return N_PARAMS; }
 
 long long k1_work_floats(int B) { return carve(nullptr, B, nullptr); }
+#endif
 
 // Launch K1 on `stream`; returns cudaGetLastError() of the launch.
-int k1_fused_train(const float* x, const float* cond, const float* eps,
+int K1_ENTRY(k1_fused_train)(const float* x, const float* cond, const float* eps,
                    float* params, float* work, float* metrics, int B,
                    int epochs, float lr, float w_recon, float w_kld,
                    float w_start, float w_time, unsigned long long seed,
@@ -448,7 +513,7 @@ int k1_fused_train(const float* x, const float* cond, const float* eps,
 // x, cond and eps, keyed by seeds[s] (device uint64, S).  work holds
 // S k1_work_floats(0) + row_off[S] (k1_work_floats(1) - k1_work_floats(0))
 // floats.
-int k2_fused_train_multi(const float* x, const float* cond, const float* eps,
+int K1_ENTRY(k2_fused_train_multi)(const float* x, const float* cond, const float* eps,
                          const int* row_off, const unsigned long long* seeds,
                          int S, float* params, float* work, float* metrics,
                          int epochs, float lr, float w_recon, float w_kld,
@@ -463,7 +528,7 @@ int k2_fused_train_multi(const float* x, const float* cond, const float* eps,
 // K1 on a grid: S runs on the same B rows of x and cond, run s keyed by
 // seeds[s] with eps rows s B..(s+1) B when eps is given.  work holds
 // S k1_work_floats(B) floats.
-int k1_fused_train_seeds(const float* x, const float* cond, const float* eps,
+int K1_ENTRY(k1_fused_train_seeds)(const float* x, const float* cond, const float* eps,
                          const unsigned long long* seeds, int S, float* params,
                          float* work, float* metrics, int B, int epochs,
                          float lr, float w_recon, float w_kld, float w_start,

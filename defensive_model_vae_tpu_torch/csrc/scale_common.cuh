@@ -8,7 +8,8 @@
 // the staged product `gemm` and its forward / weight-gradient /
 // activation-gradient forms, the Philox noise, and the pieces of one step
 // of K3: stage the rows, the forward, the loss sums with d_recon, the
-// manual backward (with the ablation knobs as template bits), and the
+// manual backward (with the ablation knobs as template bits), the
+// autodiff backward (backward="auto", in three dtype modes), and the
 // block-wide sums.  The design note of fused_scale.cu says how K3 uses
 // them, and why a step is 32 rows.
 //
@@ -56,7 +57,10 @@ constexpr int PART_STRIDE = LOSS_OFF + 8;
 
 // K3's ablation knobs (ops/fused_scale.py::ABLATE_BITS), one bit each
 enum Knob { K_NOADAM = 1, K_NOACC = 2, K_BIASDOT = 4, K_CHAINCD = 8, K_NODW = 16,
-            K_FWDONLY = 32 };
+            K_FWDONLY = 32, K_DWT = 64 };
+
+// the autodiff instances' dtype modes (ops/fused_scale.py::AUTO_MODES)
+enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
 
 // shared memory (floats), each buffer row-major [R][width]
 constexpr int S_X = 0;
@@ -81,6 +85,10 @@ constexpr int S_RED = S_BS + TK * TNP;    // [5][NT] loss sums
 constexpr int S_FLOATS = S_RED + 5 * NT;
 constexpr int SMEM_BYTES = S_FLOATS * 4;
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
+// the dwT knob's transposed activations [fi][R], up to GIN rows at a time
+constexpr int S_TR = S_FLOATS;
+constexpr int SMEM_BYTES_DWT = (S_TR + GIN * R) * 4;
+static_assert(SMEM_BYTES_DWT <= 232448, "shared memory of the dwT instance");
 static_assert(S_AS % 4 == 0 && S_BS % 4 == 0, "float4 tiles");
 
 extern __shared__ __align__(16) float sm[];
@@ -104,10 +112,10 @@ template <> struct Elem<true> { using type = __nv_bfloat16; };
 // B(k, n) = B[k sbk + n sbn], so one routine serves the forward (act . W),
 // the activation gradient (dY . W^T) and the weight gradient (act^T . dY).
 // Each operand is staged into shared memory, rounded to bf16 when RA / RB.
-// Epilogue, in order: the product rounded to bf16 when RO >= 1, + bias[n],
-// + add[m lda + n], rounded again when RO == 2, relu, times
-// (mask[m ldm + n] > 0), then + the old C when accum.
-template <bool RA, bool RB, int RO = 0>
+// Epilogue, in order: the product rounded to bf16 when RO >= 1, + bias[n]
+// (itself rounded to bf16 when RBI), + add[m lda + n], rounded again when
+// RO == 2, relu, times (mask[m ldm + n] > 0), then + the old C when accum.
+template <bool RA, bool RB, int RO = 0, bool RBI = false>
 __device__ void gemm(int M, int N, int K,
                      const float* A, int sam, int sak,
                      const float* Bm, int sbk, int sbn,
@@ -169,7 +177,7 @@ __device__ void gemm(int M, int N, int K,
         float v = acc[r][c];
         if (n < N) {
           if constexpr (RO >= 1) v = rnd<true>(v);
-          if (bias) v += bias[n];
+          if (bias) v += rnd<RBI>(bias[n]);
           if (add) v += add[(long long)m * lda + n];
           if constexpr (RO == 2) v = rnd<true>(v);
           if (relu) v = fmaxf(v, 0.f);
@@ -219,6 +227,44 @@ __device__ void wgrad(const float* in, int ldi, const float* dy, int ldy,
     part[b_off(L) + n] = accum ? part[b_off(L) + n] + s : s;
   }
   __syncthreads();
+}
+
+// the dwT knob's weight gradient: in^T written out into shared memory (up
+// to GIN of its rows at a time), then a plain product over it.  It stages
+// the same values into the product tiles as wgrad, so its sums are the
+// same, bit for bit; the bias gradient is wgrad's.
+template <bool BF, int L>
+__device__ void wgrad_t(const float* in, int ldi, const float* dy, int ldy,
+                        float* part, bool accum) {
+  constexpr int fi = layer_in(L), fo = layer_out(L);
+  float* TR = sm + S_TR;
+  for (int f0 = 0; f0 < fi; f0 += GIN) {
+    const int nf = fi - f0 < GIN ? fi - f0 : GIN;
+    for (int i = threadIdx.x; i < nf * R; i += NT) {
+      const int f = i / R, r = i % R;
+      TR[i] = in[r * ldi + f0 + f];
+    }
+    __syncthreads();
+    gemm<BF, BF>(nf, fo, R, TR, R, 1, dy, ldy, 1, part + w_off(L) + f0 * fo, fo, accum,
+                 nullptr, false, nullptr, 0, nullptr, 0);
+  }
+  for (int n = threadIdx.x; n < fo; n += NT) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += dy[r * ldy + n];
+    part[b_off(L) + n] = accum ? part[b_off(L) + n] + s : s;
+  }
+  __syncthreads();
+}
+
+// the weight and bias gradient of the manual backward under knobs AB
+template <bool BF, int AB, int L>
+__device__ __forceinline__ void wgrad_ab(const float* in, int ldi, const float* dy, int ldy,
+                                         float* part, bool accum) {
+  if constexpr ((AB & K_DWT) != 0) {
+    wgrad_t<BF, L>(in, ldi, dy, ldy, part, accum);
+  } else {
+    wgrad<BF, (AB & K_BIASDOT) != 0, L>(in, ldi, dy, ldy, part, accum);
+  }
 }
 
 // activation gradient of layer L for inputs n_first .. n_first + n_cnt:
@@ -421,11 +467,12 @@ __device__ __forceinline__ void head_grad(float kS) {
 // K_BIASDOT sums rounded dy for the biases; K_CHAINCD rounds each
 // activation gradient's output to bf16 (and the sum of hc's two
 // cotangents); K_NODW skips every weight and bias gradient and adds the
-// chains' last cotangents into `chk` instead.
+// chains' last cotangents into `chk` instead; K_DWT takes each weight
+// gradient through an explicit transpose (wgrad_t).
 template <bool BF, int AB>
 __device__ __forceinline__ void backward_step(const float* __restrict__ P, float* part,
                                               bool accum, float kS, float& chk) {
-  constexpr bool BD = (AB & K_BIASDOT) != 0, NODW = (AB & K_NODW) != 0;
+  constexpr bool NODW = (AB & K_NODW) != 0;
   constexpr int RO1 = (AB & K_CHAINCD) ? 1 : 0, RO2 = (AB & K_CHAINCD) ? 2 : 0;
   float* X = sm + S_X;
   float* CND = sm + S_CND;
@@ -442,35 +489,35 @@ __device__ __forceinline__ void backward_step(const float* __restrict__ P, float
   float* DREC = sm + S_DREC;
 
   // ---- decoder ------------------------------------------------------------
-  if constexpr (!NODW) wgrad<BF, BD, L_D3>(G3, H, DREC, F, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_D3>(G3, H, DREC, F, part, accum);
   agrad<BF, BF, RO1, L_D3>(DREC, F, P, 0, H, G3, H, nullptr, 0, G3, H);
-  if constexpr (!NODW) wgrad<BF, BD, L_D2>(G2, H, G3, H, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_D2>(G2, H, G3, H, part, accum);
   agrad<BF, BF, RO1, L_D2>(G3, H, P, 0, H, G2, H, nullptr, 0, G2, H);
-  if constexpr (!NODW) wgrad<BF, BD, L_D1>(G1, H, G2, H, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_D1>(G1, H, G2, H, part, accum);
   agrad<BF, BF, RO1, L_D1>(G2, H, P, 0, H, G1, H, nullptr, 0, G1, H);
-  if constexpr (!NODW) wgrad<BF, BD, L_D0>(GINb, GIN, G1, H, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_D0>(GINb, GIN, G1, H, part, accum);
   agrad<BF, BF, RO1, L_D0>(G1, H, P, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);  // [dz | dhc_dec]
 
   // ---- heads ----------------------------------------------------------------
   head_grad(kS);
-  if constexpr (!NODW) wgrad<BF, BD, L_ML>(HCAT, H2, ML, Z2, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_ML>(HCAT, H2, ML, Z2, part, accum);
   // encoder top cotangent, relu-masked by h; condition cotangent from both
   // concats, relu-masked by hc
   agrad<BF, BF, RO1, L_ML>(ML, Z2, P, 0, H, HCAT, H2, nullptr, 0, HCAT, H2);
   agrad<BF, BF, RO2, L_ML>(ML, Z2, P, H, H, HCAT + H, H2, GINb + Z, GIN, HCAT + H, H2);
 
   // ---- encoder and condition chains -----------------------------------------
-  if constexpr (!NODW) wgrad<BF, BD, L_E3>(E2, H, HCAT, H2, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_E3>(E2, H, HCAT, H2, part, accum);
   agrad<BF, BF, RO1, L_E3>(HCAT, H2, P, 0, H, E2, H, nullptr, 0, E2, H);
-  if constexpr (!NODW) wgrad<BF, BD, L_E2>(E1, H, E2, H, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_E2>(E1, H, E2, H, part, accum);
   agrad<BF, BF, RO1, L_E2>(E2, H, P, 0, H, E1, H, nullptr, 0, E1, H);
-  if constexpr (!NODW) wgrad<BF, BD, L_E1>(E0, H, E1, H, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_E1>(E0, H, E1, H, part, accum);
   agrad<BF, BF, RO1, L_E1>(E1, H, P, 0, H, E0, H, nullptr, 0, E0, H);
-  if constexpr (!NODW) wgrad<BF, BD, L_E0>(X, F, E0, H, part, accum);
-  if constexpr (!NODW) wgrad<BF, BD, L_C1>(C0, H, HCAT + H, H2, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_E0>(X, F, E0, H, part, accum);
+  if constexpr (!NODW) wgrad_ab<BF, AB, L_C1>(C0, H, HCAT + H, H2, part, accum);
   agrad<BF, BF, RO1, L_C1>(HCAT + H, H2, P, 0, H, C0, H, nullptr, 0, C0, H);
   if constexpr (!NODW) {
-    wgrad<BF, BD, L_C0>(CND, C, C0, H, part, accum);
+    wgrad_ab<BF, AB, L_C0>(CND, C, C0, H, part, accum);
   } else {
     for (int i = threadIdx.x; i < R * H; i += NT) chk += E0[i] + C0[i];
     __syncthreads();
@@ -584,13 +631,304 @@ int launch_grad(const void* packed, int width, const void* eps, int noise,
                 unsigned long long seed_base, const float* P, float* partial,
                 int sms, cudaStream_t stream) {
   using E = typename Elem<BF>::type;
+  constexpr int smem = (AB & K_DWT) != 0 ? SMEM_BYTES_DWT : SMEM_BYTES;
   const cudaError_t a = cudaFuncSetAttribute(
-      ks_grad_kernel<BF, AB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      ks_grad_kernel<BF, AB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (a != cudaSuccess) return (int)a;
   const long long n_chunks = n_chunks_of(n_pad, sms);
-  ks_grad_kernel<BF, AB><<<(unsigned)n_chunks, NT, SMEM_BYTES, stream>>>(
+  ks_grad_kernel<BF, AB><<<(unsigned)n_chunks, NT, smem, stream>>>(
       (const E*)packed, width, (const E*)eps, noise, n_pad, tile, 1.f / n_valid, lw,
       seed_base, P, partial, (int)chunk_steps(n_pad, sms));
+  return (int)cudaGetLastError();
+}
+
+
+// ---- the autodiff instances (backward="auto") -------------------------------
+//
+// What JAX's jax.value_and_grad of _forward_loss computes per tile, in three
+// dtype modes (MODE): A_F32 (float32), A_ACTS (f32_acts: bf16 product
+// operands, float32 activations) and A_CHAIN (bf16_chain: every activation
+// and cotangent bf16).  Against the manual backward:
+//   - the mu and logvar heads' activation gradients are two products, each
+//     rounded to bf16 in the bf16 modes, then added (and the sum rounded in
+//     A_CHAIN), where the manual backward contracts the merged head once;
+//   - an activation-gradient product takes its float32 cotangent as it is
+//     and rounds its output to bf16 (A_ACTS; the cast's VJP), and a weight
+//     gradient is bf16 activations times that float32 cotangent: the
+//     product engine's staging rounds the bf16 operand only (RA / RB);
+//   - the loss terms' cotangents are added term by term, the time term as
+//     the two-term sum of the +-1 difference product's transpose;
+//   - in A_CHAIN the forward rounds each product, adds the bf16 bias and
+//     rounds again, std = bf16(exp(lv / 2)), z = bf16(mu + bf16(eps std)),
+//     and every cotangent is rounded where JAX's bf16 arithmetic rounds it.
+// Autodiff returns each TILE's weight gradients rounded to bf16 in the bf16
+// modes (and its bias gradients in A_CHAIN): the chunks of these instances
+// lie within one tile, and their reduce (fused_scale.cu) sums a tile's
+// chunks in order, rounds, then adds the tiles in order.
+
+// the forward of the staged rows in MODE: the manual instances' forward,
+// or (A_CHAIN) the bf16 chain's
+template <int MODE>
+__device__ __forceinline__ void forward_step_auto(const float* __restrict__ P) {
+  if constexpr (MODE != A_CHAIN) {
+    forward_step<MODE == A_ACTS>(P);
+  } else {
+    float* X = sm + S_X;
+    float* CND = sm + S_CND;
+    float* EPS = sm + S_EPS;
+    float* C0 = sm + S_C0;
+    float* HCAT = sm + S_HCAT;
+    float* E0 = sm + S_E0;
+    float* E1 = sm + S_E1;
+    float* E2 = sm + S_E2;
+    float* ML = sm + S_ML;
+    float* GINb = sm + S_GIN;
+    float* G1 = sm + S_G1;
+    float* G2 = sm + S_G2;
+    float* G3 = sm + S_G3;
+    float* REC = sm + S_REC;
+    const int tid = threadIdx.x;
+    for (int i = tid; i < R * Z; i += NT) EPS[i] = rnd<true>(EPS[i]);  // prng draws f32
+    __syncthreads();
+    // out = bf16(bf16(in . W) + bf16(b)), then relu
+#define KS_CHAIN_FWD(L, in, ldi, out, ldo, relu)                                         \
+    gemm<true, true, 2, true>(R, layer_out(L), layer_in(L), in, ldi, 1, P + w_off(L),    \
+                              layer_out(L), 1, out, ldo, false, P + b_off(L), relu,      \
+                              nullptr, 0, nullptr, 0)
+    KS_CHAIN_FWD(L_C0, CND, C, C0, H, true);
+    KS_CHAIN_FWD(L_C1, C0, H, HCAT + H, H2, true);
+    KS_CHAIN_FWD(L_E0, X, F, E0, H, true);
+    KS_CHAIN_FWD(L_E1, E0, H, E1, H, true);
+    KS_CHAIN_FWD(L_E2, E1, H, E2, H, true);
+    KS_CHAIN_FWD(L_E3, E2, H, HCAT, H2, true);
+    KS_CHAIN_FWD(L_ML, HCAT, H2, ML, Z2, false);
+    for (int i = tid; i < R * GIN; i += NT) {
+      const int r = i / GIN, j = i % GIN;
+      if (j < Z) {
+        const float sd = rnd<true>(expf(0.5f * ML[r * Z2 + Z + j]));
+        GINb[i] = rnd<true>(ML[r * Z2 + j] + rnd<true>(EPS[r * Z + j] * sd));
+      } else {
+        GINb[i] = HCAT[r * H2 + H + (j - Z)];
+      }
+    }
+    __syncthreads();
+    KS_CHAIN_FWD(L_D0, GINb, GIN, G1, H, true);
+    KS_CHAIN_FWD(L_D1, G1, H, G2, H, true);
+    KS_CHAIN_FWD(L_D2, G2, H, G3, H, true);
+    KS_CHAIN_FWD(L_D3, G3, H, REC, F, false);
+#undef KS_CHAIN_FWD
+  }
+}
+
+// the step's loss sums into `a` (as loss_step) and d_recon into DREC, the
+// loss terms' cotangents added term by term: recon, start, the time
+// differences' (one two-term sum, the transposed +-1 product), t0; rounded
+// to bf16 in A_CHAIN (the cast of recon up to float32)
+template <int MODE>
+__device__ __forceinline__ void loss_step_auto(LossAcc& a, const LossCoef& k) {
+  const float* X = sm + S_X;
+  const float* MSK = sm + S_MSK;
+  const float* ML = sm + S_ML;
+  const float* REC = sm + S_REC;
+  float* DREC = sm + S_DREC;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < R * F; i += NT) {
+    const int r = i / F, f = i % F;
+    const float m = MSK[r];
+    const float rv = REC[i], d = rv - X[i];
+    const bool is_start = (f == 1 || f == 2);
+    a.rec += m * (d * d);
+    if (is_start) a.start += m * (d * d);
+    if (f == 0) a.t0 += m * (rv * rv);
+    float g = m * (k.rec * d);
+    if (is_start) g += m * (k.start * d);
+    if (f % D == 0) {
+      const int j = f / D;
+      float up = 0.f, down = 0.f;
+      if (j >= 1 && rv - REC[i - D] < 0.f) up = k.td * m;
+      if (j <= T - 2) {
+        const float td = REC[i + D] - rv;
+        a.tinc += m * fmaxf(-td, 0.f);
+        if (td < 0.f) down = k.td * m;
+      }
+      g += up - down;
+    }
+    if (f == 0) g += m * (k.t0 * rv);
+    DREC[i] = rnd<MODE == A_CHAIN>(g);
+  }
+  for (int i = tid; i < R * Z; i += NT) {
+    const int r = i / Z, j = i % Z;
+    const float mu = ML[r * Z2 + j], lv = ML[r * Z2 + Z + j];
+    a.kld += MSK[r] * (1.f + lv - mu * mu - expf(lv));
+  }
+  __syncthreads();
+}
+
+// the heads' cotangents into ML over [mu | logvar], as autodiff forms them:
+// d_mu = dz + (-c)(2 mu), d_lv = (dz eps) e^(lv/2) / 2 + (c - c e^lv) with
+// c = -wk S/(2Z) m the kld term's cotangent; in A_CHAIN each bf16 value's
+// cotangent rounded (the product dz eps, each float32 use of mu and lv, and
+// the bf16 sums)
+template <int MODE>
+__device__ __forceinline__ void head_grad_auto(float kS) {
+  constexpr bool CH = MODE == A_CHAIN;
+  const float* MSK = sm + S_MSK;
+  const float* EPS = sm + S_EPS;
+  const float* GINb = sm + S_GIN;
+  float* ML = sm + S_ML;
+  for (int i = threadIdx.x; i < R * Z; i += NT) {
+    const int r = i / Z, j = i % Z;
+    const float c = -0.5f * kS * MSK[r];
+    const float mu = ML[r * Z2 + j], lv = ML[r * Z2 + Z + j];
+    const float dz = GINb[r * GIN + j];
+    const float d_std = rnd<CH>(dz * EPS[i]);
+    ML[r * Z2 + j] = rnd<CH>(dz + rnd<CH>(-c * (2.f * mu)));
+    ML[r * Z2 + Z + j] = rnd<CH>(rnd<CH>(d_std * expf(0.5f * lv) * 0.5f) +
+                                 rnd<CH>(c - c * expf(lv)));
+  }
+  __syncthreads();
+}
+
+// weight gradient in^T . dy of layer L with in rounded to bf16 when RA and
+// dy taken as it is, into the chunk's partial row, and the bias gradient
+// colsum(dy) in float32 (written on the first step, added after)
+template <bool RA, int L>
+__device__ void wgrad_auto(const float* in, int ldi, const float* dy, int ldy,
+                           float* part, bool accum) {
+  constexpr int fi = layer_in(L), fo = layer_out(L);
+  gemm<RA, false>(fi, fo, R, in, 1, ldi, dy, ldy, 1, part + w_off(L), fo, accum,
+                  nullptr, false, nullptr, 0, nullptr, 0);
+  for (int n = threadIdx.x; n < fo; n += NT) {
+    float s = 0.f;
+    for (int r = 0; r < R; ++r) s += dy[r * ldy + n];
+    part[b_off(L) + n] = accum ? part[b_off(L) + n] + s : s;
+  }
+  __syncthreads();
+}
+
+// the autodiff backward of the step in MODE, each cotangent overwriting
+// its activation as in backward_step
+template <int MODE>
+__device__ __forceinline__ void backward_step_auto(const float* __restrict__ P, float* part,
+                                                   bool accum, float kS) {
+  constexpr bool RT = MODE != A_F32;          // bf16 operands and outputs
+  constexpr int RO = RT ? 1 : 0;              // an activation gradient's output
+  constexpr int RO2 = MODE == A_CHAIN ? 2 : RO;  // ... and the bf16 sum with `add`
+  float* X = sm + S_X;
+  float* CND = sm + S_CND;
+  float* C0 = sm + S_C0;
+  float* HCAT = sm + S_HCAT;
+  float* E0 = sm + S_E0;
+  float* E1 = sm + S_E1;
+  float* E2 = sm + S_E2;
+  float* ML = sm + S_ML;
+  float* GINb = sm + S_GIN;
+  float* G1 = sm + S_G1;
+  float* G2 = sm + S_G2;
+  float* G3 = sm + S_G3;
+  float* DREC = sm + S_DREC;
+  float* TMP = sm + S_G2;  // [R][H2] over G2 and G3, free after the decoder
+
+  // ---- decoder ------------------------------------------------------------
+  wgrad_auto<RT, L_D3>(G3, H, DREC, F, part, accum);
+  agrad<false, RT, RO, L_D3>(DREC, F, P, 0, H, G3, H, nullptr, 0, G3, H);
+  wgrad_auto<RT, L_D2>(G2, H, G3, H, part, accum);
+  agrad<false, RT, RO, L_D2>(G3, H, P, 0, H, G2, H, nullptr, 0, G2, H);
+  wgrad_auto<RT, L_D1>(G1, H, G2, H, part, accum);
+  agrad<false, RT, RO, L_D1>(G2, H, P, 0, H, G1, H, nullptr, 0, G1, H);
+  wgrad_auto<RT, L_D0>(GINb, GIN, G1, H, part, accum);
+  agrad<false, RT, RO, L_D0>(G1, H, P, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);
+
+  // ---- heads: dW of the merged head is each head's own, column by column;
+  // the activation gradients are the mu head's (into TMP), then the logvar
+  // head's added to it ------------------------------------------------------
+  head_grad_auto<MODE>(kS);
+  wgrad_auto<RT, L_ML>(HCAT, H2, ML, Z2, part, accum);
+  gemm<false, RT, RO>(R, H2, Z, ML, Z2, 1, P + w_off(L_ML), 1, Z2, TMP, H2, false,
+                      nullptr, false, nullptr, 0, nullptr, 0);
+  // the encoder's top cotangent, relu-masked by h
+  gemm<false, RT, RO2>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + Z, 1, Z2, HCAT, H2, false,
+                       nullptr, false, TMP, H2, HCAT, H2);
+  // hc's: hcat's part, then dec_0's added, relu-masked by hc
+  gemm<false, RT, RO2>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + H * Z2 + Z, 1, Z2,
+                       TMP + H, H2, false, nullptr, false, TMP + H, H2, nullptr, 0);
+  for (int i = threadIdx.x; i < R * H; i += NT) {
+    const int r = i / H, j = i % H;
+    float* hc = HCAT + r * H2 + H + j;
+    const float d = rnd<MODE == A_CHAIN>(GINb[r * GIN + Z + j] + TMP[r * H2 + H + j]);
+    *hc = d * (*hc > 0.f ? 1.f : 0.f);
+  }
+  __syncthreads();
+
+  // ---- encoder and condition chains -----------------------------------------
+  wgrad_auto<RT, L_E3>(E2, H, HCAT, H2, part, accum);
+  agrad<false, RT, RO, L_E3>(HCAT, H2, P, 0, H, E2, H, nullptr, 0, E2, H);
+  wgrad_auto<RT, L_E2>(E1, H, E2, H, part, accum);
+  agrad<false, RT, RO, L_E2>(E2, H, P, 0, H, E1, H, nullptr, 0, E1, H);
+  wgrad_auto<RT, L_E1>(E0, H, E1, H, part, accum);
+  agrad<false, RT, RO, L_E1>(E1, H, P, 0, H, E0, H, nullptr, 0, E0, H);
+  wgrad_auto<RT, L_E0>(X, F, E0, H, part, accum);
+  wgrad_auto<RT, L_C1>(C0, H, HCAT + H, H2, part, accum);
+  agrad<false, RT, RO, L_C1>(HCAT + H, H2, P, 0, H, C0, H, nullptr, 0, C0, H);
+  wgrad_auto<RT, L_C0>(CND, C, C0, H, part, accum);
+}
+
+// the autodiff instances' chunking: each tile's 32-row steps (the last
+// one cut at the tile's end) in `cpt` chunks of `per` steps, as many
+// chunks a tile as fill the SMs, so no chunk straddles a tile
+inline void auto_chunking(long long n_pad, int tile, int sms, int* cpt, int* per) {
+  const long long n_tiles = n_pad / tile;
+  const int spt = (tile + R - 1) / R;
+  long long want = sms / n_tiles;
+  if (want < 1) want = 1;
+  if (want > spt) want = spt;
+  *per = (int)((spt + want - 1) / want);
+  *cpt = (spt + *per - 1) / *per;
+}
+
+// (a) of K3's and K4's autodiff instances: block c takes steps
+// (c % cpt) per .. of tile c / cpt and writes the chunk's partial
+// gradients and loss sums to partial[c]
+template <int MODE>
+__global__ void __launch_bounds__(NT, 1)
+ks_grad_auto_kernel(const typename Elem<MODE != A_F32>::type* __restrict__ packed,
+                    int width,
+                    const typename Elem<MODE != A_F32>::type* __restrict__ eps_hbm,
+                    int noise, int tile, float S, LossW lw,
+                    unsigned long long seed_base, const float* __restrict__ P,
+                    float* __restrict__ partial, int cpt, int per) {
+  constexpr bool BF = MODE != A_F32;
+  float* part = partial + (long long)blockIdx.x * PART_STRIDE;
+  const int spt = (tile + R - 1) / R;
+  const long long t0 = (long long)(blockIdx.x / cpt) * tile;
+  const int s0 = (int)(blockIdx.x % cpt) * per;
+  const int s1 = s0 + per < spt ? s0 + per : spt;
+  LossAcc acc;
+  const LossCoef k = loss_coef(lw, S);
+  for (int s = s0; s < s1; ++s) {
+    // rows past the tile's end are staged as zeros with mask 0: they add
+    // exact zeros to every sum
+    load_step<BF>(packed, width, eps_hbm, noise, t0 + tile, tile, seed_base,
+                  t0 + (long long)s * R);
+    forward_step_auto<MODE>(P);
+    loss_step_auto<MODE>(acc, k);
+    backward_step_auto<MODE>(P, part, s > s0, k.kS);
+  }
+  write_loss_sums(acc, part + LOSS_OFF);
+}
+
+template <int MODE>
+int launch_grad_auto(const void* packed, int width, const void* eps, int noise,
+                     long long n_pad, int tile, float n_valid, LossW lw,
+                     unsigned long long seed_base, const float* P, float* partial,
+                     int cpt, int per, cudaStream_t stream) {
+  using E = typename Elem<MODE != A_F32>::type;
+  const cudaError_t a = cudaFuncSetAttribute(
+      ks_grad_auto_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (a != cudaSuccess) return (int)a;
+  ks_grad_auto_kernel<MODE><<<(unsigned)(n_pad / tile * cpt), NT, SMEM_BYTES, stream>>>(
+      (const E*)packed, width, (const E*)eps, noise, tile, 1.f / n_valid, lw, seed_base, P,
+      partial, cpt, per);
   return (int)cudaGetLastError();
 }
 
@@ -605,3 +943,13 @@ int launch_grad(const void* packed, int width, const void* eps, int noise,
                                 float w_start, float w_time,                      \
                                 unsigned long long seed_base, const float* P,     \
                                 float* partial, int sms, void* stream)
+
+// the autodiff instances, one source compiled once per mode
+// (fused_scale_auto.cu with -DKS_AUTO_MODE=<mode>)
+#define KS_AUTO_LAUNCHER(mode)                                                     \
+  int ks_launch_grad_auto_##mode(const void* packed, int width, const void* eps,   \
+                                 int noise, long long n_pad, int tile,             \
+                                 float n_valid, float w_recon, float w_kld,        \
+                                 float w_start, float w_time,                      \
+                                 unsigned long long seed_base, const float* P,     \
+                                 float* partial, int cpt, int per, void* stream)

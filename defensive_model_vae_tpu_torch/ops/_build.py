@@ -6,8 +6,10 @@ each (source, defines) pair of its entry compiles to an object, every
 object of every library in its own ``nvcc`` started together, and the
 objects are linked into one shared library.  It lands in
 ``defensive_model_vae_tpu_torch/build/`` (listed in ``.gitignore``), named
-by a hash of its sources, the headers under ``csrc/`` and the flags, so a
-changed source is rebuilt and an unchanged one is loaded as it is.
+by a SHA-256 of its sources, the headers under ``csrc/``, the flags and
+``nvcc --version``'s output, so a changed source or another compiler is
+rebuilt and an unchanged one is loaded as it is.  The key is a digest of
+file contents, so it is the same in every process (no hash seed enters it).
 Nothing is built at import time: :func:`load` builds at a kernel's first
 launch, and :func:`build_all` builds every kernel at once.
 """
@@ -15,6 +17,7 @@ launch, and :func:`build_all` builds every kernel at once.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -33,68 +36,84 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name → ((source, extra nvcc flags) per object,
 #                {C function: (restype, argtypes)})
 _P = ctypes.c_void_p
+_K1_ARGS = [
+    _P, _P, _P, _P, _P, _P,            # x, cond, eps, params, work, metrics
+    ctypes.c_int, ctypes.c_int,        # B, epochs
+    ctypes.c_float,                    # lr
+    ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+    ctypes.c_float, ctypes.c_float,    # start, time
+    ctypes.c_ulonglong, _P,            # seed, stream
+]
+_K2_ARGS = [
+    _P, _P, _P,                        # x, cond, eps (sum B_s rows)
+    _P, _P, ctypes.c_int,              # row offsets, seeds, S
+    _P, _P, _P,                        # params, work, metrics
+    ctypes.c_int, ctypes.c_float,      # epochs, lr
+    ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+    ctypes.c_float, ctypes.c_float,    # start, time
+    _P,                                # stream
+]
+_SEEDS_ARGS = [
+    _P, _P, _P,                        # x, cond (B rows), eps (S B rows)
+    _P, ctypes.c_int,                  # seeds, S
+    _P, _P, _P,                        # params, work, metrics
+    ctypes.c_int, ctypes.c_int,        # B, epochs
+    ctypes.c_float,                    # lr
+    ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+    ctypes.c_float, ctypes.c_float,    # start, time
+    _P,                                # stream
+]
+_K3_HEAD = [
+    _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
+    ctypes.c_int, ctypes.c_int,        # bf16 (auto: the dtype mode), noise mode
+    ctypes.c_longlong, ctypes.c_int,   # n_pad, tile
+]
+_K4_ARGS = _K3_HEAD + [
+    ctypes.c_float,                    # n_valid
+    ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+    ctypes.c_float, ctypes.c_float,    # start, time
+    ctypes.c_ulonglong,                # prng stream base
+    _P, _P, ctypes.c_int,              # params, partials, SM count
+    _P, _P, _P,                        # grad, loss row, stream
+]
+_K3_BODY = [
+    ctypes.c_float, ctypes.c_int,      # n_valid, epochs
+    ctypes.c_float,                    # lr
+    ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
+    ctypes.c_float, ctypes.c_float,    # start, time
+    ctypes.c_ulonglong,                # seed
+    _P, _P, _P, ctypes.c_int,          # params, m|v, partials, SM count
+    _P,                                # metrics
+]
 KERNELS: Dict[str, tuple] = {
-    "fused_trainer": ((("fused_trainer.cu", ()),), {
-        "k1_fused_train": (ctypes.c_int, [
-            _P, _P, _P, _P, _P, _P,            # x, cond, eps, params, work, metrics
-            ctypes.c_int, ctypes.c_int,        # B, epochs
-            ctypes.c_float,                    # lr
-            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
-            ctypes.c_float, ctypes.c_float,    # start, time
-            ctypes.c_ulonglong, _P,            # seed, stream
-        ]),
-        "k2_fused_train_multi": (ctypes.c_int, [
-            _P, _P, _P,                        # x, cond, eps (sum B_s rows)
-            _P, _P, ctypes.c_int,              # row offsets, seeds, S
-            _P, _P, _P,                        # params, work, metrics
-            ctypes.c_int, ctypes.c_float,      # epochs, lr
-            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
-            ctypes.c_float, ctypes.c_float,    # start, time
-            _P,                                # stream
-        ]),
-        "k1_fused_train_seeds": (ctypes.c_int, [
-            _P, _P, _P,                        # x, cond (B rows), eps (S B rows)
-            _P, ctypes.c_int,                  # seeds, S
-            _P, _P, _P,                        # params, work, metrics
-            ctypes.c_int, ctypes.c_int,        # B, epochs
-            ctypes.c_float,                    # lr
-            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
-            ctypes.c_float, ctypes.c_float,    # start, time
-            _P,                                # stream
-        ]),
+    # K1's manual instances, then its autodiff instance (entries *_auto)
+    "fused_trainer": ((("fused_trainer.cu", ()), ("fused_trainer.cu", ("-DK1_AUTO",))), {
+        "k1_fused_train": (ctypes.c_int, _K1_ARGS),
+        "k2_fused_train_multi": (ctypes.c_int, _K2_ARGS),
+        "k1_fused_train_seeds": (ctypes.c_int, _SEEDS_ARGS),
+        "k1_fused_train_auto": (ctypes.c_int, _K1_ARGS),
+        "k2_fused_train_multi_auto": (ctypes.c_int, _K2_ARGS),
+        "k1_fused_train_seeds_auto": (ctypes.c_int, _SEEDS_ARGS),
         "k1_param_floats": (ctypes.c_longlong, []),
         "k1_work_floats": (ctypes.c_longlong, [ctypes.c_int]),
     }),
-    # K3's production instances, then one object per ablation knob
+    # K3's production instances, one object per ablation knob, then one per
+    # dtype mode of the autodiff instance
     "fused_scale": ((("fused_scale.cu", ()),) + tuple(
-        ("fused_scale_knob.cu", (f"-DKS_KNOB={bit}",)) for bit in (2, 4, 8, 16, 32)), {
-        "k3_train": (ctypes.c_int, [
-            _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
-            ctypes.c_int, ctypes.c_int,        # bf16, noise mode
-            ctypes.c_longlong, ctypes.c_int,   # n_pad, tile
-            ctypes.c_float, ctypes.c_int,      # n_valid, epochs
-            ctypes.c_float,                    # lr
-            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
-            ctypes.c_float, ctypes.c_float,    # start, time
-            ctypes.c_ulonglong,                # seed
-            _P, _P, _P, ctypes.c_int,          # params, m|v, partials, SM count
-            _P, ctypes.c_int, _P,              # metrics, ablation bits, noadam sink
+        ("fused_scale_knob.cu", (f"-DKS_KNOB={bit}",)) for bit in (2, 4, 8, 16, 32, 64))
+        + tuple(("fused_scale_auto.cu", (f"-DKS_AUTO_MODE={m}",)) for m in (0, 1, 2)), {
+        "k3_train": (ctypes.c_int, _K3_HEAD + _K3_BODY + [
+            ctypes.c_int, _P,                  # ablation bits, noadam sink
             _P,                                # stream
         ]),
-        "k4_grad_epoch": (ctypes.c_int, [
-            _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream
-            ctypes.c_int, ctypes.c_int,        # bf16, noise mode
-            ctypes.c_longlong, ctypes.c_int,   # n_pad, tile
-            ctypes.c_float,                    # n_valid
-            ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
-            ctypes.c_float, ctypes.c_float,    # start, time
-            ctypes.c_ulonglong,                # prng stream base
-            _P, _P, ctypes.c_int,              # params, partials, SM count
-            _P, _P, _P,                        # grad, loss row, stream
-        ]),
+        "k4_grad_epoch": (ctypes.c_int, _K4_ARGS),
+        "k3_train_auto": (ctypes.c_int, _K3_HEAD + _K3_BODY + [_P]),  # + stream
+        "k4_grad_epoch_auto": (ctypes.c_int, _K4_ARGS),
         "ks_param_floats": (ctypes.c_longlong, []),
         "ks_partial_floats": (ctypes.c_longlong, []),
         "ks_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
+        "ks_chunks_auto": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int,
+                                               ctypes.c_int]),
     }),
     "scale_ablation": ((("scale_ablation.cu", ()),), {
         "p1_stream": (ctypes.c_int, [
@@ -124,6 +143,9 @@ KERNELS: Dict[str, tuple] = {
         "sa_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
         "sa_sum_blocks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
     }),
+    "cache_decoy": ((("cache_decoy.cu", ()),), {
+        "p3_decoy": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P]),  # x, out, n, stream
+    }),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -136,8 +158,16 @@ def _nvcc() -> str:
     return path
 
 
+@functools.lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """``nvcc --version``'s output: part of every library's key."""
+    return subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout
+
+
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc_version().encode())
     for src, defines in KERNELS[name][0]:
         h.update(src.encode() + " ".join(defines).encode() + (CSRC / src).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):

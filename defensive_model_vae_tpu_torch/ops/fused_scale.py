@@ -36,14 +36,27 @@ Noise (``noise=``), as in JAX:
   (e, i) reads rows e·n_pad + i·tile.  The stream is torch's, not JAX's
   ``rbg``; :func:`hbm_noise_impl` names it for the manifest.
 
+Backward (``backward=``, resolved as JAX :147-166): ``"manual"``, the
+hand-written backward of ``manual_grad`` (the default wherever it applies:
+float32 and ``f32_acts``), or ``"auto"``, the arithmetic of JAX's
+``jax.value_and_grad`` of ``_forward_loss`` per tile, in three modes:
+float32, ``f32_acts`` and ``bf16_chain`` (which has no manual backward).
+Under ``"auto"`` with a compute dtype, autodiff returns each tile's weight
+gradients rounded to bf16 (and in ``bf16_chain`` its bias gradients too),
+and the tiles' gradients are then summed in float32: the kernels' auto
+instances cut the corpus into chunks that never straddle a tile, and
+their reduce sums a tile's chunks, rounds, then adds the tiles in order.
+The plain version is autograd of ``_forward_loss`` per tile.
+
 ``_fused_scale_call(..., _ablate=(...))`` takes K3's ablation knobs
 (JAX :194-281), each of which removes one layer of work, for the ablation
 script ``scripts/scale_ablation.py``: ``noadam`` (params, m and v never
 updated), ``noacc`` (Adam takes the last tile's gradient sum only; the
-metrics still sum every tile), and ``biasdot``, ``chaincd``, ``nodw`` and
-``fwdonly``, which are ``manual_value_and_grad``'s levers ``bias_via_dot``,
-``chain_cd``, ``grads_mode="nodw"`` and ``grads_mode="none"``.  JAX's
-``dwT`` knob is not ported.  Production callers leave ``_ablate`` empty.
+metrics still sum every tile), and ``biasdot``, ``chaincd``, ``nodw``,
+``fwdonly`` and ``dwT``, which are ``manual_value_and_grad``'s levers
+``bias_via_dot``, ``chain_cd``, ``grads_mode="nodw"``,
+``grads_mode="none"`` and ``dw_mode="transpose"``.  The knobs turn the
+manual backward.  Production callers leave ``_ablate`` empty.
 """
 
 from __future__ import annotations
@@ -63,6 +76,7 @@ from .fused_trainer import (
     _flatten_params,
     _forward_loss,
     _unflatten_params,
+    autodiff_value_and_grad,
     fused_inputs,
     pack_kernel_params,
     philox_normal,
@@ -78,9 +92,13 @@ NOISE_MODES = {"packed": 0, "hbm": 1, "prng": 2}
 # K3's ablation knobs as the bits of k3_train's ``ablate`` argument, and the
 # manual-backward lever each of the per-tile ones turns (JAX :246-253)
 ABLATE_BITS = {"noadam": 1, "noacc": 2, "biasdot": 4, "chaincd": 8, "nodw": 16,
-               "fwdonly": 32}
+               "fwdonly": 32, "dwT": 64}
 _KNOB_LEVERS = {"biasdot": ("bias_via_dot", True), "chaincd": ("chain_cd", True),
-                "fwdonly": ("grads_mode", "none"), "nodw": ("grads_mode", "nodw")}
+                "fwdonly": ("grads_mode", "none"), "nodw": ("grads_mode", "nodw"),
+                "dwT": ("dw_mode", "transpose")}
+
+# the dtype modes of the autodiff instances (k3_train_auto's ``mode``)
+AUTO_MODES = {"float32": 0, "f32_acts": 1, "bf16_chain": 2}
 
 # Guards, restated for an 80 GB H100 and this port:
 # - the tile is the unit of the noise stream (prng keys, hbm row blocks)
@@ -97,35 +115,42 @@ _EPS_HBM_LIMIT_BYTES = 16 << 30
 
 
 def _resolve_backward(backward, compute_dtype, mixed_style):
-    """The port runs the hand-written backward (JAX's default wherever it is
-    supported).  The traced-autodiff backward and the ``bf16_chain`` style
-    it serves are not ported yet."""
-    if backward not in (None, "auto", "manual"):
+    """None means the hand-written backward wherever it applies (float32 and
+    ``f32_acts``) and autodiff's arithmetic for ``bf16_chain``, whose
+    whole-chain roundings are the autodiff structure the manual backward
+    replaces (JAX :147-166)."""
+    manual_ok = compute_dtype is None or mixed_style == "f32_acts"
+    if backward is None:
+        return "manual" if manual_ok else "auto"
+    if backward not in ("auto", "manual"):
         raise ValueError(f"backward must be 'auto' or 'manual' (got {backward!r})")
-    if compute_dtype is not None and mixed_style == "bf16_chain":
-        raise ValueError("mixed_style='bf16_chain' (the autodiff backward's style) "
-                         "is not ported yet; use the 'f32_acts' style")
-    if backward == "auto":
-        raise ValueError("backward='auto' (autodiff traced in the kernel) is not "
-                         "ported yet; use backward='manual' or None")
-    return "manual"
+    if backward == "manual" and not manual_ok:
+        raise ValueError("backward='manual' supports compute_dtype=None or the "
+                         "'f32_acts' mixed style (bf16_chain keeps the autodiff path)")
+    return backward
+
+
+def _auto_mode(compute_dtype, mixed_style) -> str:
+    """The autodiff instance's dtype mode: float32, f32_acts or bf16_chain."""
+    return "float32" if compute_dtype is None else mixed_style
 
 
 def _check_scale_args(windows, tile, compute_dtype, mixed_style, eps, noise,
                       backward):
     """The argument checks both trainers share, in JAX's order → (cfg, the
-    noise mode: 'packed' exactly when an explicit ε is given)."""
+    noise mode: 'packed' exactly when an explicit ε is given, the resolved
+    backward)."""
     if mixed_style not in ("f32_acts", "bf16_chain"):
         raise ValueError(f"mixed_style must be 'f32_acts' or 'bf16_chain' "
                          f"(got {mixed_style!r})")
-    _resolve_backward(backward, compute_dtype, mixed_style)
+    backward = _resolve_backward(backward, compute_dtype, mixed_style)
     cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
     _check_scale_tile(cfg, tile, compute_dtype, mixed_style)
     if eps is not None:
-        return cfg, "packed"
+        return cfg, "packed", backward
     if noise not in ("hbm", "prng"):
         raise ValueError(f"noise must be 'hbm' or 'prng' (got {noise!r})")
-    return cfg, noise
+    return cfg, noise, backward
 
 
 def _torch_dtype(compute_dtype):
@@ -210,13 +235,12 @@ def hbm_noise(seed: int, epochs: int, n_pad: int, latent_dim: int,
 
 # ---- the plain version of one epoch's gradient pass -------------------------
 
-def _check_ablate(ablate, compute_dtype) -> int:
-    """K3's knob names → their bitmask; refuses what JAX refuses and what
-    the port does not have."""
+def _check_ablate(ablate, compute_dtype, backward="manual") -> int:
+    """K3's knob names → their bitmask; refuses what JAX refuses, and knobs
+    beside the autodiff backward (they turn the manual backward)."""
     ablate = tuple(ablate)
-    if "dwT" in ablate:
-        raise NotImplementedError("the 'dwT' knob (dW by an explicit transpose) is "
-                                  "not ported yet")
+    if ablate and backward != "manual":
+        raise ValueError("the _ablate knobs apply to backward='manual'")
     bad = [k for k in ablate if k not in ABLATE_BITS]
     if bad:
         raise ValueError(f"unknown _ablate knobs {bad}; known: {sorted(ABLATE_BITS)}")
@@ -230,7 +254,7 @@ def _manual_levers(ablate) -> dict:
     """The manual-backward levers that ``ablate`` turns (nodw before
     fwdonly, as JAX :248-253 orders them)."""
     out = {}
-    for k in ("biasdot", "chaincd", "fwdonly", "nodw"):
+    for k in ("biasdot", "dwT", "chaincd", "fwdonly", "nodw"):
         if k in ablate:
             name, val = _KNOB_LEVERS[k]
             out[name] = val
@@ -238,19 +262,26 @@ def _manual_levers(ablate) -> dict:
 
 
 def _plain_grad_epoch(plist, packed, tile, cfg, weights, n_valid, compute_dtype,
-                      eps_of_tile, ablate=()):
+                      eps_of_tile, ablate=(), backward="manual", mixed_style="f32_acts"):
     """Tile-summed gradients and loss row of one epoch: per tile the ported
-    manual backward with the loss scaled by the global ``n_valid``, summed
-    over the tiles in order, as the TPU kernels accumulate them.  Under
-    the ``noacc`` knob each tile's gradient replaces the sum, so the last
-    tile's is returned; the loss row sums every tile either way."""
+    manual backward (or, for ``backward="auto"``, autograd of
+    ``_forward_loss`` in ``mixed_style``) with the loss scaled by the
+    global ``n_valid``, summed over the tiles in order, as the TPU kernels
+    accumulate them.  Under the ``noacc`` knob each tile's gradient
+    replaces the sum, so the last tile's is returned; the loss row sums
+    every tile either way."""
     _check_plain_tile(tile)
     F, C = cfg.seq_len * cfg.dim, cfg.cond_dim
-    levers = _manual_levers(ablate)
+    if backward == "manual":
+        value_and_grad = manual_value_and_grad
+        levers = _manual_levers(ablate)
+    else:
+        value_and_grad = autodiff_value_and_grad
+        levers = {"mixed_style": mixed_style}
     acc, row = None, None
     for i in range(packed.shape[0] // tile):
         blk = packed[i * tile:(i + 1) * tile]
-        comps, grads = manual_value_and_grad(
+        comps, grads = value_and_grad(
             plist, blk[:, :F], blk[:, F:F + C], eps_of_tile(i, blk), cfg, weights,
             blk[:, F + C:F + C + 1].float(), n_valid=n_valid,
             compute_dtype=compute_dtype, **levers)
@@ -294,9 +325,10 @@ def _check_noise(noise, packed, cfg, eps, rows, tile):
 
 # ---- the CUDA kernels' wrappers --------------------------------------------
 
-def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name):
+def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=False):
     """The checks and buffers both kernels share → (library, params packed
-    flat, partial-row buffer, SM count, stream)."""
+    flat, partial-row buffer, SM count, stream).  The autodiff instances
+    cut the corpus into chunks within tiles, so they may take more rows."""
     from ._build import load
 
     if cfg != _KERNEL_CFG:
@@ -315,8 +347,10 @@ def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name):
     if params.numel() != lib.ks_param_floats() or params.device != dev:
         raise ValueError(f"{name}: parameter list does not match the compiled model")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    partial = torch.empty(int(lib.ks_chunks(packed.shape[0], sms))
-                          * int(lib.ks_partial_floats()), dtype=torch.float32, device=dev)
+    chunks = (lib.ks_chunks_auto(packed.shape[0], tile, sms) if auto
+              else lib.ks_chunks(packed.shape[0], sms))
+    partial = torch.empty(int(chunks) * int(lib.ks_partial_floats()),
+                          dtype=torch.float32, device=dev)
     return lib, params, partial, sms, torch.cuda.current_stream(dev).cuda_stream
 
 
@@ -348,6 +382,28 @@ def _check_kernel_knobs(bits, compute_dtype, tile):
                          f"kernel steps (got {tile})")
 
 
+def _fused_scale_call_auto_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile,
+                                  n_valid, compute_dtype, noise, eps_all, mixed_style):
+    """K3's autodiff instance: k3_train_auto in the mode of
+    (``compute_dtype``, ``mixed_style``), counted by mode in
+    ``_fused_scale_call.auto_launches``."""
+    mode = _auto_mode(compute_dtype, mixed_style)
+    lib, params, partial, sms, stream = _kernel_common(plist, packed, eps_all, cfg,
+                                                       compute_dtype, tile, "K3", auto=True)
+    mv = torch.zeros(2 * params.numel(), dtype=torch.float32, device=packed.device)
+    metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=packed.device)
+    err = lib.k3_train_auto(
+        packed.data_ptr(), packed.shape[1], _ptr(eps_all), AUTO_MODES[mode],
+        NOISE_MODES[noise], packed.shape[0], tile, ctypes.c_float(n_valid), epochs,
+        ctypes.c_float(lr), *_weights_args(weights), ctypes.c_ulonglong(seed),
+        params.data_ptr(), mv.data_ptr(), partial.data_ptr(), sms, metrics.data_ptr(),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"K3 ({mode} autodiff) launch failed: CUDA error {err}")
+    _fused_scale_call.auto_launches[mode] += 1
+    return unpack_kernel_params(params, plist), metrics
+
+
 def _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile,
                              n_valid, compute_dtype, noise, eps_all, bits=0, sink=None):
     """K3's launch.  Under the noadam bit the reduce writes each epoch's
@@ -374,36 +430,46 @@ def _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     _fused_scale_call.launches += 1
+    for knob, bit in ABLATE_BITS.items():
+        if bits & bit:
+            _fused_scale_call.knob_launches[knob] += 1
     return unpack_kernel_params(params, plist), metrics
 
 
 def _grad_epoch_call_kernel(plist, packed, stream_base, cfg, weights, tile,
-                            n_valid, compute_dtype, noise, eps_epoch):
+                            n_valid, compute_dtype, noise, eps_epoch, backward="manual",
+                            mixed_style="f32_acts"):
+    auto = backward == "auto"
     lib, params, partial, sms, stream = _kernel_common(plist, packed, eps_epoch, cfg,
-                                                       compute_dtype, tile, "K4")
+                                                       compute_dtype, tile, "K4", auto)
     grad = torch.empty_like(params)
     row = torch.zeros((1, 8), dtype=torch.float32, device=packed.device)
-    err = lib.k4_grad_epoch(
-        packed.data_ptr(), packed.shape[1], _ptr(eps_epoch),
-        int(packed.dtype == torch.bfloat16), NOISE_MODES[noise],
-        packed.shape[0], tile, ctypes.c_float(n_valid),
-        *_weights_args(weights), ctypes.c_ulonglong(stream_base),
-        params.data_ptr(), partial.data_ptr(), sms, grad.data_ptr(),
-        row.data_ptr(), stream)
+    mode = _auto_mode(compute_dtype, mixed_style)
+    args = (packed.data_ptr(), packed.shape[1], _ptr(eps_epoch),
+            AUTO_MODES[mode] if auto else int(packed.dtype == torch.bfloat16),
+            NOISE_MODES[noise], packed.shape[0], tile, ctypes.c_float(n_valid),
+            *_weights_args(weights), ctypes.c_ulonglong(stream_base),
+            params.data_ptr(), partial.data_ptr(), sms, grad.data_ptr(),
+            row.data_ptr(), stream)
+    err = lib.k4_grad_epoch_auto(*args) if auto else lib.k4_grad_epoch(*args)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")
-    _grad_epoch_call.launches += 1
+    if auto:
+        _grad_epoch_call.auto_launches[mode] += 1
+    else:
+        _grad_epoch_call.launches += 1
     return unpack_kernel_params(grad, plist), row
 
 
 # ---- K3 ----------------------------------------------------------------------
 
 def _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr, tile,
-                            n_valid, compute_dtype, noise, eps_all=None, _ablate=()):
+                            n_valid, compute_dtype, noise, eps_all=None, _ablate=(),
+                            backward="manual", mixed_style="f32_acts"):
     """K3's plain version: per epoch the plain gradient pass over the tiles
     in order, then Adam (none under the ``noadam`` knob); one metrics row
     [total, recon, kld, start, time, 0, 0, 0] per epoch."""
-    _check_ablate(_ablate, compute_dtype)
+    _check_ablate(_ablate, compute_dtype, backward)
     dev = packed.device
     n_pad = packed.shape[0]
     n_tiles = n_pad // tile
@@ -415,7 +481,7 @@ def _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr, tile,
         rows = None if eps_all is None else eps_all[e * n_pad:(e + 1) * n_pad]
         src = _eps_source(noise, cfg, tile, n_pad, rows, seed + e * n_tiles, dev)
         grads, row = _plain_grad_epoch(params, packed, tile, cfg, weights, n_valid,
-                                       compute_dtype, src, _ablate)
+                                       compute_dtype, src, _ablate, backward, mixed_style)
         if "noadam" not in _ablate:
             tf = torch.tensor(float(e + 1), dtype=torch.float32, device=dev)
             params, m, v = _adam_step(params, grads, m, v, tf, lr)
@@ -426,17 +492,22 @@ def _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr, tile,
 def _fused_scale_call(plist, packed, seed: int, cfg: CVAEConfig,
                       weights: LossWeights, epochs: int, lr: float, tile: int,
                       n_valid: float, compute_dtype, noise: str,
-                      eps_all: Optional[torch.Tensor] = None, _ablate=()):
+                      eps_all: Optional[torch.Tensor] = None, _ablate=(),
+                      backward: Optional[str] = None, mixed_style: str = "f32_acts"):
     """A whole production-scale run: (final flat params, (epochs, 8) metrics).
 
     ``packed`` is the (n_pad, F+C+1[+Z]) corpus from :func:`_pack_corpus`,
     padded to a multiple of ``tile`` and stored in the compute dtype.  With
     ``noise="hbm"``, ``eps_all`` is the (epochs·n_pad, Z) stream; when it is
     None it is drawn here by :func:`hbm_noise`.  On CUDA tensors this
-    launches K3 (counted in ``_fused_scale_call.launches``) or raises; on
-    CPU tensors it runs K3's plain version.  ``_ablate`` names the
-    ablation knobs (module docstring)."""
-    bits = _check_ablate(_ablate, compute_dtype)
+    launches K3 (counted in ``_fused_scale_call.launches``, those under
+    each knob also in ``.knob_launches``; the autodiff instances by mode in
+    ``_fused_scale_call.auto_launches``) or raises; on
+    CPU tensors it runs K3's plain version.  ``backward`` is resolved by
+    :func:`_resolve_backward`; ``_ablate`` names the ablation knobs (module
+    docstring)."""
+    backward = _resolve_backward(backward, compute_dtype, mixed_style)
+    bits = _check_ablate(_ablate, compute_dtype, backward)
     dev = packed.device
     if noise == "hbm" and eps_all is None:
         eps_all = hbm_noise(seed, epochs, packed.shape[0], cfg.latent_dim,
@@ -445,14 +516,20 @@ def _fused_scale_call(plist, packed, seed: int, cfg: CVAEConfig,
     if dev.type == "cpu":
         return _fused_scale_call_plain(plist, packed, seed, cfg, weights, epochs, lr,
                                        tile, n_valid, compute_dtype, noise, eps_all,
-                                       tuple(_ablate))
+                                       tuple(_ablate), backward, mixed_style)
     if dev.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or (plain) CPU tensors, got {dev}")
+    if backward == "auto":
+        return _fused_scale_call_auto_kernel(plist, packed, seed, cfg, weights, epochs,
+                                             lr, tile, n_valid, compute_dtype, noise,
+                                             eps_all, mixed_style)
     return _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr,
                                     tile, n_valid, compute_dtype, noise, eps_all, bits)
 
 
 _fused_scale_call.launches = 0
+_fused_scale_call.knob_launches = dict.fromkeys(ABLATE_BITS, 0)
+_fused_scale_call.auto_launches = dict.fromkeys(AUTO_MODES, 0)
 
 
 def _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev):
@@ -490,11 +567,14 @@ def fused_train_scale(windows: np.ndarray, epochs: int = 200, lr: float = 1e-3,
     other trainers.  Rows are padded to a multiple of ``tile`` with masked
     zero windows.  ``compute_dtype="bfloat16"`` (the default) stores the
     corpus in bf16 and runs the products on bf16 operands over float32
-    master weights (``f32_acts``); None is pure float32.  ``eps`` (N, Z),
+    master weights (``f32_acts``; ``mixed_style="bf16_chain"`` is the scan
+    trainer's whole-chain bf16); None is pure float32.  ``eps`` (N, Z),
     when given, is held constant over the epochs and overrides ``noise``
-    (``"hbm"`` or ``"prng"``, module docstring).  Returns (params, history)."""
-    cfg, noise = _check_scale_args(windows, tile, compute_dtype, mixed_style, eps,
-                                   noise, backward)
+    (``"hbm"`` or ``"prng"``, module docstring).  ``backward``: None (the
+    manual backward where it applies), ``"manual"`` or ``"auto"``.
+    Returns (params, history)."""
+    cfg, noise, backward = _check_scale_args(windows, tile, compute_dtype, mixed_style,
+                                             eps, noise, backward)
     if noise == "hbm":
         n_pad = -(-windows.shape[0] // tile) * tile
         _check_eps_hbm_budget(epochs, n_pad, cfg.latent_dim, compute_dtype)
@@ -502,7 +582,8 @@ def fused_train_scale(windows: np.ndarray, epochs: int = 200, lr: float = 1e-3,
     n, packed = _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev)
     plist = _flatten_params(init_params(torch.Generator().manual_seed(seed), cfg, dev))
     out, metrics = _fused_scale_call(plist, packed, seed, cfg, weights, epochs, lr,
-                                     tile, float(n), compute_dtype, noise)
+                                     tile, float(n), compute_dtype, noise,
+                                     backward=backward, mixed_style=mixed_style)
     return _unflatten_params(out), _history(metrics)
 
 
@@ -511,28 +592,34 @@ def fused_train_scale(windows: np.ndarray, epochs: int = 200, lr: float = 1e-3,
 def _grad_epoch_call(plist, packed, stream_base: int, cfg: CVAEConfig,
                      weights: LossWeights, tile: int, n_valid: float,
                      compute_dtype, noise: str,
-                     eps_epoch: Optional[torch.Tensor] = None):
+                     eps_epoch: Optional[torch.Tensor] = None,
+                     backward: Optional[str] = None, mixed_style: str = "f32_acts"):
     """One epoch's (tile-summed flat gradients, (1, 8) loss row) over one
     device's corpus.  ``eps_epoch`` ((n_pad, Z), required for
     ``noise="hbm"``) is this epoch's stream; ``prng`` keys tile i by
     ``stream_base + i``.  On CUDA tensors this launches K4 (counted in
-    ``_grad_epoch_call.launches``) or raises; on CPU tensors it runs K4's
-    plain version."""
+    ``_grad_epoch_call.launches``; the autodiff instances by mode in
+    ``_grad_epoch_call.auto_launches``) or raises; on CPU tensors it runs
+    K4's plain version."""
+    backward = _resolve_backward(backward, compute_dtype, mixed_style)
     dev = packed.device
     _check_noise(noise, packed, cfg, eps_epoch, packed.shape[0], tile)
     if dev.type == "cpu":
         src = _eps_source(noise, cfg, tile, packed.shape[0], eps_epoch,
                           stream_base, dev)
         grads, row = _plain_grad_epoch(plist, packed, tile, cfg, weights, n_valid,
-                                       compute_dtype, src)
+                                       compute_dtype, src, backward=backward,
+                                       mixed_style=mixed_style)
         return grads, torch.cat([row, torch.zeros(3)]).reshape(1, 8)
     if dev.type != "cuda":
         raise ValueError(f"K4 runs on CUDA or (plain) CPU tensors, got {dev}")
     return _grad_epoch_call_kernel(plist, packed, stream_base, cfg, weights, tile,
-                                   n_valid, compute_dtype, noise, eps_epoch)
+                                   n_valid, compute_dtype, noise, eps_epoch, backward,
+                                   mixed_style)
 
 
 _grad_epoch_call.launches = 0
+_grad_epoch_call.auto_launches = dict.fromkeys(AUTO_MODES, 0)
 
 
 def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
@@ -554,8 +641,8 @@ def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
         raise NotImplementedError("fused_train_scale_dp over several devices (the "
                                   "gradient all-reduce) is not ported yet; pass "
                                   "mesh=None")
-    cfg, noise = _check_scale_args(windows, tile, compute_dtype, mixed_style, eps,
-                                   noise, backward)
+    cfg, noise, backward = _check_scale_args(windows, tile, compute_dtype, mixed_style,
+                                             eps, noise, backward)
     dev = resolve_device(device)
     n, packed = _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev)
     plist = _flatten_params(init_params(torch.Generator().manual_seed(seed), cfg, dev))
@@ -571,7 +658,7 @@ def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
                                     device=dev).to(packed.dtype)
         grads, mrow = _grad_epoch_call(plist, packed, seed + e * local_tiles, cfg,
                                        weights, tile, float(n), compute_dtype, noise,
-                                       eps_epoch)
+                                       eps_epoch, backward, mixed_style)
         tf = torch.tensor(float(e + 1), dtype=torch.float32, device=dev)
         plist, m, v = _adam_step(plist, grads, m, v, tf, lr)
         metrics[e] = mrow[0]

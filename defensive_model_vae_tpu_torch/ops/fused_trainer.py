@@ -10,10 +10,17 @@ cond, optional ε, seed and the initial params in; the final params and an
 see the design note in that file for its bound and its layout).
 
 Plain parts ported as they are: ``_LAYERS``/``_flatten_params``/
-``_unflatten_params`` (:38-58), ``_forward_loss`` (:61; float32 and the
-``f32_acts`` mixed mode),
-``_adam_step`` (:268), ``fused_inputs`` (:442), ``fused_step_reference``
-(:795) and ``fused_train`` (:405).
+``_unflatten_params`` (:38-58), ``_forward_loss`` (:61; float32 and both
+mixed styles, ``f32_acts`` and ``bf16_chain``), ``_check_backward_arg``
+(:204), ``_adam_step`` (:268), ``fused_inputs`` (:442),
+``fused_step_reference`` (:795) and ``fused_train`` (:405).
+
+``backward`` (JAX's ``_epoch_body`` :287-323): ``"manual"`` runs the
+hand-written backward of ``manual_grad``; ``"auto"`` runs the arithmetic
+of autodiff of ``_forward_loss`` — the μ and logσ² heads' products apart,
+the loss terms' cotangents added term by term.  In the kernels these are
+two instances of one run (``csrc/fused_trainer.cu``); their plain versions
+are the manual backward and autograd of :func:`_forward_loss`.
 
 Noise: the TPU kernel draws ε from the core PRNG.  K1 draws it from a
 Philox4x32-10 counter generator keyed by the seed with counter (epoch, row,
@@ -72,39 +79,76 @@ def bf16_rounder(compute_dtype):
 
 
 def _forward_loss(plist, x_flat, cond, eps, cfg: CVAEConfig, w: LossWeights,
-                  mask=None, n_valid=None, compute_dtype=None):
+                  mask=None, n_valid=None, compute_dtype=None,
+                  mixed_style="f32_acts"):
     """Loss over the flat param list on flattened (B, T·D) windows with
     explicit noise (fused_trainer.py:61).  Returns (total, [total, recon,
     kld, start, time]).
 
-    ``compute_dtype="bfloat16"`` is JAX's ``f32_acts`` mode: the inputs are
-    taken to float32 once, both operands of every product are rounded to
-    bf16 and the product accumulates in float32; everything else stays
-    float32.  Under autograd each rounding's backward casts its cotangent
-    to bf16 and back, which is where JAX's autodiff rounds in this mode:
-    the float32 cotangent enters each activation-gradient product
-    unrounded and the product's output is rounded to bf16.  With None the
-    roundings are absent and this is the float32 path as it always was."""
+    With ``compute_dtype="bfloat16"``, JAX's two mixed styles, emulated in
+    float32 with explicit rounding to bf16 (nearest even) so that no
+    product depends on how a library reduces bf16:
+
+    - ``"f32_acts"``: the inputs are taken to float32 once, both operands
+      of every product are rounded to bf16 and the product accumulates in
+      float32; everything else stays float32;
+    - ``"bf16_chain"`` (the scan trainer's recipe, JAX :61-200): params and
+      inputs are bf16; each product accumulates in float32 and is rounded,
+      then the bf16 bias is added and the sum rounded; relu is a select on
+      ``h > 0``; ``std = bf16(exp(0.5·f32(logvar)))`` and ``z = bf16(mu +
+      bf16(eps·std))``; recon, mu and logvar go up to float32 for the loss.
+
+    Under autograd each rounding's backward casts its cotangent to bf16 and
+    back, which is where JAX's autodiff rounds: at every cast's VJP, so a
+    product's cotangent in an operand is rounded per use.  In
+    ``bf16_chain`` every bf16 value is therefore rounded once where it is
+    made (its summed cotangent, as JAX adds bf16 cotangents in bf16) and
+    once at each use (that use's cotangent).  With None the roundings are
+    absent and this is the float32 path as it always was."""
+    chain = compute_dtype is not None and mixed_style == "bf16_chain"
+    if compute_dtype is not None and mixed_style not in ("f32_acts", "bf16_chain"):
+        raise ValueError(f"mixed_style must be 'f32_acts' or 'bf16_chain' "
+                         f"(got {mixed_style!r})")
     dc = bf16_rounder(compute_dtype)
     if compute_dtype is not None:
         x_flat, cond, eps = x_flat.float(), cond.float(), eps.float()
+    if chain:
+        x_flat, cond, eps = dc(x_flat), dc(cond), dc(eps)
+        plist = [dc(a) for a in plist]
     p = {n: (plist[2 * i], plist[2 * i + 1]) for i, n in enumerate(_LAYERS)}
 
     def lin(name, h):
+        if chain:
+            return dc(dc(dc(h) @ p[name][0]) + p[name][1])
         return dc(h) @ dc(p[name][0]) + p[name][1]
 
-    hc = torch.relu(lin("cond_1", torch.relu(lin("cond_0", cond))))
+    if chain:
+        def relu(h):
+            return torch.where(h > 0, h, torch.zeros((), dtype=h.dtype, device=h.device))
+    else:
+        relu = torch.relu
+
+    hc = relu(lin("cond_1", relu(lin("cond_0", cond))))
     h = x_flat
     for name in ("enc_0", "enc_1", "enc_2", "enc_3"):
-        h = torch.relu(lin(name, h))
+        h = relu(lin(name, h))
     hcat = torch.cat([h, hc], dim=1)
+    if chain:
+        hcat = dc(hcat)
     mu = lin("fc_mu", hcat)
     logvar = lin("fc_logvar", hcat)
-    z = mu + eps * torch.exp(0.5 * logvar)
+    if chain:
+        std = dc(torch.exp(0.5 * dc(logvar)))
+        z = dc(mu + dc(eps * std))
+        mu, logvar = dc(mu), dc(logvar)   # their float32 uses in the loss
+    else:
+        z = mu + eps * torch.exp(0.5 * logvar)
     g = torch.cat([z, hc], dim=1)
     for name in ("dec_0", "dec_1", "dec_2"):
-        g = torch.relu(lin(name, g))
+        g = relu(lin(name, g))
     recon = lin("dec_3", g)
+    if chain:
+        recon = dc(recon)
 
     T, D = cfg.seq_len, cfg.dim
     if mask is None:
@@ -125,6 +169,28 @@ def _forward_loss(plist, x_flat, cond, eps, cfg: CVAEConfig, w: LossWeights,
     total = (w.recon * recon_loss + w.kld * kld
              + w.start * start_loss + w.time * time_loss)
     return total, torch.stack([total, recon_loss, kld, start_loss, time_loss])
+
+
+def autodiff_value_and_grad(plist, x_flat, cond, eps, cfg: CVAEConfig,
+                            w: LossWeights, mask=None, n_valid=None,
+                            compute_dtype=None, mixed_style="f32_acts"):
+    """``(comps, grads)`` by autograd of :func:`_forward_loss` — the plain
+    version of every ``backward="auto"`` kernel, as JAX's
+    ``jax.value_and_grad(_forward_loss)`` is (fused_scale.py:120-144).
+    Products run in float32 (callers on the card keep TF32 off)."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(True) for a in plist]
+        total, comps = _forward_loss(leaves, x_flat, cond, eps, cfg, w, mask, n_valid,
+                                     compute_dtype, mixed_style)
+        grads = torch.autograd.grad(total, leaves)
+    return comps.detach(), [g.detach() for g in grads]
+
+
+def _check_backward_arg(backward):
+    """K1's instances are float32, so both gradient paths are always
+    available (fused_trainer.py:204-210)."""
+    if backward not in ("auto", "manual"):
+        raise ValueError(f"backward must be 'auto' or 'manual' (got {backward!r})")
 
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -249,13 +315,18 @@ def unpack_kernel_params(flat: torch.Tensor, plist_like) -> List[torch.Tensor]:
 # ---- K1: the wrapper, its kernel and its plain version ----------------------
 
 def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
-                      mask=None):
-    """K1's plain version: per epoch ε (explicit, or Philox), the ported
-    manual backward, Adam; one metrics row [total, recon, kld, start, time,
-    0, 0, 0] per epoch.  ``mask`` (B, 1) makes the means masked ones over
-    max(Σ mask, 1) rows (K2's padded rows)."""
+                      mask=None, backward="manual"):
+    """K1's plain version: per epoch ε (explicit, or Philox), the gradients
+    (the ported manual backward, or autograd of :func:`_forward_loss` for
+    ``backward="auto"``, JAX's ``_epoch_body`` :287-323), Adam; one metrics
+    row [total, recon, kld, start, time, 0, 0, 0] per epoch.  ``mask``
+    (B, 1) makes the means masked ones over max(Σ mask, 1) rows (K2's padded
+    rows)."""
     from .manual_grad import manual_value_and_grad
 
+    _check_backward_arg(backward)
+    value_and_grad = (manual_value_and_grad if backward == "manual"
+                      else autodiff_value_and_grad)
     dev = x_flat.device
     params = [a.clone() for a in plist]
     m = [torch.zeros_like(a) for a in plist]
@@ -264,8 +335,7 @@ def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
     B = x_flat.shape[0]
     for t in range(epochs):
         e = eps if eps is not None else philox_normal(seed, t, B, cfg.latent_dim, dev)
-        comps, grads = manual_value_and_grad(params, x_flat, cond, e, cfg, weights,
-                                             mask=mask)
+        comps, grads = value_and_grad(params, x_flat, cond, e, cfg, weights, mask=mask)
         tf = torch.tensor(float(t + 1), dtype=torch.float32, device=dev)
         params, m, v = _adam_step(params, grads, m, v, tf, lr)
         metrics[t, :5] = comps
@@ -288,7 +358,23 @@ def _check_kernel_inputs(kernel, cfg, dev, *arrays):
                              f"expected {shape}")
 
 
-def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps):
+# the library's entry of each K1-family launch, by backward: the manual
+# instances and the autodiff instance (its own object, fused_trainer.cu
+# compiled with -DK1_AUTO)
+_K1_ENTRIES = {"manual": ("k1_fused_train", "k2_fused_train_multi", "k1_fused_train_seeds"),
+               "auto": ("k1_fused_train_auto", "k2_fused_train_multi_auto",
+                        "k1_fused_train_seeds_auto")}
+
+
+def _count_launch(fn, backward):
+    if backward == "manual":
+        fn.launches += 1
+    else:
+        fn.auto_launches += 1
+
+
+def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
+                       backward="manual"):
     from ._build import load
 
     B = x_flat.shape[0]
@@ -303,7 +389,7 @@ def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps)
     work = torch.empty(int(lib.k1_work_floats(B)), dtype=torch.float32, device=dev)
     metrics = torch.empty((epochs, 8), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.k1_fused_train(
+    err = getattr(lib, _K1_ENTRIES[backward][0])(
         x_flat.data_ptr(), cond.data_ptr(),
         None if eps is None else eps.data_ptr(),
         params.data_ptr(), work.data_ptr(), metrics.data_ptr(),
@@ -314,30 +400,35 @@ def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps)
     )
     if err != 0:
         raise RuntimeError(f"K1 launch failed: CUDA error {err}")
-    fused_call.launches += 1
+    _count_launch(fused_call, backward)
     return unpack_kernel_params(params, plist), metrics
 
 
 def fused_call(plist, x_flat, cond, seed: int, cfg: CVAEConfig,
                weights: LossWeights, epochs: int, lr: float,
-               eps: Optional[torch.Tensor] = None):
+               eps: Optional[torch.Tensor] = None, backward: str = "manual"):
     """One whole training run: (final flat params, (epochs, 8) metrics).
 
     On CUDA tensors this launches K1 (one launch, counted in
-    ``fused_call.launches``) or raises; on CPU tensors it runs K1's plain
+    ``fused_call.launches``, or ``fused_call.auto_launches`` for the
+    autodiff instance) or raises; on CPU tensors it runs K1's plain
     version.  ``eps`` (B, Z), when given, is held constant across epochs
-    (the TPU kernel's ``eps_input`` mode); otherwise ε is Philox noise."""
+    (the TPU kernel's ``eps_input`` mode); otherwise ε is Philox noise.
+    ``backward``: ``"manual"`` (the hand-written backward) or ``"auto"``
+    (the arithmetic of autodiff of :func:`_forward_loss`)."""
+    _check_backward_arg(backward)
     dev = x_flat.device
     if dev.type == "cpu":
         return _fused_call_plain(plist, x_flat, cond, seed, cfg, weights,
-                                 epochs, lr, eps)
+                                 epochs, lr, eps, backward=backward)
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got {dev}")
     return _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights,
-                              epochs, lr, eps)
+                              epochs, lr, eps, backward)
 
 
 fused_call.launches = 0
+fused_call.auto_launches = 0
 
 
 # ---- many runs in one launch: K2, and K1 on a grid of seeds -----------------
@@ -418,7 +509,7 @@ def _check_grid(kernel, stacked, x_flat, seeds, epochs):
 
 
 def _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg, weights,
-                            epochs, lr, eps=None):
+                            epochs, lr, eps=None, backward="manual"):
     """K2's plain version in JAX's padded-and-masked form
     (fused_trainer.py:596-641): each run's rows padded to n_max with copies
     of its first row (ε rows zero), a (n_max, 1) row mask, masked means over
@@ -437,13 +528,13 @@ def _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg, weights,
         outs.append(_fused_call_plain(
             _run_params(stacked, s), padded(x_flat, x_flat[lo:lo + 1]),
             padded(cond, cond[lo:lo + 1]), int(seeds[s]), cfg, weights, epochs, lr,
-            e, mask=mask))
+            e, mask=mask, backward=backward))
     return _stack_runs(outs)
 
 
 def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
                       cfg: CVAEConfig, weights: LossWeights, epochs: int, lr: float,
-                      eps: Optional[torch.Tensor] = None):
+                      eps: Optional[torch.Tensor] = None, backward: str = "manual"):
     """S whole training runs on ragged corpora: (stacked params, (S, E, 8)).
 
     Run s trains ``stacked[:, s]`` on rows ``row_off[s]:row_off[s + 1]`` of
@@ -451,8 +542,9 @@ def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
     Philox noise keyed by ``seeds[s]`` or the same rows of an explicit
     ``eps`` (Σ B_s, Z) held constant over the epochs.  On CUDA tensors this
     launches K2 (one launch of S blocks, counted in
-    ``_fused_multi_call.launches``) or raises; on CPU tensors it runs K2's
-    plain version."""
+    ``_fused_multi_call.launches``, or ``.auto_launches`` for the autodiff
+    instance) or raises; on CPU tensors it runs K2's plain version."""
+    _check_backward_arg(backward)
     dev = _check_grid("K2", stacked, x_flat, seeds, epochs)
     row_off = [int(r) for r in row_off]
     if (len(row_off) != len(seeds) + 1 or row_off[0] != 0
@@ -462,56 +554,60 @@ def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
                          f"{x_flat.shape[0]} by at least one row a run")
     if dev.type == "cpu":
         return _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg,
-                                       weights, epochs, lr, eps)
+                                       weights, epochs, lr, eps, backward)
     R = x_flat.shape[0]
     F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
     _check_kernel_inputs("K2", cfg, dev, ("x_flat", x_flat, (R, F)),
                          ("cond", cond, (R, C)), ("eps", eps, (R, Z)))
-    out = _grid_call_kernel("k2_fused_train_multi", "K2", stacked,
+    out = _grid_call_kernel(_K1_ENTRIES[backward][1], "K2", stacked,
                             x_flat, cond, eps, seeds, cfg, weights, epochs, lr, R,
                             row_off)
-    _fused_multi_call.launches += 1
+    _count_launch(_fused_multi_call, backward)
     return out
 
 
 _fused_multi_call.launches = 0
+_fused_multi_call.auto_launches = 0
 
 
 def _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights, epochs, lr,
-                            eps=None):
+                            eps=None, backward="manual"):
     """The seed grid's plain version: K1's, once per seed."""
     return _stack_runs([
         _fused_call_plain(_run_params(stacked, s), x_flat, cond, int(seed), cfg,
-                          weights, epochs, lr, None if eps is None else eps[s])
+                          weights, epochs, lr, None if eps is None else eps[s],
+                          backward=backward)
         for s, seed in enumerate(seeds)])
 
 
 def _fused_seeds_call(stacked, x_flat, cond, seeds, cfg: CVAEConfig,
                       weights: LossWeights, epochs: int, lr: float,
-                      eps: Optional[torch.Tensor] = None):
+                      eps: Optional[torch.Tensor] = None, backward: str = "manual"):
     """S whole training runs of one corpus: (stacked params, (S, E, 8)).
 
     Run s trains ``stacked[:, s]`` on all of ``x_flat``/``cond`` with
     Philox noise keyed by ``seeds[s]`` or the explicit ``eps[s]`` (of an
     (S, B, Z) ``eps``).  On CUDA tensors this launches K1 on a grid of S
-    blocks (one launch, counted in ``_fused_seeds_call.launches``), each
-    block K1's own run, or raises; on CPU tensors it runs K1's plain version
-    once per seed."""
+    blocks (one launch, counted in ``_fused_seeds_call.launches``, or
+    ``.auto_launches`` for the autodiff instance), each block K1's own run,
+    or raises; on CPU tensors it runs K1's plain version once per seed."""
+    _check_backward_arg(backward)
     dev = _check_grid("the seed grid", stacked, x_flat, seeds, epochs)
     if dev.type == "cpu":
         return _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights,
-                                       epochs, lr, eps)
+                                       epochs, lr, eps, backward)
     B, S = x_flat.shape[0], len(seeds)
     F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
     _check_kernel_inputs("K1", cfg, dev, ("x_flat", x_flat, (B, F)),
                          ("cond", cond, (B, C)), ("eps", eps, (S, B, Z)))
-    out = _grid_call_kernel("k1_fused_train_seeds", "K1", stacked,
+    out = _grid_call_kernel(_K1_ENTRIES[backward][2], "K1", stacked,
                             x_flat, cond, eps, seeds, cfg, weights, epochs, lr, S * B)
-    _fused_seeds_call.launches += 1
+    _count_launch(_fused_seeds_call, backward)
     return out
 
 
 _fused_seeds_call.launches = 0
+_fused_seeds_call.auto_launches = 0
 
 
 def fused_inputs(windows, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -529,12 +625,15 @@ def _history(metrics) -> Dict[str, np.ndarray]:
 
 def fused_train(windows: np.ndarray, epochs: int = 3000, lr: float = 1e-3,
                 weights: LossWeights = LossWeights(), seed: int = 0,
-                eps=None, device="cuda") -> Tuple[Params, Dict[str, np.ndarray]]:
+                eps=None, backward: str = "manual",
+                device="cuda") -> Tuple[Params, Dict[str, np.ndarray]]:
     """Train one scenario CVAE in one K1 launch (fused_trainer.py:405).
 
     Same init (from ``torch.Generator().manual_seed(seed)``), loss and
     optimizer as :func:`..train.train`; the noise is K1's Philox stream
-    unless ``eps`` (B, Z) is given.  Returns (params, history)."""
+    unless ``eps`` (B, Z) is given.  ``backward``: ``"manual"`` (default)
+    or ``"auto"`` (:func:`fused_call`).  Returns (params, history)."""
+    _check_backward_arg(backward)
     dev = resolve_device(device)
     cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
     x_flat, start = fused_inputs(windows, dev)
@@ -542,14 +641,14 @@ def fused_train(windows: np.ndarray, epochs: int = 3000, lr: float = 1e-3,
     if eps is not None:
         eps = torch.as_tensor(np.asarray(eps, np.float32)).to(dev).contiguous()
     out_plist, metrics = fused_call(_flatten_params(params), x_flat, start,
-                                    seed, cfg, weights, epochs, lr, eps)
+                                    seed, cfg, weights, epochs, lr, eps, backward)
     return _unflatten_params(out_plist), _history(metrics.cpu().numpy())
 
 
 def fused_train_multi(windows_by_scenario: Dict[str, np.ndarray], epochs: int = 3000,
                       lr: float = 1e-3, weights: LossWeights = LossWeights(),
                       seed: int = 0, eps_by_scenario: Optional[Dict[str, np.ndarray]] = None,
-                      device="cuda") -> Tuple[Dict[str, Params],
+                      backward: str = "manual", device="cuda") -> Tuple[Dict[str, Params],
                                               Dict[str, Dict[str, np.ndarray]]]:
     """Train every scenario's model in ONE K2 launch (fused_trainer.py:574).
 
@@ -558,7 +657,9 @@ def fused_train_multi(windows_by_scenario: Dict[str, np.ndarray], epochs: int = 
     by ``seed + i``, so it is :func:`fused_train` on its own windows with
     seed ``seed + i`` — not a per-scenario call with the same base seed.
     ``eps_by_scenario`` ({key: (B_i, Z)}) replaces the noise by explicit ε
-    held constant over the epochs.  → ({key: params}, {key: history})."""
+    held constant over the epochs.  ``backward`` as :func:`fused_train`.
+    → ({key: params}, {key: history})."""
+    _check_backward_arg(backward)
     dev = resolve_device(device)
     keys = sorted(windows_by_scenario)
     first = windows_by_scenario[keys[0]]
@@ -576,7 +677,7 @@ def fused_train_multi(windows_by_scenario: Dict[str, np.ndarray], epochs: int = 
             [np.asarray(eps_by_scenario[k], np.float32) for k in keys])).to(dev)
     out, metrics = _fused_multi_call(stacked, x_flat, cond, row_off,
                                      [seed + i for i in range(len(keys))], cfg,
-                                     weights, epochs, lr, eps)
+                                     weights, epochs, lr, eps, backward)
     metrics = metrics.cpu().numpy()
     return ({k: _unflatten_params(_run_params(out, i)) for i, k in enumerate(keys)},
             {k: _history(metrics[i]) for i, k in enumerate(keys)})
@@ -585,7 +686,7 @@ def fused_train_multi(windows_by_scenario: Dict[str, np.ndarray], epochs: int = 
 def fused_train_seeds(windows: np.ndarray, seeds, epochs: int = 3000, lr: float = 1e-3,
                       weights: LossWeights = LossWeights(),
                       eps_by_seed: Optional[Dict[int, np.ndarray]] = None,
-                      device="cuda") -> Tuple[Dict[int, Params],
+                      backward: str = "manual", device="cuda") -> Tuple[Dict[int, Params],
                                               Dict[int, Dict[str, np.ndarray]]]:
     """Train one corpus under many seeds in ONE launch of K1 on a grid of
     S blocks (fused_trainer.py:661).
@@ -593,8 +694,10 @@ def fused_train_seeds(windows: np.ndarray, seeds, epochs: int = 3000, lr: float 
     Seed s is :func:`fused_train` with ``seed=s`` — the same init, the same
     Philox stream and the same per-block code — so its params and history
     are bit for bit those of the single run.  ``eps_by_seed`` ({seed:
-    (B, Z)}) replaces the noise by explicit ε.  Duplicate seeds are refused
-    (results are keyed by seed).  → ({seed: params}, {seed: history})."""
+    (B, Z)}) replaces the noise by explicit ε.  ``backward`` as
+    :func:`fused_train`.  Duplicate seeds are refused (results are keyed by
+    seed).  → ({seed: params}, {seed: history})."""
+    _check_backward_arg(backward)
     seeds = [int(s) for s in seeds]
     if len(set(seeds)) != len(seeds):
         raise ValueError("duplicate seeds in fused_train_seeds")
@@ -608,7 +711,7 @@ def fused_train_seeds(windows: np.ndarray, seeds, epochs: int = 3000, lr: float 
         eps = torch.as_tensor(np.stack(
             [np.asarray(eps_by_seed[s], np.float32) for s in seeds])).to(dev)
     out, metrics = _fused_seeds_call(stacked, x_flat, start, seeds, cfg, weights,
-                                     epochs, lr, eps)
+                                     epochs, lr, eps, backward)
     metrics = metrics.cpu().numpy()
     return ({s: _unflatten_params(_run_params(out, i)) for i, s in enumerate(seeds)},
             {s: _history(metrics[i]) for i, s in enumerate(seeds)})

@@ -21,10 +21,9 @@ the μ/logσ² head math and the loss stay float32 and unrounded.  With
 ``compute_dtype=None`` every rounding is the identity, so the float32 path
 is exactly the one K1's plain version has always run.
 
-Three of the four levers of JAX's ``manual_value_and_grad``, which the K3
+The four levers of JAX's ``manual_value_and_grad``, which the K3
 ablation (``scripts/scale_ablation.py``, kernel knobs of
-``ops/fused_scale.py``) turns one at a time; the fourth, ``dw_mode``, has
-no user in the port until the ``dwT`` kernel knob is ported:
+``ops/fused_scale.py``) turns one at a time:
 
 - ``chain_cd`` (bf16 only): the dY chain in bf16.  ``d_recon`` is rounded
   once; each activation-gradient product rounds its output to bf16, and so
@@ -38,7 +37,10 @@ no user in the port until the ``dwT`` kernel knob is ported:
   bias gradients, except that every element of cond_0's bias gradient is
   the float32 checksum Σ dy_enc0 + Σ dy_cond0 of the two chains' last
   cotangents (JAX :316-337); ``"none"`` returns zero gradients after the
-  forward.
+  forward;
+- ``dw_mode="transpose"`` (JAX :124-132): each weight gradient aᵀ·dy with
+  aᵀ written out first, then a plain product.  The same products summed
+  in the same order, so the same numbers as the default ``"contract0"``.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           n_valid: Optional[float] = None,
                           compute_dtype: Optional[str] = None,
-                          bias_via_dot: bool = False,
+                          bias_via_dot: bool = False, dw_mode: str = "contract0",
                           chain_cd: bool = False, grads_mode: str = "full",
                           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Forward loss + parameter gradients.
@@ -70,8 +72,8 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     layout ``[W, b(1, -1), ...]`` — what autograd of
     ``fused_trainer._forward_loss`` returns, up to summation order.
     ``compute_dtype``: None (float32) or ``"bfloat16"`` (the ``f32_acts``
-    mode, module docstring).  ``bias_via_dot``, ``chain_cd`` and
-    ``grads_mode`` are the ablation levers of the module docstring."""
+    mode, module docstring).  ``bias_via_dot``, ``dw_mode``, ``chain_cd``
+    and ``grads_mode`` are the ablation levers of the module docstring."""
     dc = bf16_rounder(compute_dtype)
     if chain_cd and compute_dtype is None:
         raise ValueError("chain_cd requires a compute dtype (it keeps the "
@@ -79,6 +81,8 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     if grads_mode not in ("full", "nodw", "none"):
         raise ValueError(f"grads_mode must be 'full', 'nodw' or 'none' "
                          f"(got {grads_mode!r})")
+    if dw_mode not in ("contract0", "transpose"):
+        raise ValueError(f"dw_mode must be 'contract0' or 'transpose' (got {dw_mode!r})")
     rc = dc if chain_cd else (lambda a: a)  # the chain's own rounding
 
     def fdot(a, w):  # forward product
@@ -87,8 +91,9 @@ def manual_value_and_grad(plist: List[torch.Tensor], x_flat: torch.Tensor,
     def ddot_act(dy, w):  # dy · wᵀ, in the chain's dtype
         return rc(dc(dy) @ dc(w).t())
 
-    def ddot_w(a, dy):  # aᵀ · dy
-        return dc(a).t() @ dc(dy)
+    def ddot_w(a, dy):  # aᵀ · dy, aᵀ a view or (dw_mode="transpose") written out
+        a_t = dc(a).t()
+        return (a_t.contiguous() if dw_mode == "transpose" else a_t) @ dc(dy)
 
     def dbias(dy):  # (1, fo), float32
         if bias_via_dot:

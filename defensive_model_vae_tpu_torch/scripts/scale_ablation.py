@@ -9,7 +9,11 @@ Port of the JAX package's ``scripts/scale_ablation.py``:
 
 Variants, all bf16 at the bench shape (``bench.py::_scale_corpus``):
 
+  full         K3 with the autodiff backward (backward="auto"), ε drawn in
+               the kernel (prng)
   manual       K3, ε drawn in the kernel (prng)
+  full_eps     K3 with the autodiff backward, ε packed in the corpus,
+               constant over the epochs
   manual_eps   K3, ε packed in the corpus, constant over the epochs
   hbm          K3, fresh-per-epoch ε streamed from device memory (the
                production default)
@@ -20,6 +24,8 @@ Variants, all bf16 at the bench shape (``bench.py::_scale_corpus``):
   hbm_chaincd  hbm, the dY chain in bf16
   hbm_nodw     hbm without weight and bias gradients -> the dW side
   hbm_fwdonly  hbm without the backward              -> forward floor
+  hbm_dwT      hbm, each weight gradient through an explicit transpose of
+               its activations (the knob JAX's scripts/hot_probe.py times)
   hbm_t1024 / hbm_t4096  hbm at another tile: on this card the kernel
                streams 32-row steps whatever the tile, so only the noise
                keying changes; their times check that the tile is immaterial
@@ -27,11 +33,6 @@ Variants, all bf16 at the bench shape (``bench.py::_scale_corpus``):
   fwd          P1: forward and loss only
   sol          P1: K3's products' FLOPs as chained products, nothing else
   stream       P1: read the block, sum it, write the sum
-
-JAX's ``full`` and ``full_eps`` (the autodiff backward inside the kernel)
-are not ported, so the buckets that need them are computed from the manual
-variants: ``prng_manual`` (manual − manual_eps) stands alone, and
-``dw_acc_adam`` is manual_eps − dx; the output says so.
 
 Each rep draws fresh inputs (a fresh packed ε, a fresh seed for the hbm
 stream, which is drawn inside the timed window as JAX draws it inside its
@@ -59,16 +60,14 @@ from ._timing import device_name, fresh_seed, timed
 
 HBM_KNOBS = {"hbm_noadam": ("noadam",), "hbm_noacc": ("noacc",),
              "hbm_biasdot": ("biasdot",), "hbm_chaincd": ("chaincd",),
-             "hbm_nodw": ("nodw",), "hbm_fwdonly": ("fwdonly",)}
+             "hbm_nodw": ("nodw",), "hbm_fwdonly": ("fwdonly",),
+             "hbm_dwT": ("dwT",)}
 HBM_TILES = {"hbm_t1024": 1024, "hbm_t4096": 4096}
-VARIANTS = (["manual", "manual_eps", "hbm"] + list(HBM_KNOBS) + list(HBM_TILES)
+# (noise, backward) of the four K3 variants without a knob
+K3_RUNS = {"full": ("prng", "auto"), "manual": ("prng", "manual"),
+           "full_eps": ("packed", "auto"), "manual_eps": ("packed", "manual")}
+VARIANTS = (list(K3_RUNS) + ["hbm"] + list(HBM_KNOBS) + list(HBM_TILES)
             + ["dx", "fwd", "sol", "stream"])
-NOT_PORTED = {
-    "variants": ["full", "full_eps"],
-    "buckets": ["manual_backward_saves", "prng"],
-    "why": "the autodiff backward inside the kernel (backward='auto') is not ported",
-    "dw_acc_adam": "manual_eps - dx (JAX: full_eps - dx)",
-}
 
 
 def scale_corpus(n, seq_len=10, dim=3, seed=0):
@@ -122,12 +121,11 @@ class Ablation:
         """One run of ``variant`` → its (epochs, 8) metrics."""
         common = (self.cfg, self.lw, self.epochs, 1e-3)
         nv = float(self.n)
-        if variant == "manual":
-            return fs._fused_scale_call(self.plist, self.packed_zero, seed, *common,
-                                        self.tile, nv, "bfloat16", "prng")[1]
-        if variant == "manual_eps":
-            return fs._fused_scale_call(self.plist, self.packed_eps[rep], seed, *common,
-                                        self.tile, nv, "bfloat16", "packed")[1]
+        if variant in K3_RUNS:
+            noise, backward = K3_RUNS[variant]
+            packed = self.packed_zero if noise == "prng" else self.packed_eps[rep]
+            return fs._fused_scale_call(self.plist, packed, seed, *common, self.tile, nv,
+                                        "bfloat16", noise, backward=backward)[1]
         if variant.startswith("hbm"):
             return fs._fused_scale_call(self.plist, self.packed_zero, seed, *common,
                                         HBM_TILES.get(variant, self.tile), nv, "bfloat16",
@@ -145,18 +143,21 @@ class Ablation:
 def breakdown(b):
     """The buckets (seconds) from the variants' best times ``b``."""
     return {
+        "manual_backward_saves": b["full"] - b["manual"],
+        "prng": b["full"] - b["full_eps"],
         "prng_manual": b["manual"] - b["manual_eps"],
         "hbm_stream_overhead_vs_packed": b["hbm"] - b["manual_eps"],
         "adam": b["hbm"] - b["hbm_noadam"],
         "acc_read_add": b["hbm"] - b["hbm_noacc"],
         "biasdot_saves": b["hbm"] - b["hbm_biasdot"],
         "chaincd_saves": b["hbm"] - b["hbm_chaincd"],
+        "dwT_saves": b["hbm"] - b["hbm_dwT"],
         # the manual backward on K3 itself: hbm − nodw = dW/db products;
         # nodw − fwdonly = the dY chain; fwdonly = forward + stream + reduce
         "manual_dw": b["hbm"] - b["hbm_nodw"],
         "manual_dy_chain": b["hbm_nodw"] - b["hbm_fwdonly"],
         "manual_fwd_floor": b["hbm_fwdonly"],
-        "dw_acc_adam": b["manual_eps"] - b["dx"],
+        "dw_acc_adam": b["full_eps"] - b["dx"],
         "dy_chain": b["dx"] - b["fwd"],
         "fwd_overhead_vs_sol": b["fwd"] - b["sol"],
         "sol_vs_stream": b["sol"] - b["stream"],
@@ -165,15 +166,17 @@ def breakdown(b):
 
 
 def smoke_asserts(last, epochs):
-    """JAX's smoke asserts (scripts/scale_ablation.py:391-435), with
-    manual_eps standing in for the unported full_eps."""
-    me, dx, fw, hb = (last[k] for k in ("manual_eps", "dx", "fwd", "hbm"))
-    # fwd, dx and manual_eps compute the same loss from the same params on
-    # epoch 0; fwd's rows stay constant while training moves manual_eps's
+    """JAX's smoke asserts (scripts/scale_ablation.py:391-435)."""
+    fe, me, dx, fw, hb = (last[k] for k in ("full_eps", "manual_eps", "dx", "fwd", "hbm"))
+    # fwd, dx and full_eps compute the same loss from the same params on
+    # epoch 0; fwd's rows stay constant while training moves full_eps's;
+    # the manual backward shares the forward and descends like autodiff
+    assert np.allclose(fe[0, :5], fw[0, :5], rtol=1e-4), (fe[0], fw[0])
     assert np.allclose(dx[0, :5], fw[0, :5], rtol=1e-4), (dx[0], fw[0])
-    assert np.allclose(me[0, :5], fw[0, :5], rtol=1e-4), (me[0], fw[0])
+    assert np.allclose(me[0, :5], fe[0, :5], rtol=1e-4), (me[0], fe[0])
     assert not np.allclose(me[0, 0], me[epochs - 1, 0], rtol=1e-3)
     assert np.allclose(fw[0, :5], fw[epochs - 1, :5], rtol=1e-4)
+    assert not np.allclose(fe[0, 0], fe[epochs - 1, 0], rtol=1e-3)
     assert np.isfinite(dx[0, 5])
     assert np.isfinite(last["sol"][:epochs, 0]).all()
     assert np.isfinite(last["stream"][:epochs, 0]).all()
@@ -182,7 +185,7 @@ def smoke_asserts(last, epochs):
     for k in HBM_KNOBS:
         assert np.allclose(last[k][0, :5], hb[0, :5], rtol=1e-5), k
     assert not np.allclose(hb[0, 0], hb[epochs - 1, 0], rtol=1e-3)
-    for k in ("hbm_biasdot", "hbm_chaincd"):
+    for k in ("hbm_biasdot", "hbm_chaincd", "hbm_dwT"):
         assert not np.allclose(last[k][0, 0], last[k][epochs - 1, 0], rtol=1e-3), k
     # fwdonly takes no step: its rows are the initial params' loss under
     # each epoch's ε, finite and apart from hbm's descended last row
@@ -208,7 +211,7 @@ def run_ablation(n, epochs, tile, reps, dev, variants=VARIANTS, smoke=False, log
     out = {"n": n, "epochs": epochs, "tile": tile, "grid_steps": epochs * (n // tile),
            "reps": reps - 1, "device": device_name(dev),
            "noise_impl": fs.hbm_noise_impl(dev), "sol_chain": ab.n_chain,
-           "not_ported": NOT_PORTED, "variants": {}}
+           "variants": {}}
     if reps > 1:
         best = {v: min(ts) for v, ts in times.items()}
         steps = out["grid_steps"]

@@ -5,11 +5,13 @@ from .checkpoint import (
     require_cvae_config,
     save_checkpoint,
 )
-from .train import TrainConfig, train
+from .train import TrainConfig, train, train_conditioned, train_multi_scenario
 
 __all__ = [
     "TrainConfig",
     "train",
+    "train_conditioned",
+    "train_multi_scenario",
     "load_checkpoint",
     "params_from_numpy",
     "params_to_numpy",

@@ -51,7 +51,7 @@ from defensive_model_vae_tpu_torch.ops.manual_grad import manual_value_and_grad
 from defensive_model_vae_tpu_torch.scripts import k3_digest, noise_consumer_probe, scale_ablation
 
 CFG, LW = CVAEConfig(), LossWeights()
-KNOBS = ("noadam", "noacc", "biasdot", "chaincd", "nodw", "fwdonly")
+KNOBS = ("noadam", "noacc", "biasdot", "chaincd", "nodw", "fwdonly", "dwT")
 N, EPOCHS, TILE = 64, 9, 16  # the JAX ablation's smoke shape
 
 _j_manual = jax.jit(j_manual, static_argnums=(4, 5),
@@ -295,14 +295,14 @@ def test_noacc_takes_the_last_tile():
 def test_knob_refusals():
     packed = torch.zeros((32, 41))
     args = ([], packed, 0, CFG, LW, 1, 1e-3, 16, 32.0)
-    with pytest.raises(NotImplementedError, match="dwT"):
-        tfs._fused_scale_call(*args, None, "packed", _ablate=("dwT",))
+    with pytest.raises(ValueError, match="_ablate knobs apply"):
+        tfs._fused_scale_call(*args, None, "packed", _ablate=("dwT",), backward="auto")
     with pytest.raises(ValueError, match="unknown _ablate"):
         tfs._fused_scale_call(*args, None, "packed", _ablate=("nothing",))
     with pytest.raises(ValueError, match="chain_cd requires"):
         tfs._fused_scale_call(*args, None, "packed", _ablate=("chaincd",))
     assert tfs._check_ablate((), "bfloat16") == 0
-    assert tfs._check_ablate(KNOBS, "bfloat16") == 63
+    assert tfs._check_ablate(KNOBS, "bfloat16") == 127
     # what the CUDA kernel takes: one per-tile knob (besides noadam), bf16,
     # noacc on tiles of whole 32-row steps
     tfs._check_kernel_knobs(tfs._check_ablate(("noadam", "nodw"), "bfloat16"), "bfloat16", 64)
@@ -440,8 +440,8 @@ def test_scale_ablation_smoke():
 
 
 def test_scale_ablation_breakdown(capsys):
-    """A tiny CPU run prints one JSON line with every bucket, the manual
-    variants standing in for the autodiff ones, and writes only --out."""
+    """A tiny CPU run prints one JSON line with every variant and bucket
+    (the autodiff ones among them), and writes only --out."""
     import json
 
     assert scale_ablation.main(["--n", "4096", "--epochs", "1", "--tile", "1024", "--reps",
@@ -451,11 +451,12 @@ def test_scale_ablation_breakdown(capsys):
     out = json.loads(lines[0])["scale_ablation"]
     assert set(out["variants"]) == set(scale_ablation.VARIANTS)
     assert set(out["breakdown_s"]) == {
-        "prng_manual", "hbm_stream_overhead_vs_packed", "adam", "acc_read_add",
-        "biasdot_saves", "chaincd_saves", "manual_dw", "manual_dy_chain",
-        "manual_fwd_floor", "dw_acc_adam", "dy_chain", "fwd_overhead_vs_sol",
-        "sol_vs_stream", "stream_floor"}
-    assert out["not_ported"]["variants"] == ["full", "full_eps"]
+        "manual_backward_saves", "prng", "prng_manual", "hbm_stream_overhead_vs_packed",
+        "adam", "acc_read_add", "biasdot_saves", "chaincd_saves", "dwT_saves", "manual_dw",
+        "manual_dy_chain", "manual_fwd_floor", "dw_acc_adam", "dy_chain",
+        "fwd_overhead_vs_sol", "sol_vs_stream", "stream_floor"}
+    assert {"full", "full_eps", "hbm_dwT"} <= set(out["variants"])
+    assert "not_ported" not in out
     assert out["device"] == "cpu" and out["sol_chain"] == 23
 
 

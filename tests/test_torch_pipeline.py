@@ -163,11 +163,27 @@ def test_slice_runs_with_banned_modules_blocked(tmp_path):
         from defensive_model_vae_tpu_torch.pipeline import (
             fixture_starts, generate_and_track_from_starts,
             generate_and_track_multi_from_starts)
-        from defensive_model_vae_tpu_torch.train import load_checkpoint, train, TrainConfig
+        from defensive_model_vae_tpu_torch.train import (
+            load_checkpoint, train, train_conditioned, train_multi_scenario, TrainConfig)
+        from defensive_model_vae_tpu_torch.ops import cache_decoy, fused_train_scale
+        from defensive_model_vae_tpu_torch.scripts import cache_probe
         import chip_smoke
         w = np.load(scenarios.get("sce2").fixture_windows)
         p, h = fused_train(w, epochs=3, device="cpu")
+        pa, ha = fused_train(w, epochs=2, backward="auto", device="cpu")
         p2, h2 = train(w, train_cfg=TrainConfig(epochs=2), device="cpu")
+        p3, h3 = train(w, train_cfg=TrainConfig(epochs=2, compute_dtype="bfloat16"),
+                       device="cpu")
+        pc, hc, cc = train_conditioned(w, np.ones((len(w), 1), np.float32),
+                                       TrainConfig(epochs=2), device="cpu")
+        pms, hms = train_multi_scenario(dict(a=w, b=w[:3]), TrainConfig(epochs=2),
+                                        device="cpu")
+        pcs, hcs = fused_train_scale(w, epochs=2, tile=16, mixed_style="bf16_chain",
+                                     noise="prng", device="cpu")
+        assert len(cache_probe.objects()) == 3 and cc.cond_dim == 3
+        import torch
+        x = torch.ones(cache_decoy.SHAPE)
+        assert torch.equal(cache_decoy.decoy(x), x * 3.0)
         pm, hm = fused_train_multi(dict(a=w, b=w[:3]), epochs=2, device="cpu")
         ps, hs = fused_train_seeds(w, [0, 1], epochs=2, device="cpu")
         assert sorted(pm) == ["a", "b"] and sorted(ps) == [0, 1]
