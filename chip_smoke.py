@@ -12,7 +12,10 @@ traceback and a non-zero exit:
                    beside the cache probe's rounds A and A2, P3 (built,
                    launched, held against x * 2 + 1 bit for bit) and round
                    B (``scripts/cache_probe.py``);
-3. ``cache_probe`` the probe's verdicts for each object; P3 timed;
+3. ``cache_probe`` the probe's verdicts for each object; P3 timed in
+                   turns with ``torch.add`` through its wrapper and on the
+                   device alone (calls replayed from a CUDA graph, every
+                   output bit for bit x * 2 + 1); the host split of a call;
 4. ``k1_vs_plain`` kernel K1 against its plain torch version on the card
                    (explicit ε, sce2 B=16 and sce4 B=134, 1 and 50 epochs);
 5. ``train``       the main path: ``fused_train`` on sce4 at full width
@@ -57,13 +60,18 @@ traceback and a non-zero exit:
                    bit their earlier build (``scripts/k3_digest.py``), P1's
                    stream, sol, fwd and dx kernels, sol's and dx's limit
                    held below plain versions with one deliberate error; P2
-                   at the full 200 × 131,072 × 8 bf16 stream;
+                   at the full 200 × 131,072 × 8 bf16 stream, four calls
+                   (the second on the stream negated) bit for bit alike,
+                   its limit held below plain versions that drop a batch
+                   or a block;
 15. ``ablation``   the ported ``scripts/scale_ablation.py`` at the bench
                    width (131,072 windows, tile 2048, bf16), 20 epochs, 1
                    warm + 2 timed reps of every variant, its breakdown line;
                    the ported P2 probe's two variants at full shape; every
                    ablation kernel launched (the CUDA launches as the C
-                   entries count them); P1 held against its plain versions
+                   entries count them; P2 one a call); P2 timed in turns
+                   with ``torch.sum`` through its wrapper and on the device
+                   alone; P1 held against its plain versions
                    there, as in phase 14, and timed; K3 under dwT held
                    against its plain version over the first 2 epochs;
 16. ``train_auto`` K1's autodiff instance on its main path:
@@ -93,7 +101,9 @@ traceback and a non-zero exit:
                    extra condition column, 300 epochs each, every final
                    loss within its band of the float32 run's;
 20. ``kernels``    one line listing every ported kernel with its launches on
-                   its main path, its error, times and bound.
+                   its main path, its error, times and bound (P2 and P3 also
+                   their device times, their library call's both ways, and
+                   the spread of each).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
 without the port beside this file, it exits non-zero and prints no result.
@@ -208,7 +218,7 @@ PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
 
 # the K3 ablation (phases 13 and 14).  P1 and P2 against their plain
 # versions: each sum within a fraction of the sum of the absolute values of
-# its terms — float32 sums in another order (stream, P2: 1e-5); fwd's loss
+# its terms — float32 sums in another order (stream: 1e-5); fwd's loss
 # components rtol 1e-5, as K3's one-epoch rows.  sol's and dx's sums pass
 # through chains of products whose float32 sums, taken in another order,
 # can round an intermediate to the neighbouring bf16 value; their limit
@@ -218,8 +228,16 @@ PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
 ABL_N, ABL_TILE = 8448, 352
 ABL_EPOCHS, ABL_REPS, ABL_PLAIN_EPOCHS = 20, 3, 2
 P1_TOL = {"stream": 1e-5, "sol": 1e-6, "dx": 1e-6, "fwd_rel": 1e-5}
-P2_TOL = 1e-5
+# P2 at the full stream (P2_EPOCHS x 131,072 x 8, N(0, 1) in bf16): the
+# kernel and its plain version are float32 sums of the same 2.1e8 terms in
+# two orders, ~1 ulp of the total apart (0.002 at |total| ~ 2.5e4); a
+# block of P2_BATCH elements is ~±90, a block's share of the stream ~±450.
+# 1e-8 of Σ|terms| (~1.7) lies between: it passes the sound sum with ~850x
+# to spare and fails plain versions that drop a batch or a block
+# (p2_wrong_sums).
+P2_TOL = 1e-8
 P2_EPOCHS = 200
+P2_BATCH = 8192  # the elements p2_kernel's block takes a step: 256 threads x 4 x 16 bytes
 
 # the autodiff tier (auto_vs_plain).  K4-auto on a one-tile corpus of
 # eleven 32-row steps: every rounded gradient an exact bf16 value; the
@@ -276,7 +294,22 @@ AUTO_PROBE_EPOCHS, AUTO_DP_EPOCHS = 1, 20
 SCAN_EPOCHS, SCAN_BF16_BAND = 300, 2.0
 # the cache probe: each round's nvccs, and the phase that waits for them
 CACHE_PROBE_ROUND_S = 85.0
-P3_TIMING_REPS = 2000
+# P3 and P2 timed beside their one-call library yardsticks, each in blocks
+# taken in turns (kernel, library, library, kernel) TURN_ROUNDS times, so
+# each has 2 x TURN_ROUNDS blocks: the median and the spread (min, max).
+# Through the wrapper: P3 P3_TIMING_REPS calls a block after as many warm
+# ones; P2 P2_WRAPPER_CALLS calls a block.  On the device alone: P3
+# P3_GRAPH_CALLS calls captured in one CUDA graph and replayed; P2
+# P2_DEVICE_LAUNCHES launches between one pair of events, queued behind a
+# spin kernel so the window holds no host work (the 419 MB stream is over
+# 8x the 50 MB L2, so no launch finds it cached).  P3's host split: each
+# part of a call alone, P3_TIMING_REPS calls a block, host clock.  Ten
+# rounds (20 blocks a side, ~2 s in all): with six, P3's median against
+# torch.add's moved by ±5% between runs, as the host's clock swings.
+TURN_ROUNDS = 10
+P3_TIMING_REPS, P3_GRAPH_CALLS = 2000, 1000
+P2_WRAPPER_CALLS, P2_DEVICE_LAUNCHES = 3, 20
+SPIN_CYCLES = 4_000_000  # ~2 ms at the H100's clock: longer than the queueing
 
 
 def bf16_ulps(got, ref):
@@ -493,6 +526,27 @@ def p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, nv, w_in, w_ch, n_chain)
     return out
 
 
+def p2_wrong_sums(eps, grid, total):
+    """P2's total from its plain version (``total``) with one deliberate
+    error each, as a loop that stops a step early or a finish that misses a
+    block's partial would give it: {what is wrong: the sum}, and each
+    block's share of the stream in float64.  The layout is p2_kernel's for
+    a 16-byte aligned stream: batch j of P2_BATCH elements goes to block
+    j mod blocks."""
+    import torch
+    import torch.nn.functional as F
+
+    flat = eps.reshape(-1).double()
+    nb = -(-flat.numel() // P2_BATCH)
+    batch = F.pad(flat, (0, nb * P2_BATCH - flat.numel())).view(nb, P2_BATCH).sum(1)
+    blocks = min(nb, grid)
+    shares = torch.zeros(blocks, dtype=torch.float64, device=eps.device).index_add_(
+        0, torch.arange(nb, device=eps.device) % blocks, batch)
+    median = int(shares.abs().argsort()[blocks // 2])
+    return {"last_batch_dropped": total - float(batch[-1]),
+            "median_block_dropped": total - float(shares[median])}, shares
+
+
 def p1_sum_row(mode, kernel, plain, terms, wrong):
     """P1's compared sum (column 0, dx's column 5): kernel and plain beside
     its limit, and the wrong versions' gaps → (row, within the limit, every
@@ -544,6 +598,49 @@ def cuda_ms(fn, reps=1):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2], out
+
+
+def device_ms(fn, count):
+    """Milliseconds of each of ``count`` launches that ``fn()`` queues, on
+    the device alone: the events' window opens behind a spin kernel, so the
+    host has queued every launch before the device reaches it."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def in_turns(kernel, library, rounds=TURN_ROUNDS):
+    """Blocks of two timers (each returns ms) in turns, kernel, library,
+    library, kernel, ``rounds`` times → ({"kernel": median, "library":
+    median}, {"kernel": [min, max], "library": [min, max]})."""
+    times = {"kernel": [], "library": []}
+    for _ in range(rounds):
+        for name in ("kernel", "library", "library", "kernel"):
+            times[name].append((kernel if name == "kernel" else library)())
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return med, {k: [min(v), max(v)] for k, v in times.items()}
+
+
+def host_us(fn, reps=P3_TIMING_REPS, blocks=5):
+    """Median microseconds of one ``fn()`` over ``blocks`` blocks of
+    ``reps`` calls, by the host clock (no device wait inside a block)."""
+    import torch
+
+    times = []
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append(1e6 * (time.perf_counter() - t0) / reps)
+        torch.cuda.synchronize()
+    return sorted(times)[len(times) // 2]
 
 
 def k3_gaps(kernel, plain, tol):
@@ -816,20 +913,90 @@ def main() -> int:
             fail("the cache probe printed no verdict for some object")
         xp = torch.randn(cdy.SHAPE, generator=torch.Generator().manual_seed(1)).to(dev)
         ones = torch.ones_like(xp)
-        # each a mean over P3_TIMING_REPS calls after as many warm ones: one
-        # call is host-bound (the launch), so this is the rate a caller sees
-        for warm in (lambda: cdy.decoy(xp), lambda: cdy._decoy_plain(xp),
-                     lambda: torch.add(ones, xp, alpha=2.0)):
-            cuda_ms(lambda: [warm() for _ in range(P3_TIMING_REPS)])
-        p3_ms = cuda_ms(lambda: [cdy.decoy(xp) for _ in range(P3_TIMING_REPS)])[0] / P3_TIMING_REPS
-        p3_plain_ms = cuda_ms(lambda: [cdy._decoy_plain(xp) for _ in range(P3_TIMING_REPS)])[0] \
-            / P3_TIMING_REPS
-        p3_lib_ms = cuda_ms(lambda: [torch.add(ones, xp, alpha=2.0)
-                                     for _ in range(P3_TIMING_REPS)])[0] / P3_TIMING_REPS
+        want = cdy._decoy_plain(xp.cpu())
+
+        def p3_call():
+            return cdy.decoy(xp)
+
+        def lib_call():
+            return torch.add(ones, xp, alpha=2.0)
+
+        def per_call(fn):
+            return cuda_ms(lambda: [fn() for _ in range(P3_TIMING_REPS)])[0] / P3_TIMING_REPS
+
+        # through the wrapper: what a caller sees, host work and launch
+        for warm in (p3_call, lib_call, lambda: cdy._decoy_plain(xp)):
+            per_call(warm)
+        p3_med, p3_spread = in_turns(lambda: per_call(p3_call), lambda: per_call(lib_call))
+        p3_plain_ms = per_call(lambda: cdy._decoy_plain(xp))
+        # on the device alone: P3_GRAPH_CALLS calls captured in one graph
+        # each; P3's capture fails unless it launches on torch's current
+        # stream (the capture stream), and every replayed output is checked
+        graphs, outs = {}, {}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        for name, fn in (("kernel", p3_call), ("library", lib_call)):
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graphs[name] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[name]):
+                outs[name] = [fn() for _ in range(P3_GRAPH_CALLS)]
+        p3_dev_med, p3_dev_spread = in_turns(
+            lambda: device_ms(graphs["kernel"].replay, P3_GRAPH_CALLS),
+            lambda: device_ms(graphs["library"].replay, P3_GRAPH_CALLS))
+        want_dev = want.to(dev)
+        p3_graph_exact = all(torch.equal(o, want_dev) for o in outs["kernel"])
+        if not p3_graph_exact:
+            fail("P3 replayed from a CUDA graph is not x * 2 + 1 bit for bit")
+        del graphs, outs
+        # the host split of one call: each part alone, host clock
+        out = torch.empty_like(xp)
+        idx, n, optr, xptr = dev.index or 0, xp.numel(), out.data_ptr(), xp.data_ptr()
+        raw = cdy._raw_stream(idx)
+        p3_ctypes = _build.load("cache_decoy").p3_decoy  # the same launch through ctypes
+        f32 = torch.float32
+        p3_split_us = {
+            "loop": host_us(lambda: None),
+            "checks": host_us(lambda: xp.dtype is not f32 or not xp.is_cuda
+                              or not xp.is_contiguous()),
+            "alloc": host_us(lambda: torch.empty_like(xp)),
+            "args": host_us(lambda: (xp.data_ptr(), out.data_ptr(), xp.numel(),
+                                     xp.get_device())),
+            "stream_raw": host_us(lambda: cdy._raw_stream(idx)),
+            "stream_current_dev": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "stream_current": host_us(lambda: torch.cuda.current_stream().cuda_stream),
+            "launch": host_us(lambda: cdy._launch(xptr, optr, n, raw)),
+            "ctypes_launch": host_us(lambda: p3_ctypes(xptr, optr, n, raw)),
+            "call": host_us(p3_call),
+            "library_call": host_us(lib_call),
+        }
+
+        def ctypes_call():  # the wrapper as it is, its launch through ctypes
+            if xp.dtype is not f32 or not xp.is_cuda or not xp.is_contiguous():
+                raise ValueError("unreachable")
+            o = torch.empty_like(xp)
+            p3_ctypes(xp.data_ptr(), o.data_ptr(), xp.numel(), cdy._raw_stream(xp.get_device()))
+            return o
+
+        # the whole call through ctypes in turns with torch.add (host clock)
+        med, spread = in_turns(lambda: host_us(ctypes_call, blocks=1),
+                               lambda: host_us(lib_call, blocks=1))
+        p3_split_us["ctypes_call_in_turns"] = {"ctypes_call": med["kernel"],
+                                               "library_call": med["library"],
+                                               "spread": {"ctypes_call": spread["kernel"],
+                                                          "library_call": spread["library"]}}
+        p3_ms, p3_lib_ms = p3_med["kernel"], p3_med["library"]
+        p3_timing = {"ms": p3_ms, "device_ms": p3_dev_med["kernel"], "library_ms": p3_lib_ms,
+                     "library_device_ms": p3_dev_med["library"],
+                     "spread": {"ms": p3_spread["kernel"], "device_ms": p3_dev_spread["kernel"],
+                                "library_ms": p3_spread["library"],
+                                "library_device_ms": p3_dev_spread["library"]},
+                     "host_split_us": p3_split_us}
         info.update(p3_launches=p3_launches, p3_exact=p3_check["exact"],
+                    p3_graph_exact=p3_graph_exact,
                     round_s=cp["round_s"], probe_s=cp["seconds"], all_stable=cp["all_stable"],
-                    nvcc=cp["nvcc"], p3_ms=p3_ms, p3_plain_ms=p3_plain_ms,
-                    p3_library_ms=p3_lib_ms, card=card)
+                    nvcc=cp["nvcc"], p3=p3_timing, p3_plain_ms=p3_plain_ms, card=card)
 
     # ---- 4. K1 against its plain version ----------------------------------
     k1_err = {}
@@ -1347,20 +1514,43 @@ def main() -> int:
                 fail(f"P1-{mode} disagrees with its plain version: {row}")
             if not caught:
                 fail(f"P1-{mode}'s limit passes a wrong plain version: {row}")
-        # P2 at the full stream
+        # P2 at the full stream, four calls on one workspace: the second on
+        # the stream negated, whose sum is the first's negated bit for bit
+        # (every rounding is symmetric), so each call must write its row
+        # from its own partials; the third and fourth must give the first's
+        # bits (the last block reset the ticket)
         eps2 = fs.hbm_noise(5, P2_EPOCHS, SCALE_N, cfg.latent_dim, "bfloat16", dev)
-        k, p = sa.p2_stream_sum(eps2, SCALE_TILE), sa._p2_plain(eps2, SCALE_TILE)
+        k = sa.p2_stream_sum(eps2, SCALE_TILE)
+        neg = -eps2
+        k_neg = sa.p2_stream_sum(neg, SCALE_TILE)
+        del neg
+        again = [sa.p2_stream_sum(eps2, SCALE_TILE) for _ in range(2)]
+        p = sa._p2_plain(eps2, SCALE_TILE)
         scale = float(eps2.float().abs().sum())
-        gap = float((k - p).abs().max())
-        row = {"kernel": "P2", "rows": eps2.shape[0], "bytes": eps2.numel() * 2, "sum_gap": gap,
-               "abs_terms": scale, "tol": P2_TOL * scale, "tol_frac": P2_TOL,
-               "lanes_equal": bool(torch.all(k == k[0, 0]))}
+        gap, tol = float((k - p).abs().max()), P2_TOL * scale
+        grid = sa._P2_WS[(eps2.device.index, sa._stream(eps2.device))][2]
+        wrong, shares = p2_wrong_sums(eps2, grid, float(p[0, 0]))
+        wrong_gaps = {w: abs(v - float(p[0, 0])) for w, v in wrong.items()}
+        row = {"kernel": "P2", "rows": eps2.shape[0], "bytes": eps2.numel() * 2,
+               "kernel_sum": float(k[0, 0]), "plain_sum": float(p[0, 0]), "sum_gap": gap,
+               "abs_terms": scale, "tol": tol, "tol_frac": P2_TOL,
+               "lanes_equal": bool(torch.all(k == k[0, 0])),
+               "negated_bits_equal": bool(torch.equal(k_neg, -k)),
+               "repeat_bits_equal": all(bool(torch.equal(a, k)) for a in again),
+               "wrong_gaps": wrong_gaps,
+               "wrong_gaps_frac": {w: v / scale for w, v in wrong_gaps.items()},
+               # how many blocks' partials the limit would miss, were each left out
+               "blocks": len(shares),
+               "blocks_within_tol": int((shares.abs() <= tol).sum())}
         rows.append(row)
         emit({"ablation_vs_plain": row})
-        if not (gap <= P2_TOL * scale and row["lanes_equal"]):
-            fail(f"P2 disagrees with its plain version: {row}")
+        if not (gap <= tol and row["lanes_equal"] and row["negated_bits_equal"]
+                and row["repeat_bits_equal"]):
+            fail(f"P2 disagrees with its plain version or with itself: {row}")
+        if not all(v > tol for v in wrong_gaps.values()):
+            fail(f"P2's limit passes a wrong plain version: {row}")
         abl_err["p2"] = gap
-        del eps2
+        del eps2, shares
         info["cases"] = len(rows)
 
     # ---- 15. ablation: the ported K3 ablation at the bench width -----------
@@ -1390,6 +1580,9 @@ def main() -> int:
         idle = sorted(k for k, c in {**abl_launches, **abl_cuda}.items() if c == 0)
         if idle:
             fail(f"the ablation's main path launched none of {idle}")
+        if abl_cuda["p2"] != abl_launches["p2_stream_sum"]:
+            fail(f"P2 issued {abl_cuda['p2']} CUDA launches for "
+                 f"{abl_launches['p2_stream_sum']} calls (one a call)")
         for v, m in last.items():
             if not np.all(np.isfinite(m)):
                 fail(f"ablation variant {v}: non-finite metrics")
@@ -1453,10 +1646,32 @@ def main() -> int:
             lambda: [torch.sum(packed, dtype=torch.float32) for _ in range(ABL_EPOCHS)])[0]
         del packed
         eps2 = fs.hbm_noise(6, P2_EPOCHS, SCALE_N, cfg.latent_dim, "bfloat16", dev)
-        p2_ms, _ = cuda_ms(lambda: sa.p2_stream_sum(eps2, SCALE_TILE), 3)
+
+        def p2_wrapper(fn):
+            return cuda_ms(lambda: [fn() for _ in range(P2_WRAPPER_CALLS)])[0] / P2_WRAPPER_CALLS
+
+        def p2_device(fn):
+            return device_ms(lambda: [fn() for _ in range(P2_DEVICE_LAUNCHES)],
+                             P2_DEVICE_LAUNCHES)
+
+        def p2_call():
+            return sa.p2_stream_sum(eps2, SCALE_TILE)
+
+        def p2_lib():
+            return torch.sum(eps2, dtype=torch.float32)
+
+        p2_wrapper(p2_call), p2_wrapper(p2_lib)  # warm
+        p2_med, p2_spread = in_turns(lambda: p2_wrapper(p2_call), lambda: p2_wrapper(p2_lib))
+        p2_dev_med, p2_dev_spread = in_turns(lambda: p2_device(p2_call),
+                                             lambda: p2_device(p2_lib))
         p2_plain_ms, _ = cuda_ms(lambda: sa._p2_plain(eps2, SCALE_TILE), 3)
-        p2_lib_ms, _ = cuda_ms(lambda: torch.sum(eps2, dtype=torch.float32), 3)
         del eps2
+        p2_ms, p2_lib_ms = p2_med["kernel"], p2_med["library"]
+        p2_timing = {"ms": p2_ms, "device_ms": p2_dev_med["kernel"], "library_ms": p2_lib_ms,
+                     "library_device_ms": p2_dev_med["library"],
+                     "spread": {"ms": p2_spread["kernel"], "device_ms": p2_dev_spread["kernel"],
+                                "library_ms": p2_spread["library"],
+                                "library_device_ms": p2_dev_spread["library"]}}
         # K3 under dwT at the bench width against its plain version over the
         # first E epochs, the plain version timed and scaled to ABL_EPOCHS
         nv_h, packed_h = fs._scale_inputs(ws, cfg, SCALE_TILE, "bfloat16", None, dev)
@@ -1478,8 +1693,7 @@ def main() -> int:
         dwt_ms = 1e3 * out["variants"]["hbm_dwT"]["best_s"]
         info.update(n=SCALE_N, epochs=ABL_EPOCHS, tile=SCALE_TILE, reps=ABL_REPS,
                     main_path_s=abl_wall, launches=abl_launches, cuda_launches=abl_cuda,
-                    p1=p1_res, p2_ms=p2_ms,
-                    p2_plain_ms=p2_plain_ms, p2_library_ms=p2_lib_ms,
+                    p1=p1_res, p2=p2_timing, p2_plain_ms=p2_plain_ms,
                     dwt_plain_ms=dwt_plain_ms, dwt_vs_plain=dwt_bench, card=card)
 
     # ---- 16. train_auto: K1's autodiff instance on the main path ---------
@@ -1879,7 +2093,9 @@ def main() -> int:
              {"epochs": ABL_EPOCHS, "max_abs_err_epochs": ABL_PLAIN_EPOCHS}),
             ("p3", "cache_decoy.cu", "scripts/cache_probe.py:102", p3_launches,
              p3_check["max_abs_err"], p3_ms, p3_plain_ms, (p3_flops, p3_bytes, FP32_FLOPS),
-             {"library_call": "torch.add(ones, x, alpha=2.0)", "bytes": p3_bytes})):
+             {"library_call": "torch.add(ones, x, alpha=2.0)", "bytes": p3_bytes,
+              **{k: p3_timing[k] for k in ("device_ms", "library_device_ms", "spread",
+                                           "host_split_us")}})):
         b_ms, b_by = bound(fl, nb, peak)
         replaces = (f"defensive_model_vae_tpu/{line}" if line.startswith("ops/") else line)
         auto_rows.append({
@@ -1990,6 +2206,11 @@ def main() -> int:
         "bound_ms": p2_bound,
         "bound_by": p2_by,
         "library_ms": p2_lib_ms,
+        "library_call": "torch.sum(eps, dtype=torch.float32)",
+        "device_ms": p2_timing["device_ms"],
+        "library_device_ms": p2_timing["library_device_ms"],
+        "bound_share": p2_bound / p2_timing["device_ms"],
+        "spread": p2_timing["spread"],
         "bytes": p2_bytes,
         "card": card,
     }] + auto_rows})

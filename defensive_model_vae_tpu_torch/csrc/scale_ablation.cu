@@ -5,11 +5,11 @@
 // (:182, pallas_call :236), _make_sol_kernel (:148, :240) and
 // _make_ablation_kernel (:94, :248, modes fwd and dx), and the probe
 // scripts/noise_consumer_probe.py::_stream_kernel (:78, gen_stream :94,
-// pallas_call :100).  Each runs the grid (epochs x corpus) the way K3 does
-// on this card (fused_scale.cu): per epoch a kernel whose blocks each take
-// a chunk of the rows and write a partial row, then a one-block kernel that
-// sums the partial rows in chunk order into the epoch's metrics row, so
-// every result is the same from run to run (no atomics).
+// pallas_call :100).  P1's kernels run the grid (epochs x corpus) the way
+// K3 does on this card (fused_scale.cu): per epoch a kernel whose blocks
+// each take a chunk of the rows and write a partial row, then a one-block
+// kernel that sums the partial rows in chunk order into the epoch's
+// metrics row, so every result is the same from run to run (no atomics).
 //
 //   p1_stream    per epoch the float32 sum of the whole packed bf16 block
 //                into metrics[e, 0]: each block sums a range of the flat
@@ -41,8 +41,26 @@
 //                Only the chain that reaches x runs: the cond chain and
 //                dec_0's hc columns are dead.
 //   p2_stream_sum  the (rows, 8) bf16 eps stream summed into one (1, 8)
-//                row holding the total in all eight lanes: one launch of
-//                the same block sum as p1_stream, then the ordered sum.
+//                row holding the total in all eight lanes, in ONE launch
+//                of its own kernel (p2_kernel below; p1_stream's are left
+//                as they are).  Bound: the stream read once, 419 MB at
+//                the probe's 200 x 131,072 x 8 (0.125 ms at 3.35 TB/s);
+//                the 50 MB L2 holds an eighth of it, so every byte comes
+//                from HBM.  By Little's law the card needs ~2.3 MB in
+//                flight (3.35 TB/s x ~0.7 us), ~18 KB an SM: each thread
+//                issues P2_U = 4 independent 16-byte read-only streaming
+//                loads before it adds any (a resident grid of 256-thread
+//                blocks keeps >100 KB an SM in flight), each into its own
+//                float accumulator; warps reduce by shuffles and the block
+//                across its warps in one shared-memory step.  The grid is
+//                the card's SMs x the blocks an SM holds (p2_grid, from
+//                the kernel's registers), and the finish is the last block
+//                to arrive: each block writes its partial, fences and
+//                takes a ticket; the block that draws the last ticket sums
+//                the partials in a fixed order, writes the row and resets
+//                the ticket to 0.  No float is added atomically, so every
+//                call gives the same bits; no fill kernel, as every lane
+//                of the row is written.
 //
 // Interface: plain C, built by nvcc into a shared library and called
 // through ctypes (ops/_build.py).  The caller allocates everything.  Each
@@ -221,6 +239,104 @@ abl_kernel(const bf16* __restrict__ packed, int width, long long n_pad, float S,
   }
 }
 
+// ---- P2 ---------------------------------------------------------------------
+
+constexpr int P2_NT = 256;  // threads of a block
+constexpr int P2_U = 4;     // 16-byte loads a thread has in flight before it adds
+
+// a read-only streaming load: not kept in L1, as no byte is read twice
+__device__ __forceinline__ uint4 ld_stream(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// the float32 sum of the eight bf16 values of q (two a word, low half
+// first), pairwise
+__device__ __forceinline__ float sum8(const uint4 q) {
+  const unsigned w[4] = {q.x, q.y, q.z, q.w};
+  float s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    s[k] = __uint_as_float(w[k] << 16) + __uint_as_float(w[k] & 0xFFFF0000u);
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// the sum of v over the block's threads, in a fixed order (a shuffle tree
+// in each warp, then warp 0 over the warps' sums); the result in thread 0
+__device__ __forceinline__ float p2_block_sum(float v, float* wsum) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) wsum[warp] = v;
+  __syncthreads();
+  v = 0.f;
+  if (warp == 0) {
+    v = lane < P2_NT / 32 ? wsum[lane] : 0.f;
+#pragma unroll
+    for (int o = P2_NT / 64; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// P2: the float32 sum of p[0, n) into out[0..7].  The 16-byte vectors from
+// p's first 16-byte boundary go in batches of P2_U a thread (batch j of
+// block b: vectors (j * gridDim.x + b) * P2_NT * P2_U + u * P2_NT + t); the
+// head before that boundary and the tail after the last vector (each under
+// 8 elements) one element a thread of block 0.  partial holds gridDim.x
+// floats; *ticket is 0 at the launch and again when it ends.
+__global__ void __launch_bounds__(P2_NT)
+p2_kernel(const bf16* __restrict__ p, long long n, float* __restrict__ partial,
+          unsigned* __restrict__ ticket, float* __restrict__ out) {
+  __shared__ float wsum[P2_NT / 32];
+  __shared__ bool last;
+  __shared__ float total;
+  long long head = (long long)((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 2;
+  if (head > n) head = n;
+  const long long nvec = (n - head) / 8;
+  const uint4* v = reinterpret_cast<const uint4*>(p + head);
+  float acc[P2_U];
+#pragma unroll
+  for (int u = 0; u < P2_U; ++u) acc[u] = 0.f;
+  const long long step = (long long)gridDim.x * P2_NT * P2_U;
+  long long i = (long long)blockIdx.x * P2_NT * P2_U + threadIdx.x;
+  for (; i + (P2_U - 1) * P2_NT < nvec; i += step) {
+    uint4 q[P2_U];
+#pragma unroll
+    for (int u = 0; u < P2_U; ++u) q[u] = ld_stream(v + i + u * P2_NT);
+#pragma unroll
+    for (int u = 0; u < P2_U; ++u) acc[u] += sum8(q[u]);
+  }
+#pragma unroll
+  for (int u = 0; u < P2_U; ++u)  // the thread's last batch, if partial
+    if (i + u * P2_NT < nvec) acc[u] += sum8(ld_stream(v + i + u * P2_NT));
+  if (blockIdx.x == 0) {
+    const long long tail = head + nvec * 8;
+    if (threadIdx.x < head) acc[0] += __bfloat162float(p[threadIdx.x]);
+    if (threadIdx.x < n - tail) acc[0] += __bfloat162float(p[tail + threadIdx.x]);
+  }
+  const float s = p2_block_sum((acc[0] + acc[1]) + (acc[2] + acc[3]), wsum);
+  if (threadIdx.x == 0) {
+    partial[blockIdx.x] = s;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: every other partial is written; sum them in a fixed
+  // order (thread t takes t, t + P2_NT, ..., then the block's tree)
+  __threadfence();
+  float t = 0.f;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += P2_NT) t += __ldcg(partial + b);
+  t = p2_block_sum(t, wsum);
+  if (threadIdx.x == 0) total = t;
+  __syncthreads();
+  if (threadIdx.x < 8) out[threadIdx.x] = total;
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
 template <typename K>
 int set_smem(K kernel) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -333,17 +449,28 @@ int p1_ablation(const void* packed, int width, long long n_pad, float n_valid, i
   return 0;
 }
 
+// P2's grid on a card of `sms` SMs: the blocks of p2_kernel resident at
+// once (its registers decide how many an SM holds)
+int p2_grid(int sms) {
+  int per = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, p2_kernel, P2_NT, 0) != cudaSuccess ||
+      per < 1)
+    per = 1;
+  return sms * per;
+}
+
 // P2: the float32 sum of the n_elems bf16 values of the eps stream into
-// out[0..7], each lane the total.  partial holds sa_sum_blocks floats.
-int p2_stream_sum(const void* eps, long long n_elems, float* partial, int sms, float* out,
-                  void* stream) {
-  if (n_elems <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  long long per;
-  const int blocks = (int)sum_layout(n_elems, sms, &per);
-  sum_kernel<<<blocks, NT, 0, st>>>((const bf16*)eps, n_elems, per, partial);
-  ++g_launches[L_P2];
-  rows_kernel<<<1, NT, 0, st>>>(partial, blocks, 1, 1, 1.f, LossW{}, out);
+// out[0..7], each lane the total, in one launch.  partial holds `grid`
+// floats (p2_grid) and *ticket is 0; both are the stream's own, as two
+// calls running at once on two streams must not share them.  A stream of
+// fewer than grid full batches takes fewer blocks.
+int p2_stream_sum(const void* eps, long long n_elems, float* partial, unsigned* ticket,
+                  int grid, float* out, void* stream) {
+  if (n_elems <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
+  const long long batches = (n_elems / 8 + P2_NT * P2_U - 1) / (P2_NT * P2_U);
+  const int blocks = batches < 1 ? 1 : batches < grid ? (int)batches : grid;
+  p2_kernel<<<blocks, P2_NT, 0, (cudaStream_t)stream>>>((const bf16*)eps, n_elems, partial,
+                                                        ticket, out);
   ++g_launches[L_P2];
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,10 @@ by a SHA-256 of its sources, the headers under ``csrc/``, the flags and
 rebuilt and an unchanged one is loaded as it is.  The key is a digest of
 file contents, so it is the same in every process (no hash seed enters it).
 Nothing is built at import time: :func:`load` builds at a kernel's first
-launch, and :func:`build_all` builds every kernel at once.
+launch, and :func:`build_all` builds every kernel at once.  One object is
+a CPython module rather than plain C: P3's launch
+(``csrc/cache_decoy_py.cpp``, :func:`load_module`), where the host work of
+a ctypes call is a share of the kernel's time.
 """
 
 from __future__ import annotations
@@ -19,16 +22,22 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 import time
 from typing import Dict
 
 PKG_ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "build"
+
+# Python's headers, for the one object that is a CPython module
+PY_INCLUDE = sysconfig.get_paths()["include"]
+PY_HEADERS = "-I" + PY_INCLUDE
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -135,15 +144,20 @@ KERNELS: Dict[str, tuple] = {
             _P, _P,                            # metrics, stream
         ]),
         "p2_stream_sum": (ctypes.c_int, [
-            _P, ctypes.c_longlong, _P, ctypes.c_int,  # eps, elements, partials, SMs
+            _P, ctypes.c_longlong,             # eps, elements
+            _P, _P, ctypes.c_int,              # partials, ticket, grid
             _P, _P,                            # (1, 8) out, stream
         ]),
+        "p2_grid": (ctypes.c_int, [ctypes.c_int]),
         "sa_param_floats": (ctypes.c_longlong, []),
         "sa_cuda_launches": (ctypes.c_longlong, [ctypes.c_int]),
         "sa_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
         "sa_sum_blocks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
     }),
-    "cache_decoy": ((("cache_decoy.cu", ()),), {
+    # P3, and its launch as a CPython function (load_module): that object
+    # alone takes Python's headers, whose directory its flags name
+    "cache_decoy": ((("cache_decoy.cu", ()),
+                     ("cache_decoy_py.cpp", (PY_HEADERS,))), {
         "p3_decoy": (ctypes.c_int, [_P, _P, ctypes.c_longlong, _P]),  # x, out, n, stream
     }),
 }
@@ -182,6 +196,10 @@ def _start_build(name: str):
     out = _lib_path(name)
     if out.exists():
         return None
+    for src, defines in KERNELS[name][0]:
+        if PY_HEADERS in defines and not os.path.exists(os.path.join(PY_INCLUDE, "Python.h")):
+            raise RuntimeError(f"{src} of {name} includes Python.h, which is not in "
+                               f"{PY_INCLUDE}: install Python's development headers")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for i, (src, defines) in enumerate(KERNELS[name][0]):
@@ -236,6 +254,16 @@ def build_all(timeout: float = 300.0) -> Dict[str, dict]:
         out[n] = {"seconds": time.perf_counter() - t0, "log": log,
                   "cached": s is None}
     return out
+
+
+def load_module(name: str, module: str):
+    """The CPython module ``module`` that kernel ``name``'s library also
+    holds, built first if needed."""
+    load(name)
+    spec = importlib.util.spec_from_file_location(module, _lib_path(name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -76,7 +76,10 @@ def _sms(dev) -> int:
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    # the handle of PyTorch's current stream on a tensor's device: what
+    # torch.cuda.current_stream(dev).cuda_stream reads, without building a
+    # Stream object (ops/cache_decoy.py takes the same route)
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def _lib():
@@ -261,19 +264,34 @@ def _p2_plain(eps, tile):
     return total.reshape(1, 1).expand(1, 8).contiguous()
 
 
+# P2's workspace, by (device index, stream handle): its block partials, its
+# ticket (zeroed once, here, on that stream; the kernel's last block resets
+# it) and its grid.  One per stream, so calls on two streams never share it.
+_P2_WS: dict = {}
+
+
+def _p2_workspace(lib, dev, stream):
+    grid = int(lib.p2_grid(_sms(dev)))
+    ws = (torch.empty(grid, dtype=torch.float32, device=dev),
+          torch.zeros(1, dtype=torch.int32, device=dev), grid)
+    _P2_WS[(dev.index, stream)] = ws
+    return ws
+
+
 def p2_stream_sum(eps: torch.Tensor, tile: int = 2048) -> torch.Tensor:
     """The (rows, Z) bf16 ε stream summed into a (1, 8) row, the total in
-    every lane (JAX ``noise_consumer_probe._stream_kernel``)."""
+    every lane (JAX ``noise_consumer_probe._stream_kernel``), in one launch."""
     _check_packed(eps, "P2")
     _check_tile(eps.shape[0], tile, "P2")
-    if _device_of(eps, "P2").type == "cpu":
+    dev = _device_of(eps, "P2")
+    if dev.type == "cpu":
         return _p2_plain(eps, tile)
-    lib, dev = _lib(), eps.device
-    partial = torch.empty(int(lib.sa_sum_blocks(eps.numel(), _sms(dev))),
-                          dtype=torch.float32, device=dev)
-    out = torch.zeros((1, 8), dtype=torch.float32, device=dev)
-    _check(lib.p2_stream_sum(eps.data_ptr(), eps.numel(), partial.data_ptr(), _sms(dev),
-                             out.data_ptr(), _stream(dev)), "P2")
+    lib = _lib()
+    stream = _stream(dev)
+    partial, ticket, grid = _P2_WS.get((dev.index, stream)) or _p2_workspace(lib, dev, stream)
+    out = torch.empty((1, 8), dtype=torch.float32, device=dev)
+    _check(lib.p2_stream_sum(eps.data_ptr(), eps.numel(), partial.data_ptr(), ticket.data_ptr(),
+                             grid, out.data_ptr(), stream), "P2")
     p2_stream_sum.launches += 1
     return out
 

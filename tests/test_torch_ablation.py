@@ -414,6 +414,52 @@ def test_p2_plain_matches_jax(rows):
     assert np.abs(t.numpy() - np.asarray(j)).max() <= 1e-5 * scale
 
 
+def test_p2_on_the_cpu_builds_and_loads_nothing(monkeypatch):
+    """On CPU tensors P2 runs its plain version: no build (there is no nvcc
+    here), no library, no workspace."""
+    from defensive_model_vae_tpu_torch.ops import _build
+
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the kernel build")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "_start_build", refuse)
+    loaded = dict(_build._LOADED)
+    eps = torch.ones((4096, 8), dtype=torch.bfloat16)
+    assert torch.equal(tsa.p2_stream_sum(eps, 2048), torch.full((1, 8), 4096.0 * 8))
+    assert _build._LOADED == loaded and not tsa._P2_WS
+
+
+def test_p2_limit_catches_a_dropped_batch_or_block():
+    """chip_smoke.py's P2 check on a small N(0, 1) stream (128 batches over
+    16 blocks): the blocks' shares add up to the stream's sum, the plain
+    float32 sum lies within P2_TOL of Σ|terms| of the float64 sum, and each
+    wrong plain version (a batch or a block left out) lies outside it."""
+    import chip_smoke
+
+    eps = torch.randn((2048 * 64, 8), generator=torch.Generator().manual_seed(3))
+    eps = eps.to(torch.bfloat16)
+    exact = float(eps.double().sum())
+    plain = float(tsa._p2_plain(eps, 2048)[0, 0])
+    tol = chip_smoke.P2_TOL * float(eps.double().abs().sum())
+    wrong, shares = chip_smoke.p2_wrong_sums(eps, 16, plain)
+    assert shares.shape == (16,) and abs(float(shares.sum()) - exact) <= 1e-6 * tol
+    assert abs(plain - exact) <= tol
+    assert set(wrong) == {"last_batch_dropped", "median_block_dropped"}
+    assert all(abs(v - plain) > tol for v in wrong.values())
+    assert abs(wrong["last_batch_dropped"] - plain) == pytest.approx(
+        abs(float(eps[-1024:].double().sum())))
+
+
+def test_p1_stream_ab_needs_the_card():
+    """The A/B timer of two checkouts' P1-stream builds runs on the card
+    only; here it refuses before it builds anything."""
+    from defensive_model_vae_tpu_torch.scripts import p1_stream_ab
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        p1_stream_ab.main(["--a", str(REPO_ROOT)])
+
+
 def test_p1_p2_refusals():
     with pytest.raises(ValueError, match="bf16"):
         tsa.p1_stream(torch.zeros((32, 41)), 1, 16)

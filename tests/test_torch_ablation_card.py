@@ -132,3 +132,68 @@ def test_p2_matches_plain():
     assert sa.p2_stream_sum.launches == before + 1
     assert torch.all(k == k[0, 0])
     assert float((k - p).abs().max()) <= 1e-5 * float(eps.float().abs().sum())
+
+
+def test_p2_same_bits_on_every_call():
+    dev = _cuda()
+    eps = fs.hbm_noise(7, 4, 131072, 8, "bfloat16", dev)
+    a, b, c = (sa.p2_stream_sum(eps, 2048) for _ in range(3))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(b, c)
+
+
+def test_p2_ones_sum_exactly():
+    """Every partial of a stream of ones is an integer under 2**24, so the
+    float32 sum is exact whatever its order: rows * 8."""
+    dev = _cuda()
+    rows = 2048 * 1000
+    got = sa.p2_stream_sum(torch.ones((rows, 8), dtype=torch.bfloat16, device=dev), 2048)
+    torch.cuda.synchronize()
+    assert rows * 8 <= 2 ** 24
+    assert torch.equal(got.cpu(), torch.full((1, 8), float(rows * 8)))
+
+
+@pytest.mark.parametrize("case", ["batch_tail", "unaligned"])
+def test_p2_tails_match_plain(case):
+    """A stream that ends inside one thread's batch of P2_U loads (16,000
+    vectors: 15 batches of 1,024 and 640), and one whose base lies 6 bytes
+    past a 16-byte boundary (3 columns, one row dropped: a scalar head and
+    tail around the vectors)."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(11)
+    if case == "batch_tail":
+        eps, tile = torch.randn((16000, 8), generator=g).to(torch.bfloat16).to(dev), 16
+    else:
+        eps, tile = torch.randn((2049, 3), generator=g).to(torch.bfloat16).to(dev)[1:], 2048
+        assert eps.is_contiguous() and eps.data_ptr() % 16 == 6
+    k, p = sa.p2_stream_sum(eps, tile), sa._p2_plain(eps, tile)
+    torch.cuda.synchronize()
+    assert torch.all(k == k[0, 0])
+    assert float((k - p).abs().max()) <= 1e-5 * float(eps.float().abs().sum())
+
+
+def test_p2_one_cuda_launch_a_call():
+    dev = _cuda()
+    eps = fs.hbm_noise(8, 1, 131072, 8, "bfloat16", dev)
+    before = sa.cuda_launches()["p2"]
+    for _ in range(3):
+        sa.p2_stream_sum(eps, 2048)
+    torch.cuda.synchronize()
+    assert sa.cuda_launches()["p2"] == before + 3
+
+
+def test_p2_two_streams_in_turn():
+    """Each stream has its own workspace (partials and ticket); calls on
+    two streams in turn give the same bits as on the default stream."""
+    dev = _cuda()
+    eps = fs.hbm_noise(9, 4, 131072, 8, "bfloat16", dev)
+    want = sa.p2_stream_sum(eps, 2048)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    got = []
+    for s in streams + streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            got.append(sa.p2_stream_sum(eps, 2048))
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, want) for r in got)
+    assert {(eps.device.index, s.cuda_stream) for s in streams} <= set(sa._P2_WS)

@@ -57,6 +57,46 @@ def test_p3_refusals():
         cache_decoy.decoy(torch.zeros(cache_decoy.SHAPE, device="meta"))
 
 
+def test_p3_checks_dtype_then_device_then_contiguity():
+    """The cheapest check first: a float64 tensor that is also non-contiguous
+    and on another device is refused for its dtype; a float32 one for its
+    device before its layout."""
+    odd = torch.zeros((128, 256), dtype=torch.float64, device="meta")[:, ::2]
+    with pytest.raises(ValueError, match="float32"):
+        cache_decoy.decoy(odd)
+    with pytest.raises(ValueError, match="CUDA or"):
+        cache_decoy.decoy(odd.float())
+
+
+def test_p3_on_the_cpu_builds_and_loads_nothing(monkeypatch):
+    """On CPU tensors the wrapper runs its plain version and never reaches
+    the build (there is no nvcc here) nor binds the C function."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the kernel build")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "_start_build", refuse)
+    loaded = dict(_build._LOADED)
+    x = torch.arange(7.0)[1:]  # contiguous, 4 bytes past its storage's start
+    assert torch.equal(cache_decoy.decoy(x), x * 2.0 + 1.0)
+    assert _build._LOADED == loaded and cache_decoy._launch is None
+
+
+def test_p3_build_names_missing_python_headers(monkeypatch, tmp_path):
+    """P3's launch object includes Python.h: where the headers are missing,
+    the build stops before nvcc starts, with a message that names them."""
+    monkeypatch.setattr(_build, "nvcc_version", lambda: "nvcc stand-in")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "PY_INCLUDE", str(tmp_path / "include"))
+
+    def refuse(*a, **k):
+        raise AssertionError("nvcc started")
+
+    monkeypatch.setattr(_build.subprocess, "Popen", refuse)
+    with pytest.raises(RuntimeError, match=r"Python\.h.*development headers"):
+        _build._start_build("cache_decoy")
+
+
 def test_probe_specs_name_the_objects_that_serve_them():
     """JAX's four specs, each served by an object of ``_build.KERNELS``: K1's
     manual object, K3's production object for both noise modes, K3's
