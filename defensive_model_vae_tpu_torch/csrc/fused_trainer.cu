@@ -235,6 +235,45 @@ __device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) 
   }
 }
 
+// The phase timer (optional, null on every main path): thread 0 reads
+// %globaltimer at each phase's end, before and after its barrier, and adds
+// the nanoseconds to the phase's slot; slot BARRIER holds the waits.
+enum { T_NOISE, T_FORWARD, T_LOSS, T_DEC_BWD, T_HEADS, T_ENC_BWD, T_ADAM, T_BARRIER,
+       T_SLOTS = 16 };
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct PhaseTimer {
+  unsigned long long* out;  // null: off
+  unsigned long long last, acc[8];
+  __device__ void start(unsigned long long* o) {
+    out = (o && threadIdx.x == 0) ? o : nullptr;
+    for (int i = 0; i < 8; ++i) acc[i] = 0;
+    if (out) last = global_ns();
+  }
+  __device__ __forceinline__ void mark(int slot) {
+    if (!out) return;
+    const unsigned long long t = global_ns();
+    acc[slot] += t - last;
+    last = t;
+  }
+  // a phase's end: its time, the block barrier, the wait
+  __device__ __forceinline__ void end(int slot) {
+    mark(slot);
+    __syncthreads();
+    mark(T_BARRIER);
+  }
+  __device__ void finish(int epochs) {
+    if (!out) return;
+    for (int i = 0; i < 8; ++i) out[i] = acc[i];
+    out[8] = (unsigned long long)epochs;
+  }
+};
+
 // One whole training run on B rows: the work of one block.  AUTO: the
 // autodiff instance (the note at the top).
 template <bool AUTO>
@@ -243,7 +282,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
           const float* __restrict__ eps_in, float* P,
           float* work, float* __restrict__ metrics, int B,
           int epochs, float lr, float w_recon, float w_kld, float w_start,
-          float w_time, unsigned long long seed) {
+          float w_time, unsigned long long seed, unsigned long long* timer) {
   __shared__ float As[TK * TM];
   __shared__ float Bs[TK * TN];
   __shared__ float red[5][NT];
@@ -252,6 +291,8 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
   carve(work, B, &w);
   for (int i = tid; i < 2 * N_PARAMS; i += NT) w.m[i] = 0.f;  // m and v are adjacent
   __syncthreads();
+  PhaseTimer tm;
+  tm.start(timer);
 
   const float S = 1.f / (float)B;
   const uint32_t key0 = (uint32_t)(seed & 0xFFFFFFFFull), key1 = (uint32_t)(seed >> 32);
@@ -278,7 +319,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
         }
       }
       eps = w.eps;
-      __syncthreads();
+      tm.end(T_NOISE);
     }
 
     // ---- forward ---------------------------------------------------------
@@ -305,6 +346,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
     fwd<L_D1>(B, w.g1, H, P, w.g2, H, true, As, Bs);
     fwd<L_D2>(B, w.g2, H, P, w.g3, H, true, As, Bs);
     fwd<L_D3>(B, w.g3, H, P, w.recon, F, false, As, Bs);
+    tm.mark(T_FORWARD);
 
     // ---- loss and the fused d_recon --------------------------------------
     float s_rec = 0.f, s_kld = 0.f, s_start = 0.f, s_t0 = 0.f, s_tinc = 0.f;
@@ -375,13 +417,14 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
       row[0] = total; row[1] = recon_l; row[2] = kld; row[3] = start_l; row[4] = time_l;
       row[5] = 0.f; row[6] = 0.f; row[7] = 0.f;
     }
-    __syncthreads();
+    tm.end(T_LOSS);
 
     // ---- backward: decoder -----------------------------------------------
     bwd<L_D3>(B, w.g3, H, w.d_recon, F, P, w.grad, w.buf1, H, w.g3, H, As, Bs);
     bwd<L_D2>(B, w.g2, H, w.buf1, H, P, w.grad, w.buf2, H, w.g2, H, As, Bs);
     bwd<L_D1>(B, w.g1, H, w.buf2, H, P, w.grad, w.buf1, H, w.g1, H, As, Bs);
     bwd<L_D0>(B, w.gin, GIN, w.buf1, H, P, w.grad, w.d_gin, GIN, nullptr, 0, As, Bs);
+    tm.mark(T_DEC_BWD);
 
     // ---- heads: d_mu = dz + wk S/Z mu; d_lv = dz eps std/2 - wk S/(2Z)(1 - e^lv)
     const float kS = w_kld * S / (float)Z;
@@ -425,7 +468,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
       const int b = i / H, j = i % H;
       w.buf1[i] = w.d_hcat[b * H2 + j] * (w.hcat[b * H2 + j] > 0.f ? 1.f : 0.f);
     }
-    __syncthreads();
+    tm.end(T_HEADS);
 
     // ---- backward: encoder and condition chains ----------------------------
     bwd<L_E3>(B, w.e2, H, w.buf1, H, P, w.grad, w.buf2, H, w.e2, H, As, Bs);
@@ -434,6 +477,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
     bwd<L_E0>(B, x, F, w.buf2, H, P, w.grad, nullptr, 0, nullptr, 0, As, Bs);
     bwd<L_C1>(B, w.c0, H, w.dhc, H, P, w.grad, w.buf1, H, w.c0, H, As, Bs);
     bwd<L_C0>(B, cond, C, w.buf1, H, P, w.grad, nullptr, 0, nullptr, 0, As, Bs);
+    tm.mark(T_ENC_BWD);
 
     // ---- Adam (optax defaults), bias correction 1 - exp(t ln b) -----------
     const float tf = (float)(e + 1);
@@ -446,8 +490,9 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
       w.v[i] = vi;
       P[i] = P[i] - lr * ((mi / bc1) / (sqrtf(vi / bc2) + 1e-8f));
     }
-    __syncthreads();
+    tm.end(T_ADAM);
   }
+  tm.finish(epochs);
 }
 
 __global__ void __launch_bounds__(NT)
@@ -455,9 +500,9 @@ k1_kernel(const float* __restrict__ x, const float* __restrict__ cond,
           const float* __restrict__ eps_in, float* P,
           float* work, float* __restrict__ metrics, int B,
           int epochs, float lr, float w_recon, float w_kld, float w_start,
-          float w_time, unsigned long long seed) {
+          float w_time, unsigned long long seed, unsigned long long* timer) {
   train_run<K1_AUTO_BIT>(x, cond, eps_in, P, work, metrics, B, epochs, lr, w_recon,
-                        w_kld, w_start, w_time, seed);
+                        w_kld, w_start, w_time, seed, timer);
 }
 
 // Block s trains run s.  With row_off (S+1 offsets), its rows are
@@ -470,7 +515,8 @@ grid_kernel(const float* __restrict__ x, const float* __restrict__ cond,
             const float* __restrict__ eps_in, const int* __restrict__ row_off,
             int B, const unsigned long long* __restrict__ seeds, float* P,
             float* work, float* __restrict__ metrics, int epochs, float lr,
-            float w_recon, float w_kld, float w_start, float w_time) {
+            float w_recon, float w_kld, float w_start, float w_time,
+            unsigned long long* timer) {
   const int s = blockIdx.x;
   long long x0 = 0, e0 = (long long)s * B;
   int n = B;
@@ -483,7 +529,7 @@ grid_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   train_run<K1_AUTO_BIT>(x + x0 * F, cond + x0 * C, eps_in ? eps_in + e0 * Z : nullptr,
             P + (long long)s * N_PARAMS, work + s * run_floats + e0 * row_floats,
             metrics + (long long)s * epochs * 8, n, epochs, lr, w_recon, w_kld,
-            w_start, w_time, seeds[s]);
+            w_start, w_time, seeds[s], s == 0 ? timer : nullptr);
 }
 
 }  // namespace
@@ -501,11 +547,12 @@ int K1_ENTRY(k1_fused_train)(const float* x, const float* cond, const float* eps
                    float* params, float* work, float* metrics, int B,
                    int epochs, float lr, float w_recon, float w_kld,
                    float w_start, float w_time, unsigned long long seed,
-                   void* stream) {
-  if (B <= 0 || epochs <= 0) return (int)cudaErrorInvalidValue;
+                   int cluster, unsigned long long* timer, int* taken, void* stream) {
+  if (B <= 0 || epochs <= 0 || cluster > 1) return (int)cudaErrorInvalidValue;
+  *taken = 1;
   k1_kernel<<<1, NT, 0, (cudaStream_t)stream>>>(
       x, cond, eps, params, work, metrics, B, epochs, lr, w_recon, w_kld,
-      w_start, w_time, seed);
+      w_start, w_time, seed, timer);
   return (int)cudaGetLastError();
 }
 
@@ -517,11 +564,13 @@ int K1_ENTRY(k2_fused_train_multi)(const float* x, const float* cond, const floa
                          const int* row_off, const unsigned long long* seeds,
                          int S, float* params, float* work, float* metrics,
                          int epochs, float lr, float w_recon, float w_kld,
-                         float w_start, float w_time, void* stream) {
-  if (S <= 0 || epochs <= 0 || !row_off) return (int)cudaErrorInvalidValue;
+                         float w_start, float w_time, int cluster,
+                         unsigned long long* timer, int* taken, void* stream) {
+  if (S <= 0 || epochs <= 0 || !row_off || cluster > 1) return (int)cudaErrorInvalidValue;
+  *taken = 1;
   grid_kernel<<<S, NT, 0, (cudaStream_t)stream>>>(
       x, cond, eps, row_off, 0, seeds, params, work, metrics, epochs, lr,
-      w_recon, w_kld, w_start, w_time);
+      w_recon, w_kld, w_start, w_time, timer);
   return (int)cudaGetLastError();
 }
 
@@ -532,11 +581,13 @@ int K1_ENTRY(k1_fused_train_seeds)(const float* x, const float* cond, const floa
                          const unsigned long long* seeds, int S, float* params,
                          float* work, float* metrics, int B, int epochs,
                          float lr, float w_recon, float w_kld, float w_start,
-                         float w_time, void* stream) {
-  if (S <= 0 || B <= 0 || epochs <= 0) return (int)cudaErrorInvalidValue;
+                         float w_time, int cluster, unsigned long long* timer,
+                         int* taken, void* stream) {
+  if (S <= 0 || B <= 0 || epochs <= 0 || cluster > 1) return (int)cudaErrorInvalidValue;
+  *taken = 1;
   grid_kernel<<<S, NT, 0, (cudaStream_t)stream>>>(
       x, cond, eps, nullptr, B, seeds, params, work, metrics, epochs, lr,
-      w_recon, w_kld, w_start, w_time);
+      w_recon, w_kld, w_start, w_time, timer);
   return (int)cudaGetLastError();
 }
 

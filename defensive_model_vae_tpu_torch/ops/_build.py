@@ -51,7 +51,8 @@ _K1_ARGS = [
     ctypes.c_float,                    # lr
     ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
     ctypes.c_float, ctypes.c_float,    # start, time
-    ctypes.c_ulonglong, _P,            # seed, stream
+    ctypes.c_ulonglong,                # seed
+    ctypes.c_int, _P, _P, _P,          # cluster size (0: pick), timer, size taken, stream
 ]
 _K2_ARGS = [
     _P, _P, _P,                        # x, cond, eps (sum B_s rows)
@@ -60,7 +61,7 @@ _K2_ARGS = [
     ctypes.c_int, ctypes.c_float,      # epochs, lr
     ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
     ctypes.c_float, ctypes.c_float,    # start, time
-    _P,                                # stream
+    ctypes.c_int, _P, _P, _P,          # cluster size (0: pick), timer, size taken, stream
 ]
 _SEEDS_ARGS = [
     _P, _P, _P,                        # x, cond (B rows), eps (S B rows)
@@ -70,7 +71,7 @@ _SEEDS_ARGS = [
     ctypes.c_float,                    # lr
     ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
     ctypes.c_float, ctypes.c_float,    # start, time
-    _P,                                # stream
+    ctypes.c_int, _P, _P, _P,          # cluster size (0: pick), timer, size taken, stream
 ]
 _K3_HEAD = [
     _P, ctypes.c_int, _P,              # packed corpus, its width, eps stream

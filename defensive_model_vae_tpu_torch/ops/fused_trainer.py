@@ -373,8 +373,46 @@ def _count_launch(fn, backward):
         fn.auto_launches += 1
 
 
+# a launch's thread-block cluster size: 0 lets the C entry pick the largest
+# size at which every run's cluster is resident at once; the others force it
+CLUSTER_SIZES = (0, 1, 2, 4, 8, 16)
+
+# the slots of the optional phase timer (nanoseconds of run 0's first block,
+# summed over the epochs; then the epoch count), csrc/fused_trainer.cu's
+# T_* order
+PHASES = ("noise", "forward", "loss", "decoder_backward", "heads",
+          "encoder_cond_backward", "adam", "barrier_waits")
+TIMER_SLOTS = 16
+
+
+def _check_cluster(kernel, cluster):
+    if isinstance(cluster, bool) or cluster not in CLUSTER_SIZES:
+        raise ValueError(f"{kernel}: cluster must be one of {CLUSTER_SIZES} "
+                         f"(0 picks), got {cluster!r}")
+
+
+def phase_timer(dev) -> torch.Tensor:
+    """A zeroed device buffer for the kernels' phase timer."""
+    return torch.zeros(TIMER_SLOTS, dtype=torch.int64, device=dev)
+
+
+def phase_split(timer: torch.Tensor) -> Dict[str, float]:
+    """The timer's slots → {phase: milliseconds over the run}, with the
+    epochs counted."""
+    t = timer.cpu().tolist()
+    return {**{p: t[i] / 1e6 for i, p in enumerate(PHASES)}, "epochs": t[len(PHASES)]}
+
+
+def _launch_tail(cluster, timer, stream):
+    """The C entries' last arguments and the int the entry writes the
+    cluster size it took into."""
+    taken = ctypes.c_int(0)
+    return taken, [cluster, None if timer is None else timer.data_ptr(),
+                   ctypes.byref(taken), stream]
+
+
 def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
-                       backward="manual"):
+                       backward="manual", cluster=0, timer=None):
     from ._build import load
 
     B = x_flat.shape[0]
@@ -389,6 +427,7 @@ def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
     work = torch.empty(int(lib.k1_work_floats(B)), dtype=torch.float32, device=dev)
     metrics = torch.empty((epochs, 8), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    taken, tail = _launch_tail(cluster, timer, stream)
     err = getattr(lib, _K1_ENTRIES[backward][0])(
         x_flat.data_ptr(), cond.data_ptr(),
         None if eps is None else eps.data_ptr(),
@@ -396,17 +435,19 @@ def _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
         B, epochs, ctypes.c_float(lr),
         ctypes.c_float(weights.recon), ctypes.c_float(weights.kld),
         ctypes.c_float(weights.start), ctypes.c_float(weights.time),
-        ctypes.c_ulonglong(seed), stream,
+        ctypes.c_ulonglong(seed), *tail,
     )
     if err != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+        raise RuntimeError(f"K1 launch failed (cluster {cluster}): CUDA error {err}")
     _count_launch(fused_call, backward)
+    fused_call.cluster = taken.value
     return unpack_kernel_params(params, plist), metrics
 
 
 def fused_call(plist, x_flat, cond, seed: int, cfg: CVAEConfig,
                weights: LossWeights, epochs: int, lr: float,
-               eps: Optional[torch.Tensor] = None, backward: str = "manual"):
+               eps: Optional[torch.Tensor] = None, backward: str = "manual",
+               cluster: int = 0, timer: Optional[torch.Tensor] = None):
     """One whole training run: (final flat params, (epochs, 8) metrics).
 
     On CUDA tensors this launches K1 (one launch, counted in
@@ -415,8 +456,12 @@ def fused_call(plist, x_flat, cond, seed: int, cfg: CVAEConfig,
     version.  ``eps`` (B, Z), when given, is held constant across epochs
     (the TPU kernel's ``eps_input`` mode); otherwise ε is Philox noise.
     ``backward``: ``"manual"`` (the hand-written backward) or ``"auto"``
-    (the arithmetic of autodiff of :func:`_forward_loss`)."""
+    (the arithmetic of autodiff of :func:`_forward_loss`).  ``cluster``:
+    the launch's cluster size, one of :data:`CLUSTER_SIZES` (0 picks; the
+    size taken is left in ``fused_call.cluster``); every size gives the
+    same bits.  ``timer``: an optional :func:`phase_timer` buffer."""
     _check_backward_arg(backward)
+    _check_cluster("K1", cluster)
     dev = x_flat.device
     if dev.type == "cpu":
         return _fused_call_plain(plist, x_flat, cond, seed, cfg, weights,
@@ -424,11 +469,12 @@ def fused_call(plist, x_flat, cond, seed: int, cfg: CVAEConfig,
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on CUDA or (plain) CPU tensors, got {dev}")
     return _fused_call_kernel(plist, x_flat, cond, seed, cfg, weights,
-                              epochs, lr, eps, backward)
+                              epochs, lr, eps, backward, cluster, timer)
 
 
 fused_call.launches = 0
 fused_call.auto_launches = 0
+fused_call.cluster = None
 
 
 # ---- many runs in one launch: K2, and K1 on a grid of seeds -----------------
@@ -457,10 +503,10 @@ def _stack_runs(outs):
 
 
 def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
-                      weights, epochs, lr, rows, row_off=None):
-    """Launch S K1 runs in one grid through the library function ``entry``,
-    with ``rows`` rows of ε and of work in all; → (stacked params,
-    (S, E, 8))."""
+                      weights, epochs, lr, rows, row_off=None, cluster=0, timer=None):
+    """Launch S K1 runs in one grid of S clusters through the library
+    function ``entry``, with ``rows`` rows of ε and of work in all; →
+    ((stacked params, (S, E, 8)), the cluster size taken)."""
     from ._build import load
 
     dev = x_flat.device
@@ -479,9 +525,10 @@ def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
                            dtype=torch.int64).to(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = [x_flat.data_ptr(), cond.data_ptr(), None if eps is None else eps.data_ptr()]
+    taken, launch = _launch_tail(cluster, timer, stream)
     tail = [ctypes.c_float(lr), ctypes.c_float(weights.recon),
             ctypes.c_float(weights.kld), ctypes.c_float(weights.start),
-            ctypes.c_float(weights.time), stream]
+            ctypes.c_float(weights.time), *launch]
     body = [params.data_ptr(), work.data_ptr(), metrics.data_ptr()]
     if row_off is None:
         err = getattr(lib, entry)(*head, seeds_t.data_ptr(), S, *body, x_flat.shape[0],
@@ -491,9 +538,9 @@ def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
         err = getattr(lib, entry)(*head, off_t.data_ptr(), seeds_t.data_ptr(), S, *body,
                                   epochs, *tail)
     if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{kernel} launch failed (cluster {cluster}): CUDA error {err}")
     outs = [unpack_kernel_params(params[s], plists[s]) for s in range(S)]
-    return tuple(torch.stack(col) for col in zip(*outs)), metrics
+    return (tuple(torch.stack(col) for col in zip(*outs)), metrics), taken.value
 
 
 def _check_grid(kernel, stacked, x_flat, seeds, epochs):
@@ -534,17 +581,21 @@ def _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg, weights,
 
 def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
                       cfg: CVAEConfig, weights: LossWeights, epochs: int, lr: float,
-                      eps: Optional[torch.Tensor] = None, backward: str = "manual"):
+                      eps: Optional[torch.Tensor] = None, backward: str = "manual",
+                      cluster: int = 0, timer: Optional[torch.Tensor] = None):
     """S whole training runs on ragged corpora: (stacked params, (S, E, 8)).
 
     Run s trains ``stacked[:, s]`` on rows ``row_off[s]:row_off[s + 1]`` of
     the concatenated ``x_flat`` (Σ B_s, T·D) and ``cond`` (Σ B_s, 2), with
     Philox noise keyed by ``seeds[s]`` or the same rows of an explicit
     ``eps`` (Σ B_s, Z) held constant over the epochs.  On CUDA tensors this
-    launches K2 (one launch of S blocks, counted in
+    launches K2 (one launch of S clusters, counted in
     ``_fused_multi_call.launches``, or ``.auto_launches`` for the autodiff
-    instance) or raises; on CPU tensors it runs K2's plain version."""
+    instance; ``cluster`` and ``timer`` as :func:`fused_call`'s, the size
+    taken in ``_fused_multi_call.cluster``) or raises; on CPU tensors it
+    runs K2's plain version."""
     _check_backward_arg(backward)
+    _check_cluster("K2", cluster)
     dev = _check_grid("K2", stacked, x_flat, seeds, epochs)
     row_off = [int(r) for r in row_off]
     if (len(row_off) != len(seeds) + 1 or row_off[0] != 0
@@ -559,15 +610,16 @@ def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
     F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
     _check_kernel_inputs("K2", cfg, dev, ("x_flat", x_flat, (R, F)),
                          ("cond", cond, (R, C)), ("eps", eps, (R, Z)))
-    out = _grid_call_kernel(_K1_ENTRIES[backward][1], "K2", stacked,
-                            x_flat, cond, eps, seeds, cfg, weights, epochs, lr, R,
-                            row_off)
+    out, _fused_multi_call.cluster = _grid_call_kernel(
+        _K1_ENTRIES[backward][1], "K2", stacked, x_flat, cond, eps, seeds, cfg, weights,
+        epochs, lr, R, row_off, cluster, timer)
     _count_launch(_fused_multi_call, backward)
     return out
 
 
 _fused_multi_call.launches = 0
 _fused_multi_call.auto_launches = 0
+_fused_multi_call.cluster = None
 
 
 def _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights, epochs, lr,
@@ -582,16 +634,20 @@ def _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights, epochs, 
 
 def _fused_seeds_call(stacked, x_flat, cond, seeds, cfg: CVAEConfig,
                       weights: LossWeights, epochs: int, lr: float,
-                      eps: Optional[torch.Tensor] = None, backward: str = "manual"):
+                      eps: Optional[torch.Tensor] = None, backward: str = "manual",
+                      cluster: int = 0, timer: Optional[torch.Tensor] = None):
     """S whole training runs of one corpus: (stacked params, (S, E, 8)).
 
     Run s trains ``stacked[:, s]`` on all of ``x_flat``/``cond`` with
     Philox noise keyed by ``seeds[s]`` or the explicit ``eps[s]`` (of an
     (S, B, Z) ``eps``).  On CUDA tensors this launches K1 on a grid of S
-    blocks (one launch, counted in ``_fused_seeds_call.launches``, or
-    ``.auto_launches`` for the autodiff instance), each block K1's own run,
-    or raises; on CPU tensors it runs K1's plain version once per seed."""
+    clusters (one launch, counted in ``_fused_seeds_call.launches``, or
+    ``.auto_launches`` for the autodiff instance; ``cluster`` and ``timer``
+    as :func:`fused_call`'s, the size taken in
+    ``_fused_seeds_call.cluster``), each cluster K1's own run, or raises;
+    on CPU tensors it runs K1's plain version once per seed."""
     _check_backward_arg(backward)
+    _check_cluster("the seed grid", cluster)
     dev = _check_grid("the seed grid", stacked, x_flat, seeds, epochs)
     if dev.type == "cpu":
         return _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights,
@@ -600,14 +656,16 @@ def _fused_seeds_call(stacked, x_flat, cond, seeds, cfg: CVAEConfig,
     F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
     _check_kernel_inputs("K1", cfg, dev, ("x_flat", x_flat, (B, F)),
                          ("cond", cond, (B, C)), ("eps", eps, (S, B, Z)))
-    out = _grid_call_kernel(_K1_ENTRIES[backward][2], "K1", stacked,
-                            x_flat, cond, eps, seeds, cfg, weights, epochs, lr, S * B)
+    out, _fused_seeds_call.cluster = _grid_call_kernel(
+        _K1_ENTRIES[backward][2], "K1", stacked, x_flat, cond, eps, seeds, cfg, weights,
+        epochs, lr, S * B, None, cluster, timer)
     _count_launch(_fused_seeds_call, backward)
     return out
 
 
 _fused_seeds_call.launches = 0
 _fused_seeds_call.auto_launches = 0
+_fused_seeds_call.cluster = None
 
 
 def fused_inputs(windows, device="cuda") -> Tuple[torch.Tensor, torch.Tensor]:
