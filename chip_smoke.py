@@ -19,8 +19,10 @@ traceback and a non-zero exit:
 4. ``k1_vs_plain`` kernel K1 against its plain torch version on the card
                    (explicit ε, sce2 B=16 and sce4 B=134, 1 and 50 epochs);
 5. ``train``       the main path: ``fused_train`` on sce4 at full width
-                   (134 windows, H=128, 3000 epochs) in one K1 launch, its
-                   time against the plain version's, a checkpoint round trip;
+                   (134 windows, H=128, 3000 epochs) in one K1 launch (one
+                   thread-block cluster), its time against the plain
+                   version's, a checkpoint round trip; one more run with
+                   the phase timer for K1's phase split;
 6. ``sample``      one trajectory per sce4 start point, with re-draws;
 7. ``track``       the samples tracked by the batched MPC, and the SLSQP
                    golden windows held to the bands of tests/test_mpc.py;
@@ -49,7 +51,7 @@ traceback and a non-zero exit:
                    generation seeds on the sce2 model, row by row against
                    per-seed ``generate_and_track_from_starts``;
 13. ``seeds``      the seed sweep: ``fused_train_seeds`` on sce4, 32 seeds ×
-                   3000 epochs in one launch of K1 on 32 blocks, every seed
+                   3000 epochs in one launch of K1 on 32 clusters, every seed
                    converging; timed against the plain version; at 300
                    epochs 4 seeds bit for bit against ``fused_train``;
 14. ``ablation_vs_plain`` the K3 ablation's kernels against their plain
@@ -100,10 +102,15 @@ traceback and a non-zero exit:
                    on the four fixtures and ``train_conditioned`` with one
                    extra condition column, 300 epochs each, every final
                    loss within its band of the float32 run's;
-20. ``kernels``    one line listing every ported kernel with its launches on
+20. ``k1_digest``  ``scripts/k1_digest.py``: K1, K1-auto, K2 and the seed
+                   grid (50 and 3000 epochs) bit for bit the one-block
+                   build's digests at the picked cluster size, and K1's
+                   50-epoch case at each forced size 1, 2, 4, 8 and 16;
+21. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound (P2 and P3 also
                    their device times, their library call's both ways, and
-                   the spread of each).
+                   the spread of each; the K1 family its cluster size, its
+                   bound over the cluster's SMs and its phase split).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
 without the port beside this file, it exits non-zero and prints no result.
@@ -206,6 +213,8 @@ SWEEP_SEEDS, DEPTH = 32, 3000
 PLAIN_K1_EPOCHS, PLAIN_MULTI_EPOCHS, PLAIN_SEEDS, PLAIN_SEEDS_EPOCHS = 100, 50, 2, 50
 # the bit-for-bit and per-scenario checks of K2 and the seed grid
 CHECK_EPOCHS, CHECK_SEEDS = 300, (0, 9, 22, 31)
+# the k1_digest phase: K1's 50-epoch case at each forced cluster size
+K1_FORCED_SIZES = (1, 2, 4, 8, 16)
 # K1, K1-auto, K2 and the seed grid are timed on their main paths' own run,
 # so their ``ms`` holds the entry call's host work around the one launch
 ENTRY_MS_OF = "the entry call: the inputs' preparation, the launch, the copy back"
@@ -847,6 +856,8 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.ops import scale_ablation as sa
     from defensive_model_vae_tpu_torch.scripts import cache_probe
     from defensive_model_vae_tpu_torch.scripts import noise_consumer_probe as ncp
+    from defensive_model_vae_tpu_torch.scripts import k1_digest as k1d
+    from defensive_model_vae_tpu_torch.scripts import k1_phases as k1p
     from defensive_model_vae_tpu_torch.scripts import k3_digest as k3d
     from defensive_model_vae_tpu_torch.scripts import scale_ablation as sab
     from defensive_model_vae_tpu_torch.scripts.scale_ablation import scale_corpus
@@ -1038,7 +1049,7 @@ def main() -> int:
         kernel_ms, (params, hist) = cuda_ms(lambda: ft.fused_train(
             w4, epochs=epochs, lr=1e-3, weights=lw, seed=0, device=dev))
         wall = time.perf_counter() - t0
-        launches = ft.fused_call.launches
+        launches, k1_cluster = ft.fused_call.launches, ft.fused_call.cluster
         if launches != 1:
             fail(f"fused_train launched K1 {launches} times, expected 1")
         tot = hist["total"]
@@ -1059,10 +1070,13 @@ def main() -> int:
                        for k in params for n in ("w", "b"))
         if not same or cfg2 != cfg:
             fail("checkpoint round trip changed the params")
+        # K1's phase split: one more run with the timer (off the main path)
+        k1_split = k1p.split(dev, "k1", epochs)
         info.update(epochs=epochs, B=len(w4), launches=launches, main_path_s=wall,
-                    loss_first=float(tot[0]), loss_last=float(tot[-1]),
+                    cluster=k1_cluster, loss_first=float(tot[0]), loss_last=float(tot[-1]),
                     kernel_ms=kernel_ms, plain_ms=plain_ms,
-                    plain_epochs_timed=PLAIN_K1_EPOCHS, card=card)
+                    plain_epochs_timed=PLAIN_K1_EPOCHS, timed_ms=k1_split[0],
+                    phases_ms=k1_split[1], card=card)
 
     # ---- 6. sample ----------------------------------------------------------
     starts, inits = fixture_starts(w4)
@@ -1322,7 +1336,7 @@ def main() -> int:
         k2_ms, (mparams, mhist) = cuda_ms(lambda: ft.fused_train_multi(
             corpora, epochs=DEPTH, seed=0, device=dev))
         multi_wall = time.perf_counter() - t0
-        k2_launches = ft._fused_multi_call.launches
+        k2_launches, k2_cluster = ft._fused_multi_call.launches, ft._fused_multi_call.cluster
         if k2_launches != 1:
             fail(f"fused_train_multi launched K2 {k2_launches} times, expected 1")
         losses = converged(mhist, "fused_train_multi")
@@ -1360,7 +1374,9 @@ def main() -> int:
                           "tracked_steps": check_tracked(traces_k, mpc_k, k),
                           "seconds": time.perf_counter() - t0}
             seed0_traces[k] = (traces_k, idx_k)
+        k2_split = k1p.split(dev, "k2", DEPTH)
         info.update(epochs=DEPTH, rows=off, k2_launches=k2_launches, main_path_s=multi_wall,
+                    cluster=k2_cluster, timed_ms=k2_split[0], phases_ms=k2_split[1],
                     losses=losses, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
                     plain_epochs_timed=PLAIN_MULTI_EPOCHS, vs_fused_train_max_abs=gap,
                     tracked=tracked, card=card)
@@ -1406,7 +1422,8 @@ def main() -> int:
         seeds_ms, (_, swhist) = cuda_ms(lambda: ft.fused_train_seeds(
             w4, sweep, epochs=DEPTH, device=dev))
         seeds_wall = time.perf_counter() - t0
-        seeds_launches = ft._fused_seeds_call.launches
+        seeds_launches, seeds_cluster = (ft._fused_seeds_call.launches,
+                                         ft._fused_seeds_call.cluster)
         if seeds_launches != 1:
             fail(f"fused_train_seeds launched {seeds_launches} times, expected 1")
         losses = converged(swhist, "fused_train_seeds")
@@ -1425,7 +1442,10 @@ def main() -> int:
             if not (all(torch.equal(p_chk[q][n][k], p1[n][k]) for n in p1 for k in ("w", "b"))
                     and all(np.array_equal(h_chk[q][m], h1[m]) for m in h1)):
                 fail(f"seed {q} of the seed grid is not fused_train's run bit for bit")
+        seeds_split = k1p.split(dev, "grid", DEPTH, seeds=SWEEP_SEEDS)
         info.update(seeds=SWEEP_SEEDS, epochs=DEPTH, B=len(w4), launches=seeds_launches,
+                    cluster=seeds_cluster, timed_ms=seeds_split[0],
+                    phases_ms=seeds_split[1],
                     main_path_s=seeds_wall, kernel_ms=seeds_ms, plain_ms=seeds_plain_ms,
                     plain_timed=[PLAIN_SEEDS, PLAIN_SEEDS_EPOCHS],
                     bit_identical_seeds=list(CHECK_SEEDS), check_epochs=CHECK_EPOCHS,
@@ -1703,7 +1723,7 @@ def main() -> int:
         k1a_ms, (aparams, ahist) = cuda_ms(lambda: ft.fused_train(
             w4, epochs=epochs, lr=1e-3, weights=lw, seed=0, backward="auto", device=dev))
         k1a_wall = time.perf_counter() - t0
-        k1a_launches = ft.fused_call.auto_launches
+        k1a_launches, k1a_cluster = ft.fused_call.auto_launches, ft.fused_call.cluster
         if k1a_launches != 1:
             fail(f"fused_train(backward='auto') launched K1-auto {k1a_launches} times")
         tot = ahist["total"]
@@ -1718,7 +1738,9 @@ def main() -> int:
         # noise stream: their gap is the chaos of 3000 Adam steps, printed
         k1a_vs_manual = max(float((aparams[k][q] - params[k][q]).abs().max())
                             for k in params for q in ("w", "b"))
+        k1a_split = k1p.split(dev, "k1_auto", epochs)
         info.update(epochs=epochs, B=len(w4), launches=k1a_launches, main_path_s=k1a_wall,
+                    cluster=k1a_cluster, timed_ms=k1a_split[0], phases_ms=k1a_split[1],
                     kernel_ms=k1a_ms, plain_ms=k1a_plain_ms,
                     loss_first=float(tot[0]), loss_last=float(tot[-1]),
                     manual_loss_last=float(hist["total"][-1]),
@@ -2008,7 +2030,19 @@ def main() -> int:
             scan_out[name] = res
         info.update(epochs=SCAN_EPOCHS, runs=scan_out, card=card)
 
-    # ---- 20. kernels --------------------------------------------------------
+    # ---- 20. k1_digest: the K1 family bit for bit the one-block build ---------
+    with phase("k1_digest", 120) as info:
+        ref = k1d.reference(torch.cuda.get_device_properties(dev).multi_processor_count)
+        runs = {"picked": k1d.digests(dev)}
+        for cs in K1_FORCED_SIZES:
+            runs[str(cs)] = k1d.digests(dev, ["k1_manual_e50"], cs)
+        bad = {k: k1d.mismatches(v, ref) for k, v in runs.items()}
+        info.update(cases=len(runs["picked"]), forced_sizes=list(K1_FORCED_SIZES),
+                    mismatches=bad, card=card)
+        if any(bad.values()):
+            fail(f"the K1 family differs from the one-block build's digests: {bad}")
+
+    # ---- 21. kernels --------------------------------------------------------
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)
     width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1
@@ -2022,7 +2056,8 @@ def main() -> int:
     k2_bound, k2_by = bound(k2_flops, k2_bytes, FP32_FLOPS)
     sw_flops, sw_bytes = grid_flops_bytes(cfg, [len(w4)] * SWEEP_SEEDS, len(w4), DEPTH)
     sw_bound, sw_by = bound(sw_flops, sw_bytes, FP32_FLOPS)
-    # a block runs on one SM: the largest run alone at one SM's share
+    # a run on one SM: the largest run alone at one SM's share; a cluster of
+    # cs CTAs has cs SMs' share
     one_sm_ms = 1e3 * grid_flops_bytes(cfg, [max(k2_rows)], 0, DEPTH)[0] / (FP32_FLOPS / 132)
     abl_src = f"{PKG}/csrc/scale_ablation.cu"
     pf = p1_flops(cfg)
@@ -2063,8 +2098,9 @@ def main() -> int:
     for name, route_src, line, n_l, err, ms, p_ms, (fl, nb, peak), extra in (
             ("k1_auto", "fused_trainer.cu", "ops/fused_trainer.py:326", k1a_launches, k1a_err,
              k1a_ms, k1a_plain_ms, (flops, nbytes, FP32_FLOPS),
-             {"one_sm_bound_ms": bound_ms * 132, "ms_of": ENTRY_MS_OF,
-              "vs_manual_3000_epochs_params_max_abs": k1a_vs_manual}),
+             {"one_sm_bound_ms": bound_ms * 132, "cluster": k1a_cluster,
+              "cluster_bound_ms": bound_ms * 132 / k1a_cluster, "phases_ms": k1a_split[1],
+              "ms_of": ENTRY_MS_OF, "vs_manual_3000_epochs_params_max_abs": k1a_vs_manual}),
             ("k3_auto_bf16", "fused_scale_auto.cu", "ops/fused_scale.py:191",
              cli_runs["f32_acts"]["launches"], auto_bench["f32_acts"]["max_abs_err"],
              auto_bench["f32_acts"]["ms"], auto_bench["f32_acts"]["plain_ms"],
@@ -2118,6 +2154,9 @@ def main() -> int:
         "bound_by": "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_S else "bytes",
         "library_ms": None,
         "one_sm_bound_ms": bound_ms * 132,
+        "cluster": k1_cluster,
+        "cluster_bound_ms": bound_ms * 132 / k1_cluster,
+        "phases_ms": k1_split[1],
         "flops": flops,
         "card": card,
     }, {
@@ -2126,7 +2165,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/fused_trainer.cu",
         "replaces": "defensive_model_vae_tpu/ops/fused_trainer.py:326",
         "launches": seeds_launches,
-        "blocks": SWEEP_SEEDS,
+        "clusters": SWEEP_SEEDS,
         # the 4-seed grid against its plain version, 50 epochs, explicit ε
         "max_abs_err": seeds_err["max_abs_err"],
         "ms": seeds_ms,
@@ -2135,7 +2174,10 @@ def main() -> int:
         "bound_ms": sw_bound,
         "bound_by": sw_by,
         "library_ms": None,
-        "one_sm_per_block_bound_ms": one_sm_ms,
+        "one_sm_bound_ms": one_sm_ms,
+        "cluster": seeds_cluster,
+        "cluster_bound_ms": one_sm_ms / seeds_cluster,
+        "phases_ms": seeds_split[1],
         "flops": sw_flops,
         "card": card,
     }, {
@@ -2144,7 +2186,7 @@ def main() -> int:
         "source": f"{PKG}/csrc/fused_trainer.cu",
         "replaces": "defensive_model_vae_tpu/ops/fused_trainer.py:454",
         "launches": k2_launches,
-        "blocks": len(keys),
+        "clusters": len(keys),
         # the four corpora against the plain version, 50 epochs, explicit ε
         "max_abs_err": k2_err["max_abs_err"],
         "ms": k2_ms,
@@ -2153,7 +2195,10 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": None,
-        "one_sm_largest_block_bound_ms": one_sm_ms,
+        "one_sm_bound_ms": one_sm_ms,
+        "cluster": k2_cluster,
+        "cluster_bound_ms": one_sm_ms / k2_cluster,
+        "phases_ms": k2_split[1],
         "flops": k2_flops,
         "card": card,
     }, {

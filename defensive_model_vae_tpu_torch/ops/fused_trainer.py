@@ -386,7 +386,8 @@ TIMER_SLOTS = 16
 
 
 def _check_cluster(kernel, cluster):
-    if isinstance(cluster, bool) or cluster not in CLUSTER_SIZES:
+    if (isinstance(cluster, bool) or not isinstance(cluster, (int, np.integer))
+            or cluster not in CLUSTER_SIZES):
         raise ValueError(f"{kernel}: cluster must be one of {CLUSTER_SIZES} "
                          f"(0 picks), got {cluster!r}")
 

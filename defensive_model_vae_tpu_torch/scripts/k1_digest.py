@@ -47,13 +47,13 @@ CASES = {
 # {SM count: {case: digest}}: the build at commit 99c62e2 on an NVIDIA H100
 # 80GB HBM3 (132 SMs), CUDA 12.8
 REFERENCE = {132: {
-    "k1_manual_e50": "",
-    "k1_manual_e3000": "",
-    "k1_auto_e50": "",
-    "k1_auto_e3000": "",
-    "k1_manual_e50_eps": "",
-    "k2_manual_e50": "",
-    "grid_manual_e50": "",
+    "k1_manual_e50": "27e870cc11d6419a5f70f2f25c5c3e24472e8f1a3a386ba7e2b999bcf9674654",
+    "k1_manual_e3000": "3bf8c0e24d62aa12dd58248aa6c1ca0da59ca5b50da1478697a1e9f9007df8b1",
+    "k1_auto_e50": "19b509e607666697c8235f07eddcfbc0ec5e17eb91a682dea661c24ac42d3482",
+    "k1_auto_e3000": "8dd13e08518115d8605bc412a0ecd9585cade3e25fa04de649205a991e336e06",
+    "k1_manual_e50_eps": "0a1f23ee36db624964c180864fcd8aee50a79a55ab318a48684bf9ac3dae8d51",
+    "k2_manual_e50": "9f52b03e6e7e000ac237670629b14cca6e7e84b17e9a5534eb3d2b074b51a2f4",
+    "grid_manual_e50": "a7a6c3eda81adf31d139d10979eed264b51300a60e171f3ac2ab6eb532c093b6",
 }}
 
 
@@ -130,12 +130,13 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", nargs="*", default=None, choices=sorted(CASES))
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    got = digests(dev, args.cases, args.cluster)
     if dev.type != "cuda":
-        print(json.dumps({"k1_digest": got, "device": str(dev)}), flush=True)
+        print(json.dumps({"k1_digest": digests(dev, args.cases, args.cluster),
+                          "device": str(dev)}), flush=True)
         return 0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ref = reference(sms)
+    got = digests(dev, args.cases, args.cluster)
     bad = mismatches(got, ref)
     print(json.dumps({"k1_digest": got, "sms": sms, "cluster": args.cluster,
                       "reference": {k: ref.get(k) for k in got}, "mismatches": bad}),

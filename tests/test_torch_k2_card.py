@@ -10,7 +10,7 @@ port's dependencies:
 Tolerances as ``K1_TOL`` in chip_smoke.py: one epoch with explicit ε,
 params atol 1e-4 and metrics rtol 1e-5 (summation order only).  A grid
 block runs K1's own code on its own rows and seed, so against K1's single
-run it is held bit for bit.
+run it is held bit for bit, as is every cluster size against size 1.
 """
 
 import pathlib
@@ -126,3 +126,62 @@ def test_grid_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="compiled for"):
         tft._fused_seeds_call(stacked, x[:16].contiguous(), c[:16].contiguous(), [0, 1],
                               CVAEConfig(hidden_dim=64), LW, 1, 1e-3)
+
+
+def _same(a, b):
+    (pa, ma), (pb, mb) = a, b
+    return all(torch.equal(u, v) for u, v in zip(pa, pb)) and torch.equal(ma, mb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backward", ["manual", "auto"])
+def test_k2_every_cluster_size_is_size_one_bit_for_bit(backward):
+    dev = _cuda()
+    runs = [_windows(s) for s in ("sce1", "sce2", "sce3", "sce4")]
+    seeds = [0, 1, 2, 3]
+    stacked, x, c, row_off, _ = _ragged(runs, dev, seeds)
+    one = tft._fused_multi_call(stacked, x, c, row_off, seeds, CFG, LW, 5, 1e-3,
+                                backward=backward, cluster=1)
+    for cs in (2, 4, 8, 16, 0):
+        out = tft._fused_multi_call(stacked, x, c, row_off, seeds, CFG, LW, 5, 1e-3,
+                                    backward=backward, cluster=cs)
+        assert tft._fused_multi_call.cluster in ((cs,) if cs else (1, 2, 4, 8, 16))
+        assert _same(out, one), f"cluster {cs}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backward", ["manual", "auto"])
+def test_seed_grid_every_cluster_size_is_size_one_bit_for_bit(backward):
+    dev = _cuda()
+    w = _windows("sce4")
+    x, c = tft.fused_inputs(w, dev)
+    seeds = list(range(8))
+    stacked = tft.stack_flat_params(
+        [init_params(torch.Generator().manual_seed(s), CFG, dev) for s in seeds])
+    one = tft._fused_seeds_call(stacked, x, c, seeds, CFG, LW, 5, 1e-3, backward=backward,
+                                cluster=1)
+    for cs in (2, 4, 8, 16, 0):
+        out = tft._fused_seeds_call(stacked, x, c, seeds, CFG, LW, 5, 1e-3,
+                                    backward=backward, cluster=cs)
+        assert tft._fused_seeds_call.cluster in ((cs,) if cs else (1, 2, 4, 8, 16))
+        assert _same(out, one), f"cluster {cs}"
+
+
+@pytest.mark.gpu
+def test_grid_impossible_cluster_size_raises():
+    dev = _cuda()
+    runs = [_windows("sce2"), _windows("sce1")]
+    stacked, x, c, row_off, _ = _ragged(runs, dev, [0, 1])
+    before = (tft._fused_multi_call.launches, tft._fused_seeds_call.launches)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        tft._fused_multi_call(stacked, x, c, row_off, [0, 1], CFG, LW, 1, 1e-3, cluster=32)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        tft._fused_seeds_call(stacked, x[:16].contiguous(), c[:16].contiguous(), [0, 1],
+                              CFG, LW, 1, 1e-3, cluster=6)
+    for entry, kernel, rows, off in ((tft._K1_ENTRIES["manual"][1], "K2", len(x), row_off),
+                                     (tft._K1_ENTRIES["manual"][2], "K1", 32, None)):
+        xs, cs_ = (x, c) if off else (x[:16].contiguous(), c[:16].contiguous())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            tft._grid_call_kernel(entry, kernel, stacked, xs, cs_, None, [0, 1], CFG, LW, 1,
+                                  1e-3, rows, off, 32)
+    assert (tft._fused_multi_call.launches, tft._fused_seeds_call.launches) == before
