@@ -107,7 +107,7 @@ namespace {
 // Adam (optax defaults) on parameter i with gradient g, bias correction
 // 1 - exp(t ln b)
 __device__ __forceinline__ void adam_at(int i, float g, float* P, float* mv, float lr,
-                                        float tf) {
+                                        float tf, bf16* Pb) {
   const float LN_B1 = -0.10536051565782630f, LN_B2 = -0.0010005003335835335f;
   const float bc1 = 1.f - expf(tf * LN_B1), bc2 = 1.f - expf(tf * LN_B2);
   float* m = mv;
@@ -116,7 +116,9 @@ __device__ __forceinline__ void adam_at(int i, float g, float* P, float* mv, flo
   const float vi = 0.999f * v[i] + 0.001f * g * g;
   m[i] = mi;
   v[i] = vi;
-  P[i] = P[i] - lr * ((mi / bc1) / (sqrtf(vi / bc2) + 1e-8f));
+  const float p = P[i] - lr * ((mi / bc1) / (sqrtf(vi / bc2) + 1e-8f));
+  P[i] = p;
+  if (Pb) Pb[i] = __float2bfloat16_rn(p);  // the bf16 copy, as rnd<true> rounds
 }
 
 // the loss row of the epoch from the loss sums of every chunk, in order
@@ -134,21 +136,22 @@ __device__ __forceinline__ void reduce_loss_row(const float* __restrict__ partia
   if (threadIdx.x == 0) loss_row(red, n_valid, lw, row);
 }
 
-// (b): sum the partial rows in chunk order; Adam (adam != 0) or the sum
-// into grad_out; block 0 writes the loss row.  Gradient rows are summed
+// (b): sum the partial rows in chunk order; Adam (adam != 0, refreshing the
+// bf16 copy Pb of the params when it is given) or the sum into grad_out;
+// block 0 writes the loss row.  Gradient rows are summed
 // from chunk first_chunk on (noacc) and only where grad_mode says: 0 every
 // parameter, 1 cond_0's bias alone (nodw), 2 none (fwdonly); the loss rows
 // of every chunk are summed.
 __global__ void __launch_bounds__(256)
 ks_reduce_kernel(const float* __restrict__ partial, int n_chunks, int first_chunk,
-                 int grad_mode, float* P, float* mv, float* grad_out, float* row,
+                 int grad_mode, float* P, float* mv, bf16* Pb, float* grad_out, float* row,
                  int adam, float lr, float tf, float n_valid, LossW lw) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < N_PARAMS) {
     float g = 0.f;
     if (grad_mode == 0 || (grad_mode == 1 && i >= b_off(L_C0) && i < b_off(L_C0) + H))
       for (int c = first_chunk; c < n_chunks; ++c) g += partial[(long long)c * PART_STRIDE + i];
-    if (adam) adam_at(i, g, P, mv, lr, tf);
+    if (adam) adam_at(i, g, P, mv, lr, tf, Pb);
     else grad_out[i] = g;
   }
   if (blockIdx.x == 0) reduce_loss_row(partial, n_chunks, n_valid, lw, row);
@@ -172,8 +175,8 @@ __device__ __forceinline__ bool is_weight(int i) {
 // sum into grad_out, and block 0 writes the loss row
 __global__ void __launch_bounds__(256)
 ks_reduce_auto_kernel(const float* __restrict__ partial, int n_tiles, int cpt, int mode,
-                      float* P, float* mv, float* grad_out, float* row, int adam, float lr,
-                      float tf, float n_valid, LossW lw) {
+                      float* P, float* mv, bf16* Pb, float* grad_out, float* row, int adam,
+                      float lr, float tf, float n_valid, LossW lw) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < N_PARAMS) {
     const bool round_tile = mode == A_CHAIN || (mode == A_ACTS && is_weight(i));
@@ -183,7 +186,7 @@ ks_reduce_auto_kernel(const float* __restrict__ partial, int n_tiles, int cpt, i
       for (int j = 0; j < cpt; ++j) s += partial[((long long)t * cpt + j) * PART_STRIDE + i];
       g += round_tile ? rnd<true>(s) : s;
     }
-    if (adam) adam_at(i, g, P, mv, lr, tf);
+    if (adam) adam_at(i, g, P, mv, lr, tf, Pb);
     else grad_out[i] = g;
   }
   if (blockIdx.x == 0) reduce_loss_row(partial, n_tiles * cpt, n_valid, lw, row);
@@ -191,14 +194,15 @@ ks_reduce_auto_kernel(const float* __restrict__ partial, int n_tiles, int cpt, i
 
 int launch_auto(int mode, const void* packed, int width, const void* eps, int noise,
                 long long n_pad, int tile, float n_valid, LossW lw,
-                unsigned long long seed_base, const float* P, float* partial, int cpt,
-                int per, cudaStream_t stream) {
+                unsigned long long seed_base, const float* P, const bf16* Pb, float* partial,
+                bf16* scratch, int cpt, int per, cudaStream_t stream) {
   switch (mode) {
 #define KS_AUTO_CASE(m)                                                             \
     case m:                                                                         \
       return ks_launch_grad_auto_##m(packed, width, eps, noise, n_pad, tile,       \
                                      n_valid, lw.recon, lw.kld, lw.start, lw.time, \
-                                     seed_base, P, partial, cpt, per, (void*)stream);
+                                     seed_base, P, Pb, partial, scratch, cpt, per,      \
+                                     (void*)stream);
     KS_AUTO_CASE(0) KS_AUTO_CASE(1) KS_AUTO_CASE(2)
 #undef KS_AUTO_CASE
     default:
@@ -208,15 +212,15 @@ int launch_auto(int mode, const void* packed, int width, const void* eps, int no
 
 int launch_knob(int knob, const void* packed, int width, const void* eps, int noise,
                 long long n_pad, int tile, float n_valid, LossW lw,
-                unsigned long long seed_base, const float* P, float* partial,
-                int sms, cudaStream_t stream) {
+                unsigned long long seed_base, const float* P, const bf16* Pb, float* partial,
+                bf16* scratch, int sms, cudaStream_t stream) {
   switch (knob) {
 #define KS_KNOB_CASE(bit)                                                           \
     case bit:                                                                       \
       return ks_launch_grad_knob_##bit(packed, width, eps, noise, n_pad, tile,     \
                                        n_valid, lw.recon, lw.kld, lw.start,        \
-                                       lw.time, seed_base, P, partial, sms,        \
-                                       (void*)stream);
+                                       lw.time, seed_base, P, Pb, partial,         \
+                                       scratch, sms, (void*)stream);
     KS_KNOB_CASE(2) KS_KNOB_CASE(4) KS_KNOB_CASE(8) KS_KNOB_CASE(16) KS_KNOB_CASE(32)
     KS_KNOB_CASE(64)
 #undef KS_KNOB_CASE
@@ -244,6 +248,16 @@ long long ks_partial_floats() { return PART_STRIDE; }
 
 long long ks_chunks(long long n_pad, int sms) { return n_chunks_of(n_pad, sms); }
 
+// what the engine does: E_TENSOR_CORES | E_DEFERRED_DW
+int ks_engine() { return E_TENSOR_CORES | E_DEFERRED_DW; }
+
+// the bf16 elements of the deferred weight gradients' scratch of the
+// manual bf16 instances: one chunk's rows (its steps x 32) of SCR_ROW each
+long long ks_scratch_elems(long long n_pad, int sms) {
+  if (n_pad <= 0 || sms <= 0) return 0;
+  return n_chunks_of(n_pad, sms) * scratch_chunk((int)chunk_steps(n_pad, sms));
+}
+
 // the partial rows of the autodiff instances (chunks within tiles)
 long long ks_chunks_auto(long long n_pad, int tile, int sms) {
   if (n_pad <= 0 || tile <= 0 || sms <= 0) return 0;
@@ -252,47 +266,70 @@ long long ks_chunks_auto(long long n_pad, int tile, int sms) {
   return n_pad / tile * cpt;
 }
 
+// the scratch of the bf16_chain autodiff instance (its weight gradients
+// deferred as the manual bf16 instances'): each chunk's `per` steps
+long long ks_scratch_elems_auto(long long n_pad, int tile, int sms) {
+  if (n_pad <= 0 || tile <= 0 || sms <= 0) return 0;
+  int cpt, per;
+  auto_chunking(n_pad, tile, sms, &cpt, &per);
+  return n_pad / tile * cpt * scratch_chunk(per);
+}
+
+// the bf16 copy of the params (n_params bf16), on `stream`
+int ks_weights_bf16(const float* params, void* pb, void* stream) {
+  return launch_weights_bf16(params, (bf16*)pb, (cudaStream_t)stream);
+}
+
 // K3: `epochs` epochs of (a) then (b) with Adam, on `stream`.  With hbm
 // noise, eps is the (epochs n_pad, Z) stream; prng keys tile i of epoch e
 // by seed + e n_tiles + i.  params (n_params) is updated in place; mv is
 // m then v, zeroed by the caller; metrics gets one row of 8 per epoch.
-// `ablate` holds the knob bits (0 in production): at most one per-tile knob
-// (bf16 only) beside noadam, whose summed gradients go to `sink` (n_params).
-int k3_train(const void* packed, int width, const void* eps, int bf16, int noise,
+// In bf16, pb (n_params bf16) receives the bf16 copy of the params (made
+// before the first epoch, refreshed by every Adam step) and scratch
+// (ks_scratch_elems bf16) the deferred weight gradients' operands; both
+// may be null in float32.  `ablate` holds the knob bits (0 in production):
+// at most one per-tile knob (bf16 only) beside noadam, whose summed
+// gradients go to `sink` (n_params).
+int k3_train(const void* packed, int width, const void* eps, int bf16_mode, int noise,
              long long n_pad, int tile, float n_valid, int epochs, float lr,
              float w_recon, float w_kld, float w_start, float w_time,
              unsigned long long seed, float* params, float* mv, float* partial,
-             int sms, float* metrics, int ablate, float* sink, void* stream) {
+             int sms, float* metrics, void* pb, void* scratch, int ablate, float* sink,
+             void* stream) {
   int err = check_args(width, eps, noise, n_pad, tile, n_valid, sms);
   if (err || epochs <= 0) return err ? err : (int)cudaErrorInvalidValue;
   const int knob = ablate & ~K_NOADAM;
   const bool noadam = (ablate & K_NOADAM) != 0;
-  if ((ablate & ~127) || (knob & (knob - 1)) || (knob && !bf16) || (noadam && !sink) ||
-      (knob == K_NOACC && tile % R))
+  if ((ablate & ~127) || (knob & (knob - 1)) || (knob && !bf16_mode) || (noadam && !sink) ||
+      (knob == K_NOACC && tile % R) || (bf16_mode && (!pb || !scratch)))
     return (int)cudaErrorInvalidValue;
   const LossW lw{w_recon, w_kld, w_start, w_time};
   const cudaStream_t st = (cudaStream_t)stream;
+  bf16* Pb = bf16_mode ? (bf16*)pb : nullptr;
+  bf16* scr = bf16_mode ? (bf16*)scratch : nullptr;
   const long long n_tiles = n_pad / tile;
   const int n_chunks = (int)n_chunks_of(n_pad, sms);
   const int first_chunk =
       knob == K_NOACC ? (int)(((n_pad - tile) / R) / chunk_steps(n_pad, sms)) : 0;
   const int grad_mode = knob == K_NODW ? 1 : knob == K_FWDONLY ? 2 : 0;
-  const size_t esize = bf16 ? 2 : 4;
+  const size_t esize = bf16_mode ? 2 : 4;
+  if (Pb && (err = launch_weights_bf16(params, Pb, st))) return err;
   for (int e = 0; e < epochs; ++e) {
     const void* eps_e = noise == HBM
         ? (const void*)((const char*)eps + (size_t)e * n_pad * Z * esize) : eps;
     const unsigned long long base = seed + (unsigned long long)e * n_tiles;
     if (knob)
       err = launch_knob(knob, packed, width, eps_e, noise, n_pad, tile, n_valid, lw, base,
-                        params, partial, sms, st);
+                        params, Pb, partial, scr, sms, st);
     else
-      err = bf16 ? launch_grad<true, 0>(packed, width, eps_e, noise, n_pad, tile, n_valid,
-                                        lw, base, params, partial, sms, st)
-                 : launch_grad<false, 0>(packed, width, eps_e, noise, n_pad, tile, n_valid,
-                                         lw, base, params, partial, sms, st);
+      err = bf16_mode
+          ? launch_grad<true, 0>(packed, width, eps_e, noise, n_pad, tile, n_valid, lw, base,
+                                 params, Pb, partial, scr, sms, st)
+          : launch_grad<false, 0>(packed, width, eps_e, noise, n_pad, tile, n_valid, lw, base,
+                                  params, nullptr, partial, nullptr, sms, st);
     if (err) return err;
     ks_reduce_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
-        partial, n_chunks, first_chunk, grad_mode, params, mv, noadam ? sink : nullptr,
+        partial, n_chunks, first_chunk, grad_mode, params, mv, Pb, noadam ? sink : nullptr,
         metrics + (long long)e * 8, noadam ? 0 : 1, lr, (float)(e + 1), n_valid, lw);
     err = (int)cudaGetLastError();
     if (err) return err;
@@ -303,52 +340,66 @@ int k3_train(const void* packed, int width, const void* eps, int bf16, int noise
 // K4: one epoch of (a) then (b) without Adam: the summed gradients into
 // grad (n_params) and the loss row into row (8).  prng keys tile i by
 // stream_base + i; with hbm noise, eps is this epoch's (n_pad, Z) stream.
-int k4_grad_epoch(const void* packed, int width, const void* eps, int bf16, int noise,
+// In bf16, pb and scratch as k3_train's (the copy made at the start).
+int k4_grad_epoch(const void* packed, int width, const void* eps, int bf16_mode, int noise,
                   long long n_pad, int tile, float n_valid, float w_recon,
                   float w_kld, float w_start, float w_time,
                   unsigned long long stream_base, const float* params, float* partial,
-                  int sms, float* grad, float* row, void* stream) {
+                  int sms, float* grad, float* row, void* pb, void* scratch, void* stream) {
   int err = check_args(width, eps, noise, n_pad, tile, n_valid, sms);
   if (err) return err;
+  if (bf16_mode && (!pb || !scratch)) return (int)cudaErrorInvalidValue;
   const LossW lw{w_recon, w_kld, w_start, w_time};
   const cudaStream_t st = (cudaStream_t)stream;
-  err = bf16 ? launch_grad<true, 0>(packed, width, eps, noise, n_pad, tile, n_valid, lw,
-                                    stream_base, params, partial, sms, st)
-             : launch_grad<false, 0>(packed, width, eps, noise, n_pad, tile, n_valid, lw,
-                                     stream_base, params, partial, sms, st);
+  if (bf16_mode) {
+    if ((err = launch_weights_bf16(params, (bf16*)pb, st))) return err;
+    err = launch_grad<true, 0>(packed, width, eps, noise, n_pad, tile, n_valid, lw,
+                               stream_base, params, (const bf16*)pb, partial, (bf16*)scratch,
+                               sms, st);
+  } else {
+    err = launch_grad<false, 0>(packed, width, eps, noise, n_pad, tile, n_valid, lw,
+                                stream_base, params, nullptr, partial, nullptr, sms, st);
+  }
   if (err) return err;
   ks_reduce_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
-      partial, (int)n_chunks_of(n_pad, sms), 0, 0, nullptr, nullptr, grad, row, 0, 0.f,
-      0.f, n_valid, lw);
+      partial, (int)n_chunks_of(n_pad, sms), 0, 0, nullptr, nullptr, nullptr, grad, row, 0,
+      0.f, 0.f, n_valid, lw);
   return (int)cudaGetLastError();
 }
 
 // K3's autodiff instance in dtype mode `mode` (0 float32, 1 f32_acts, 2
 // bf16_chain; the corpus and eps stream bf16 in modes 1 and 2): `epochs`
 // epochs of its (a) then its reduce with Adam, on `stream`, arguments as
-// k3_train's; partial holds ks_chunks_auto rows.
+// k3_train's; partial holds ks_chunks_auto rows; in modes 1 and 2 pb
+// receives the bf16 copy of the params, as k3_train's, and in mode 2
+// scratch (ks_scratch_elems_auto bf16) the deferred weight gradients'
+// operands.
 int k3_train_auto(const void* packed, int width, const void* eps, int mode, int noise,
                   long long n_pad, int tile, float n_valid, int epochs, float lr,
                   float w_recon, float w_kld, float w_start, float w_time,
                   unsigned long long seed, float* params, float* mv, float* partial,
-                  int sms, float* metrics, void* stream) {
+                  int sms, float* metrics, void* pb, void* scratch, void* stream) {
   int err = check_args(width, eps, noise, n_pad, tile, n_valid, sms);
-  if (err || epochs <= 0 || mode < A_F32 || mode > A_CHAIN)
+  if (err || epochs <= 0 || mode < A_F32 || mode > A_CHAIN || (mode != A_F32 && !pb) ||
+      (mode == A_CHAIN && !scratch))
     return err ? err : (int)cudaErrorInvalidValue;
   const LossW lw{w_recon, w_kld, w_start, w_time};
   const cudaStream_t st = (cudaStream_t)stream;
+  bf16* Pb = mode != A_F32 ? (bf16*)pb : nullptr;
   const long long n_tiles = n_pad / tile;
   int cpt, per;
   auto_chunking(n_pad, tile, sms, &cpt, &per);
   const size_t esize = mode == A_F32 ? 4 : 2;
+  if (Pb && (err = launch_weights_bf16(params, Pb, st))) return err;
   for (int e = 0; e < epochs; ++e) {
     const void* eps_e = noise == HBM
         ? (const void*)((const char*)eps + (size_t)e * n_pad * Z * esize) : eps;
     err = launch_auto(mode, packed, width, eps_e, noise, n_pad, tile, n_valid, lw,
-                      seed + (unsigned long long)e * n_tiles, params, partial, cpt, per, st);
+                      seed + (unsigned long long)e * n_tiles, params, Pb, partial,
+                      (bf16*)scratch, cpt, per, st);
     if (err) return err;
     ks_reduce_auto_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
-        partial, (int)n_tiles, cpt, mode, params, mv, nullptr, metrics + (long long)e * 8,
+        partial, (int)n_tiles, cpt, mode, params, mv, Pb, nullptr, metrics + (long long)e * 8,
         1, lr, (float)(e + 1), n_valid, lw);
     err = (int)cudaGetLastError();
     if (err) return err;
@@ -357,24 +408,30 @@ int k3_train_auto(const void* packed, int width, const void* eps, int mode, int 
 }
 
 // K4's autodiff instance: one epoch of k3_train_auto's (a) then its reduce
-// without Adam, arguments as k4_grad_epoch's with `mode` for bf16.
+// without Adam, arguments as k4_grad_epoch's with `mode` for bf16 (pb
+// needed in modes 1 and 2, scratch in mode 2, as k3_train_auto's).
 int k4_grad_epoch_auto(const void* packed, int width, const void* eps, int mode,
                        int noise, long long n_pad, int tile, float n_valid,
                        float w_recon, float w_kld, float w_start, float w_time,
                        unsigned long long stream_base, const float* params,
-                       float* partial, int sms, float* grad, float* row, void* stream) {
+                       float* partial, int sms, float* grad, float* row, void* pb,
+                       void* scratch, void* stream) {
   int err = check_args(width, eps, noise, n_pad, tile, n_valid, sms);
-  if (err || mode < A_F32 || mode > A_CHAIN) return err ? err : (int)cudaErrorInvalidValue;
+  if (err || mode < A_F32 || mode > A_CHAIN || (mode != A_F32 && !pb) ||
+      (mode == A_CHAIN && !scratch))
+    return err ? err : (int)cudaErrorInvalidValue;
   const LossW lw{w_recon, w_kld, w_start, w_time};
   const cudaStream_t st = (cudaStream_t)stream;
+  bf16* Pb = mode != A_F32 ? (bf16*)pb : nullptr;
+  if (Pb && (err = launch_weights_bf16(params, Pb, st))) return err;
   int cpt, per;
   auto_chunking(n_pad, tile, sms, &cpt, &per);
   err = launch_auto(mode, packed, width, eps, noise, n_pad, tile, n_valid, lw, stream_base,
-                    params, partial, cpt, per, st);
+                    params, Pb, partial, (bf16*)scratch, cpt, per, st);
   if (err) return err;
   ks_reduce_auto_kernel<<<(N_PARAMS + 255) / 256, 256, 0, st>>>(
-      partial, (int)(n_pad / tile), cpt, mode, nullptr, nullptr, grad, row, 0, 0.f, 0.f,
-      n_valid, lw);
+      partial, (int)(n_pad / tile), cpt, mode, nullptr, nullptr, nullptr, grad, row, 0, 0.f,
+      0.f, n_valid, lw);
   return (int)cudaGetLastError();
 }
 

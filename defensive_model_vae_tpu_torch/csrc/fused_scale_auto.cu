@@ -19,5 +19,6 @@ static_assert(KS_AUTO_MODE == A_F32 || KS_AUTO_MODE == A_ACTS || KS_AUTO_MODE ==
 KS_AUTO_DEFINE(KS_AUTO_MODE) {
   return launch_grad_auto<KS_AUTO_MODE>(packed, width, eps, noise, n_pad, tile, n_valid,
                                         LossW{w_recon, w_kld, w_start, w_time}, seed_base,
-                                        P, partial, cpt, per, (cudaStream_t)stream);
+                                        P, (const bf16*)Pb, partial, (bf16*)scratch, cpt,
+                                        per, (cudaStream_t)stream);
 }

@@ -19,5 +19,6 @@ static_assert(KS_KNOB == K_NOACC || KS_KNOB == K_BIASDOT || KS_KNOB == K_CHAINCD
 KS_KNOB_DEFINE(KS_KNOB) {
   return launch_grad<true, KS_KNOB>(packed, width, eps, noise, n_pad, tile, n_valid,
                                     LossW{w_recon, w_kld, w_start, w_time}, seed_base,
-                                    P, partial, sms, (cudaStream_t)stream);
+                                    P, (const bf16*)Pb, partial, (bf16*)scratch, sms,
+                                    (cudaStream_t)stream);
 }

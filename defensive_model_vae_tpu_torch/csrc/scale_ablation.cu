@@ -21,12 +21,13 @@
 //                the launches (two an epoch) are what this one measures.
 //   p1_sol       per 32-row step h = x W_in (41 x 128), then n_chain
 //                products h W (128 x 128), no relu, on K3's own `gemm`
-//                (scale_common.cuh) with its staging, its rounding of both
-//                operands to bf16 and its float32 accumulation; sum(h) into
-//                metrics[e, 0].  The FLOPs of K3's products with none of
-//                K3's other work, so sol - stream against K3 reads as "K3's
-//                products against everything else in K3".  No wgmma here:
-//                that is later work for K3 and sol together.
+//                (scale_common.cuh): both operands rounded to bf16, the
+//                products on the tensor cores (mma.sync, float32
+//                accumulators; the weights, float32 here, rounded as they
+//                are staged); sum(h) into metrics[e, 0].  The FLOPs of K3's
+//                products with none of K3's other work, so sol - stream
+//                against K3 reads as "K3's products against everything
+//                else in K3".
 //   p1_ablation  K3's forward and loss (mode 0, fwd) under fixed params
 //                with packed eps, and (mode 1, dx) the gradient of the total
 //                loss in x, summed into metrics[e, 5].  dx is JAX autodiff's
@@ -190,21 +191,21 @@ __device__ __forceinline__ void dx_chain(const float* __restrict__ P, float kS,
   float* G2 = sm + S_G2;
   float* G3 = sm + S_G3;
   float* DREC = sm + S_DREC;
-  agrad<false, true, 1, L_D3>(DREC, F, P, 0, H, G3, H, nullptr, 0, G3, H);
-  agrad<false, true, 1, L_D2>(G3, H, P, 0, H, G2, H, nullptr, 0, G2, H);
-  agrad<false, true, 1, L_D1>(G2, H, P, 0, H, G1, H, nullptr, 0, G1, H);
-  agrad<false, true, 1, L_D0>(G1, H, P, 0, Z, GINb, GIN, nullptr, 0, nullptr, 0);  // dz
+  agrad<false, true, 1, L_D3>(DREC, F, P, nullptr, 0, H, G3, H, nullptr, 0, G3, H);
+  agrad<false, true, 1, L_D2>(G3, H, P, nullptr, 0, H, G2, H, nullptr, 0, G2, H);
+  agrad<false, true, 1, L_D1>(G2, H, P, nullptr, 0, H, G1, H, nullptr, 0, G1, H);
+  agrad<false, true, 1, L_D0>(G1, H, P, nullptr, 0, Z, GINb, GIN, nullptr, 0, nullptr, 0);  // dz
   head_grad(kS);
   // d_h = round(d_mu W_mu[:H]^T) + round(d_lv W_lv[:H]^T), relu-masked by h
   gemm<false, true, 1>(R, H, Z, ML, Z2, 1, P + w_off(L_ML), 1, Z2, G3, H, false, nullptr,
                        false, nullptr, 0, nullptr, 0);
   gemm<false, true, 1>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + Z, 1, Z2, HCAT, H2, false,
                        nullptr, false, G3, H, HCAT, H2);
-  agrad<false, true, 1, L_E3>(HCAT, H2, P, 0, H, E2, H, nullptr, 0, E2, H);
-  agrad<false, true, 1, L_E2>(E2, H, P, 0, H, E1, H, nullptr, 0, E1, H);
-  agrad<false, true, 1, L_E1>(E1, H, P, 0, H, E0, H, nullptr, 0, E0, H);
+  agrad<false, true, 1, L_E3>(HCAT, H2, P, nullptr, 0, H, E2, H, nullptr, 0, E2, H);
+  agrad<false, true, 1, L_E2>(E2, H, P, nullptr, 0, H, E1, H, nullptr, 0, E1, H);
+  agrad<false, true, 1, L_E1>(E1, H, P, nullptr, 0, H, E0, H, nullptr, 0, E0, H);
   // gx = round(round(dy_enc0 W_e0^T) + direct term)
-  agrad<false, true, 2, L_E0>(E0, H, P, 0, F, X, F, DIR, F, nullptr, 0);
+  agrad<false, true, 2, L_E0>(E0, H, P, nullptr, 0, F, X, F, DIR, F, nullptr, 0);
 }
 
 // P1-abl: one block per chunk of `steps` 32-row steps of the packed bf16
@@ -223,7 +224,7 @@ abl_kernel(const bf16* __restrict__ packed, int width, long long n_pad, float S,
     const long long r0 = ((long long)blockIdx.x * steps + step) * R;
     if (r0 >= n_pad) break;
     load_step<true>(packed, width, nullptr, PACKED, n_pad, 1, 0ull, r0);
-    forward_step<true>(P);
+    forward_step<true>(P, nullptr);
     loss_step<DX, false, DX>(acc, k, DIR);
     if constexpr (DX) {
       dx_chain(P, k.kS, DIR);

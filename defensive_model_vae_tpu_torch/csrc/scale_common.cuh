@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int T = 10, D = 3, F = T * D, Z = 8, H = 128, C = 2;
@@ -31,7 +33,9 @@ constexpr int W_IN = F + C + 1;              // packed columns before the eps on
 constexpr int NT = 256;                      // threads of a block
 constexpr int R = 32;                        // rows of one step
 constexpr int TM = 32, TN = 128, TK = 32;    // product tile
-constexpr int TMP = TM + 4, TNP = TN + 4;    // padded rows of the staged tiles
+constexpr int TMP = TM + 4, TNP = TN + 4;    // padded rows of the float32 staged tiles
+
+using bf16 = __nv_bfloat16;
 
 // the flat parameter layout (ops/fused_trainer.py::pack_kernel_params):
 // 11 layers in forward order, each W (in, out) row-major then b (out);
@@ -55,12 +59,52 @@ constexpr int L_C0 = 0, L_C1 = 1, L_E0 = 2, L_E1 = 3, L_E2 = 4, L_E3 = 5,
 constexpr int LOSS_OFF = (N_PARAMS + 3) / 4 * 4;
 constexpr int PART_STRIDE = LOSS_OFF + 8;
 
+// a block's running bias-gradient sums in shared memory, layer by layer
+__host__ __device__ constexpr int bs_off(int l) {
+  return l == 0 ? 0 : bs_off(l - 1) + layer_out(l - 1);
+}
+constexpr int BS_FLOATS = bs_off(11);
+
+// the deferred weight gradients' scratch (bf16 modes of the manual
+// instances): one row of SCR_ROW bf16 a corpus row, per layer its product
+// input then its output cotangent, each padded to 8 values (16 bytes)
+__host__ __device__ constexpr int pad8(int x) { return (x + 7) / 8 * 8; }
+__host__ __device__ constexpr int scr_in(int l) {
+  return l == 0 ? 0 : scr_in(l - 1) + pad8(layer_in(l - 1)) + pad8(layer_out(l - 1));
+}
+__host__ __device__ constexpr int scr_dy(int l) { return scr_in(l) + pad8(layer_in(l)); }
+constexpr int SCR_ROW = scr_in(11);
+static_assert(SCR_ROW % 8 == 0, "16-byte scratch rows");
+
 // K3's ablation knobs (ops/fused_scale.py::ABLATE_BITS), one bit each
 enum Knob { K_NOADAM = 1, K_NOACC = 2, K_BIASDOT = 4, K_CHAINCD = 8, K_NODW = 16,
             K_FWDONLY = 32, K_DWT = 64 };
 
 // the autodiff instances' dtype modes (ops/fused_scale.py::AUTO_MODES)
 enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
+
+// what the engine does (ks_engine): bf16 products on the tensor cores, and
+// the manual bf16 instances' weight gradients deferred to the chunk's end
+enum Engine { E_TENSOR_CORES = 1, E_DEFERRED_DW = 2 };
+
+// the staging of the step's products, one ring of slots:
+// tensor cores (bf16): TC_S slots of A [TM][TK + 8] and B [TN][TK + 8] or
+// [TK][TN + 8] (rows of 80 and 272 bytes: ldmatrix reads them without bank
+// conflicts); float32 FMA: FM_S slots of A [TK][TMP] and B [TK][TNP]
+constexpr int TC_S = 3, TC_AK = TK + 8, TC_BK = TK + 8, TC_BN = TN + 8;
+constexpr int TC_A_BYTES = TM * TC_AK * 2;
+constexpr int TC_B_BYTES = TN * TC_BK * 2 > TK * TC_BN * 2 ? TN * TC_BK * 2 : TK * TC_BN * 2;
+constexpr int TC_SLOT = TC_A_BYTES + TC_B_BYTES;
+constexpr int FM_S = 2, FM_A = TK * TMP, FM_B = TK * TNP, FM_SLOT = FM_A + FM_B;
+constexpr int STG_BYTES = TC_S * TC_SLOT > FM_S * FM_SLOT * 4 ? TC_S * TC_SLOT
+                                                                : FM_S * FM_SLOT * 4;
+// the deferred weight-gradient products' tiles and ring (over the step's
+// buffers, which are free by then): A [DK][DM + 8] (or, under dwT,
+// [DM][DK + 8]) and B [DK][DN + 8]
+constexpr int DM = 128, DN = 128, DK = 64, D_S = 4;
+constexpr int D_AM = DM + 8, D_AK = DK + 8, D_BN = DN + 8;
+constexpr int D_A_BYTES = DK * D_AM * 2 > DM * D_AK * 2 ? DK * D_AM * 2 : DM * D_AK * 2;
+constexpr int D_SLOT = D_A_BYTES + DK * D_BN * 2;
 
 // shared memory (floats), each buffer row-major [R][width]
 constexpr int S_X = 0;
@@ -79,17 +123,15 @@ constexpr int S_G2 = S_G1 + R * H;
 constexpr int S_G3 = S_G2 + R * H;
 constexpr int S_REC = S_G3 + R * H;
 constexpr int S_DREC = S_REC + R * F;
-constexpr int S_AS = S_DREC + R * F;      // staged A tile [TK][TMP]
-constexpr int S_BS = S_AS + TK * TMP;     // staged B tile [TK][TNP]
-constexpr int S_RED = S_BS + TK * TNP;    // [5][NT] loss sums
-constexpr int S_FLOATS = S_RED + 5 * NT;
+constexpr int S_STG = S_DREC + R * F;     // the products' ring (STG_BYTES)
+constexpr int S_RED = S_STG;              // [5][NT] loss sums, outside any product
+constexpr int S_BSUM = S_STG + STG_BYTES / 4;  // the bias-gradient sums
+constexpr int S_FLOATS = S_BSUM + (BS_FLOATS + 3) / 4 * 4;
 constexpr int SMEM_BYTES = S_FLOATS * 4;
 static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
-// the dwT knob's transposed activations [fi][R], up to GIN rows at a time
-constexpr int S_TR = S_FLOATS;
-constexpr int SMEM_BYTES_DWT = (S_TR + GIN * R) * 4;
-static_assert(SMEM_BYTES_DWT <= 232448, "shared memory of the dwT instance");
-static_assert(S_AS % 4 == 0 && S_BS % 4 == 0, "float4 tiles");
+static_assert(S_STG % 4 == 0 && S_BSUM % 4 == 0 && STG_BYTES % 16 == 0, "16-byte slots");
+static_assert(5 * NT * 4 <= STG_BYTES, "the loss sums fit in the ring");
+static_assert(D_S * D_SLOT <= S_STG * 4, "the deferred products' ring fits in the step's buffers");
 
 extern __shared__ __align__(16) float sm[];
 
@@ -108,35 +150,246 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float
 template <bool BF> struct Elem { using type = float; };
 template <> struct Elem<true> { using type = __nv_bfloat16; };
 
-// C[M, N] = A[M, K] . B[K, N] with A(m, k) = A[m sam + k sak] and
-// B(k, n) = B[k sbk + n sbn], so one routine serves the forward (act . W),
-// the activation gradient (dY . W^T) and the weight gradient (act^T . dY).
-// Each operand is staged into shared memory, rounded to bf16 when RA / RB.
-// Epilogue, in order: the product rounded to bf16 when RO >= 1, + bias[n]
-// (itself rounded to bf16 when RBI), + add[m lda + n], rounded again when
-// RO == 2, relu, times (mask[m ldm + n] > 0), then + the old C when accum.
-template <bool RA, bool RB, int RO = 0, bool RBI = false>
-__device__ void gemm(int M, int N, int K,
-                     const float* A, int sam, int sak,
-                     const float* Bm, int sbk, int sbn,
-                     float* Cm, int ldc, bool accum,
-                     const float* bias, bool relu,
-                     const float* add, int lda,
-                     const float* mask, int ldm) {
-  float* As = sm + S_AS;
-  float* Bs = sm + S_BS;
+// ---- device-only helpers: asynchronous copies, ldmatrix, mma --------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes from global to shared memory, the last 16 - bytes zero-filled
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(bytes));
+}
+
+// 4 bytes likewise
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 bf16 matrices, each row's 16-byte address from one lane (lanes
+// 8i .. 8i+7: matrix i); .trans hands each thread a column pair instead
+__device__ __forceinline__ void ldsm4(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(unsigned r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d (16x8, float32) += a (16x16, bf16, row-major) . b (16x8, bf16)
+__device__ __forceinline__ void mma16816(float d[4], const unsigned a[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- end of the device-only helpers ----------------------------------------
+
+// one product's epilogue on one output element (gemm's note)
+template <int RO, bool RBI>
+__device__ __forceinline__ float epilogue(float v, int m, int n, const float* bias, bool relu,
+                                          const float* add, int lda, const float* mask,
+                                          int ldm) {
+  if constexpr (RO >= 1) v = rnd<true>(v);
+  if (bias) v += rnd<RBI>(bias[n]);
+  if (add) v += add[(long long)m * lda + n];
+  if constexpr (RO == 2) v = rnd<true>(v);
+  if (relu) v = fmaxf(v, 0.f);
+  if (mask) v = v * (mask[(long long)m * ldm + n] > 0.f ? 1.f : 0.f);
+  return v;
+}
+
+// eight bf16 of B along its contiguous index into dst (16 bytes): from the
+// bf16 copy Bb by cp.async when it is given (16 bytes where aligned and
+// whole, else 2-byte-granular 4-byte copies), else from the float32 Bm
+// (global or shared memory), rounded; `valid` of the eight are real, the
+// rest zero
+__device__ __forceinline__ void stage8(bf16* dst, const float* Bm, const bf16* Bb,
+                                       long long off, int valid) {
+  if (Bb) {
+    const bf16* src = Bb + off;
+    if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      cp_async16(dst, src, 16);
+    } else if ((reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+#pragma unroll
+      for (int e = 0; e < 8; e += 2) {
+        const int b = valid - e >= 2 ? 4 : valid - e == 1 ? 2 : 0;
+        cp_async4(dst + e, b ? src + e : Bb, b);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = e < valid ? src[e] : __float2bfloat16_rn(0.f);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; e += 2) {
+      const float v0 = e < valid ? Bm[off + e] : 0.f;
+      const float v1 = e + 1 < valid ? Bm[off + e + 1] : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(dst + e) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// The step's products with both operands rounded to bf16 on the tensor
+// cores: mma.sync m16n8k16, float32 accumulators.  Output tiles of TM x TN,
+// warp w computing rows (w % 2) 16 .. + 16 and columns (w / 2) 32 .. + 32;
+// the depth in steps of TK through a ring of TC_S slots, each step's copies
+// issued two steps ahead.  A (float32, shared memory) is rounded into the
+// slot as [m][k]; B from the bf16 copy Bb by cp.async, or from the float32
+// Bm rounded, as [k][n] when n is its contiguous index (sbn == 1), else as
+// [n][k] (sbk == 1).
+template <int RO, bool RBI>
+__device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
+                        const float* Bm, const bf16* Bb, int sbk, int sbn, float* Cm, int ldc,
+                        bool accum, const float* bias, bool relu, const float* add, int lda,
+                        const float* mask, int ldm) {
+  char* stg = reinterpret_cast<char*>(sm + S_STG);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 1, wn = warp >> 1;
+  const int mat = lane >> 3, r8 = lane & 7, g = lane >> 2, t4 = lane & 3;
+  const bool bkn = sbn == 1;
+  if (!bkn && sbk != 1) __trap();  // B needs a contiguous index
+  const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
+  const int nsteps = (K + TK - 1) / TK;
+  for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
+    const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
+    auto stage = [&](int s) {
+      char* slot = stg + (s % TC_S) * TC_SLOT;
+      bf16* As = reinterpret_cast<bf16*>(slot);
+      bf16* Bs = reinterpret_cast<bf16*>(slot + TC_A_BYTES);
+      const int k0 = s * TK;
+      for (int i = tid; i < TM * TK / 2; i += NT) {
+        const int mm = i / (TK / 2), kk = 2 * (i % (TK / 2));
+        const int m = m0 + mm, k = k0 + kk;
+        float v0 = 0.f, v1 = 0.f;
+        if (m < M) {
+          const float* a = A + (long long)m * sam + (long long)k * sak;
+          if (k < K) v0 = a[0];
+          if (k + 1 < K) v1 = a[sak];
+        }
+        *reinterpret_cast<__nv_bfloat162*>(As + mm * TC_AK + kk) = __floats2bfloat162_rn(v0, v1);
+      }
+      if (bkn) {
+        for (int i = tid; i < TK * TN / 8; i += NT) {
+          const int kk = i / (TN / 8), nn = 8 * (i % (TN / 8));
+          const int k = k0 + kk, n = n0 + nn;
+          const int valid = k < K ? (N - n < 8 ? N - n : 8) : 0;
+          stage8(Bs + kk * TC_BN + nn, Bm, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
+        }
+      } else {
+        for (int i = tid; i < TN * TK / 8; i += NT) {
+          const int nn = i / (TK / 8), kk = 8 * (i % (TK / 8));
+          const int k = k0 + kk, n = n0 + nn;
+          const int valid = n < N ? (K - k < 8 ? K - k : 8) : 0;
+          stage8(Bs + nn * TC_BK + kk, Bm, Bb, (long long)n * sbn + k, valid < 0 ? 0 : valid);
+        }
+      }
+    };
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+    if (tile) __syncthreads();  // every warp is done with the last tile's slots
+#pragma unroll
+    for (int s = 0; s < TC_S - 1; ++s) {
+      if (s < nsteps) stage(s);
+      cp_commit();
+    }
+    for (int s = 0; s < nsteps; ++s) {
+      cp_wait<TC_S - 2>();
+      __syncthreads();
+      if (s + TC_S - 1 < nsteps) stage(s + TC_S - 1);
+      cp_commit();
+      const char* slot = stg + (s % TC_S) * TC_SLOT;
+      const bf16* As = reinterpret_cast<const bf16*>(slot);
+      const bf16* Bs = reinterpret_cast<const bf16*>(slot + TC_A_BYTES);
+      const int kmax = K - s * TK;
+#pragma unroll
+      for (int kk = 0; kk < TK; kk += 16) {
+        if (kk >= kmax) break;
+        unsigned a[4];
+        ldsm4(a, As + (wm * 16 + (mat & 1) * 8 + r8) * TC_AK + kk + (mat >> 1) * 8);
+#pragma unroll
+        for (int jp = 0; jp < 2; ++jp) {
+          const int nb = wn * 32 + jp * 16;
+          if (n0 + nb >= N) break;
+          unsigned b[4];
+          if (bkn)
+            ldsm4t(b, Bs + (kk + (mat & 1) * 8 + r8) * TC_BN + nb + (mat >> 1) * 8);
+          else
+            ldsm4(b, Bs + (nb + (mat >> 1) * 8 + r8) * TC_BK + kk + (mat & 1) * 8);
+          mma16816(acc[2 * jp], a, b[0], b[1]);
+          mma16816(acc[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    // epilogue: thread (g, t4) holds rows g, g + 8 and columns 2 t4, 2 t4 + 1
+    // of each of its four 16 x 8 tiles
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + wn * 32 + j * 8 + 2 * t4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm * 16 + g + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          if (n + c >= N) continue;
+          const float v = epilogue<RO, RBI>(acc[j][2 * h + c], m, n + c, bias, relu, add,
+                                            lda, mask, ldm);
+          float* dst = Cm + (long long)m * ldc + n + c;
+          *dst = accum ? *dst + v : v;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The float32 FMA products (both operands float32, or one rounded to bf16):
+// tiles of TM x TN, each thread 4 x 4 outputs, every output one FMA chain
+// over k in order.  The depth in steps of TK through a ring of FM_S slots:
+// A (shared memory) copied in rounded when RA; B, when it lies in global
+// memory (the weights), by cp.async (16 bytes along n where aligned, else
+// 4 bytes an element) one step ahead, and rounded when read if RB; from
+// shared memory copied in rounded when RB.  The old C of an accumulating
+// product is read before the depth loop.
+template <bool RA, bool RB, int RO, bool RBI>
+__device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
+                         const float* Bm, int sbk, int sbn, float* Cm, int ldc, bool accum,
+                         const float* bias, bool relu, const float* add, int lda,
+                         const float* mask, int ldm) {
+  float* stg = sm + S_STG;
   const int tid = threadIdx.x;
   const int tx = tid % 32, ty = tid / 32;
+  const bool b_async = !__isShared(Bm);
   const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
+  const int nsteps = (K + TK - 1) / TK;
   const bool vec = (ldc % 4 == 0) && ((reinterpret_cast<uintptr_t>(Cm) & 15) == 0);
   for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
     const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
-    float acc[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += TK) {
+    const int nb = n0 + tx * 4;
+    auto stage = [&](int s) {
+      float* As = stg + (s % FM_S) * FM_SLOT;
+      float* Bs = As + FM_A;
+      const int k0 = s * TK;
       for (int i = tid; i < TK * TM; i += NT) {
         int kk, mm;
         if (sak == 1) { kk = i % TK; mm = i / TK; } else { kk = i / TM; mm = i % TM; }
@@ -144,28 +397,76 @@ __device__ void gemm(int M, int N, int K,
         As[kk * TMP + mm] =
             (m < M && k < K) ? rnd<RA>(A[(long long)m * sam + (long long)k * sak]) : 0.f;
       }
-      for (int i = tid; i < TK * TN; i += NT) {
-        int kk, nn;
-        if (sbn == 1) { kk = i / TN; nn = i % TN; } else { kk = i % TK; nn = i / TK; }
-        const int n = n0 + nn, k = k0 + kk;
-        Bs[kk * TNP + nn] =
-            (n < N && k < K) ? rnd<RB>(Bm[(long long)k * sbk + (long long)n * sbn]) : 0.f;
+      if (b_async && sbn == 1) {
+        for (int i = tid; i < TK * TN / 4; i += NT) {
+          const int kk = i / (TN / 4), nn = 4 * (i % (TN / 4));
+          const int k = k0 + kk, n = n0 + nn;
+          const float* src = Bm + (long long)k * sbk + n;
+          float* dst = Bs + kk * TNP + nn;
+          const int valid = k < K ? (N - n < 4 ? N - n : 4) : 0;
+          if (valid == 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+            cp_async16(dst, src, 16);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < valid ? src + e : Bm, e < valid ? 4 : 0);
+          }
+        }
+      } else if (b_async) {
+        for (int i = tid; i < TK * TN; i += NT) {
+          const int kk = i % TK, nn = i / TK;
+          const int k = k0 + kk, n = n0 + nn;
+          const bool ok = n < N && k < K;
+          cp_async4(Bs + kk * TNP + nn, ok ? Bm + (long long)k * sbk + (long long)n * sbn : Bm,
+                    ok ? 4 : 0);
+        }
+      } else {
+        for (int i = tid; i < TK * TN; i += NT) {
+          int kk, nn;
+          if (sbn == 1) { kk = i / TN; nn = i % TN; } else { kk = i % TK; nn = i / TK; }
+          const int n = n0 + nn, k = k0 + kk;
+          Bs[kk * TNP + nn] =
+              (n < N && k < K) ? rnd<RB>(Bm[(long long)k * sbk + (long long)n * sbn]) : 0.f;
+        }
       }
+    };
+    float acc[4][4], old[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[r][c] = 0.f;
+        const int m = m0 + ty * 4 + r, n = nb + c;
+        old[r][c] = accum && m < M && n < N ? Cm[(long long)m * ldc + n] : 0.f;
+      }
+    stage(0);
+    cp_commit();
+    for (int s = 0; s < nsteps; ++s) {
+      if (s + 1 < nsteps) stage(s + 1);
+      cp_commit();
+      cp_wait<1>();
       __syncthreads();
+      const float* As = stg + (s % FM_S) * FM_SLOT;
+      const float* Bs = As + FM_A;
+      auto body = [&](auto round_b) {
 #pragma unroll 8
-      for (int kk = 0; kk < TK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(As + kk * TMP + ty * 4);
-        const float4 b = *reinterpret_cast<const float4*>(Bs + kk * TNP + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+        for (int kk = 0; kk < TK; ++kk) {
+          const float4 a = *reinterpret_cast<const float4*>(As + kk * TMP + ty * 4);
+          const float4 b = *reinterpret_cast<const float4*>(Bs + kk * TNP + tx * 4);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          const float bv[4] = {rnd<decltype(round_b)::value>(b.x),
+                               rnd<decltype(round_b)::value>(b.y),
+                               rnd<decltype(round_b)::value>(b.z),
+                               rnd<decltype(round_b)::value>(b.w)};
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < 4; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
-      }
+            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+        }
+      };
+      if (RB && b_async) body(std::integral_constant<bool, RB>{});
+      else body(std::integral_constant<bool, false>{});
       __syncthreads();
     }
-    const int nb = n0 + tx * 4;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int m = m0 + ty * 4 + r;
@@ -174,109 +475,296 @@ __device__ void gemm(int M, int N, int K,
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int n = nb + c;
-        float v = acc[r][c];
-        if (n < N) {
-          if constexpr (RO >= 1) v = rnd<true>(v);
-          if (bias) v += rnd<RBI>(bias[n]);
-          if (add) v += add[(long long)m * lda + n];
-          if constexpr (RO == 2) v = rnd<true>(v);
-          if (relu) v = fmaxf(v, 0.f);
-          if (mask) v = v * (mask[(long long)m * ldm + n] > 0.f ? 1.f : 0.f);
-        }
-        val[c] = v;
+        val[c] = n < N ? epilogue<RO, RBI>(acc[r][c], m, n, bias, relu, add, lda, mask, ldm)
+                       : acc[r][c];
       }
       float* dst = Cm + (long long)m * ldc + nb;
       if (vec && nb + 4 <= N) {
         float4 o = make_float4(val[0], val[1], val[2], val[3]);
         if (accum) {
-          const float4 old = *reinterpret_cast<const float4*>(dst);
-          o.x += old.x; o.y += old.y; o.z += old.z; o.w += old.w;
+          o.x = old[r][0] + o.x; o.y = old[r][1] + o.y;
+          o.z = old[r][2] + o.z; o.w = old[r][3] + o.w;
         }
         *reinterpret_cast<float4*>(dst) = o;
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (nb + c < N) dst[c] = accum ? dst[c] + val[c] : val[c];
+          if (nb + c < N) dst[c] = accum ? old[r][c] + val[c] : val[c];
       }
     }
   }
   __syncthreads();
 }
 
-// forward layer over the step's rows: out = act(in . W + b)
-template <bool BF, int L>
-__device__ void fwd(const float* in, int ldi, const float* P, float* out, int ldo,
-                    bool relu) {
-  constexpr int fi = layer_in(L), fo = layer_out(L);
-  gemm<BF, BF>(R, fo, fi, in, ldi, 1, P + w_off(L), fo, 1, out, ldo, false,
-               P + b_off(L), relu, nullptr, 0, nullptr, 0);
+// C[M, N] = A[M, K] . B[K, N] with A(m, k) = A[m sam + k sak] and
+// B(k, n) = B[k sbk + n sbn], so one routine serves the forward (act . W)
+// and the activation gradient (dY . W^T) (and, in float32, the weight
+// gradient act^T . dY).  A operand is rounded to bf16 when RA / RB; with
+// both rounded the product runs on the tensor cores (tc_gemm), B read from
+// the bf16 copy Bb when it is given (the weights), else on float32 FMA
+// (fma_gemm), each output one chain over k in order.  Epilogue, in order:
+// the product rounded to bf16 when RO >= 1, + bias[n] (itself rounded to
+// bf16 when RBI), + add[m lda + n], rounded again when RO == 2, relu, times
+// (mask[m ldm + n] > 0), then + the old C when accum.
+template <bool RA, bool RB, int RO = 0, bool RBI = false>
+__device__ void gemm(int M, int N, int K,
+                     const float* A, int sam, int sak,
+                     const float* Bm, int sbk, int sbn,
+                     float* Cm, int ldc, bool accum,
+                     const float* bias, bool relu,
+                     const float* add, int lda,
+                     const float* mask, int ldm, const bf16* Bb = nullptr) {
+  if constexpr (RA && RB) {
+    tc_gemm<RO, RBI>(M, N, K, A, sam, sak, Bm, Bb, sbk, sbn, Cm, ldc, accum, bias, relu, add,
+                     lda, mask, ldm);
+  } else {
+    fma_gemm<RA, RB, RO, RBI>(M, N, K, A, sam, sak, Bm, sbk, sbn, Cm, ldc, accum, bias, relu,
+                              add, lda, mask, ldm);
+  }
 }
 
-// weight gradient in^T . dy and bias gradient colsum(dy) of layer L, into
-// the chunk's partial row (written on the first step, added after).  BD
-// (the biasdot knob) sums the bf16-rounded dy, as a ones-row product does
-template <bool BF, bool BD, int L>
-__device__ void wgrad(const float* in, int ldi, const float* dy, int ldy,
-                      float* part, bool accum) {
+// forward layer over the step's rows: out = act(in . W + b), B from the
+// bf16 copy Pb of the weights when it is given
+template <bool BF, int L>
+__device__ void fwd(const float* in, int ldi, const float* P, const bf16* Pb, float* out,
+                    int ldo, bool relu) {
   constexpr int fi = layer_in(L), fo = layer_out(L);
-  gemm<BF, BF>(fi, fo, R, in, 1, ldi, dy, ldy, 1, part + w_off(L), fo, accum,
-               nullptr, false, nullptr, 0, nullptr, 0);
+  gemm<BF, BF>(R, fo, fi, in, ldi, 1, P + w_off(L), fo, 1, out, ldo, false,
+               P + b_off(L), relu, nullptr, 0, nullptr, 0, Pb ? Pb + w_off(L) : nullptr);
+}
+
+// the bias gradient colsum(dy) of layer L into the block's running sums
+// (written on the first step, added after), each column one thread's sum
+// over the rows in order.  BD (the biasdot knob) sums the bf16-rounded dy,
+// as a ones-row product does
+template <bool BD, int L>
+__device__ __forceinline__ void bias_sum(const float* dy, int ldy, bool accum) {
+  constexpr int fo = layer_out(L);
+  float* bs = sm + S_BSUM + bs_off(L);
   for (int n = threadIdx.x; n < fo; n += NT) {
     float s = 0.f;
     for (int r = 0; r < R; ++r) s += rnd<BD>(dy[r * ldy + n]);
-    part[b_off(L) + n] = accum ? part[b_off(L) + n] + s : s;
+    bs[n] = accum ? bs[n] + s : s;
   }
-  __syncthreads();
 }
 
-// the dwT knob's weight gradient: in^T written out into shared memory (up
-// to GIN of its rows at a time), then a plain product over it.  It stages
-// the same values into the product tiles as wgrad, so its sums are the
-// same, bit for bit; the bias gradient is wgrad's.
-template <bool BF, int L>
-__device__ void wgrad_t(const float* in, int ldi, const float* dy, int ldy,
-                        float* part, bool accum) {
+// weight gradient in^T . dy of layer L on float32 FMA (in rounded to bf16
+// when RA, dy when RB), into the chunk's partial row (written on the first
+// step, added after), and its bias gradient
+template <bool RA, bool RB, bool BD, int L>
+__device__ void wgrad(const float* in, int ldi, const float* dy, int ldy, float* part,
+                      bool accum) {
   constexpr int fi = layer_in(L), fo = layer_out(L);
-  float* TR = sm + S_TR;
-  for (int f0 = 0; f0 < fi; f0 += GIN) {
-    const int nf = fi - f0 < GIN ? fi - f0 : GIN;
-    for (int i = threadIdx.x; i < nf * R; i += NT) {
-      const int f = i / R, r = i % R;
-      TR[i] = in[r * ldi + f0 + f];
-    }
-    __syncthreads();
-    gemm<BF, BF>(nf, fo, R, TR, R, 1, dy, ldy, 1, part + w_off(L) + f0 * fo, fo, accum,
-                 nullptr, false, nullptr, 0, nullptr, 0);
+  bias_sum<BD, L>(dy, ldy, accum);
+  gemm<RA, RB>(fi, fo, R, in, 1, ldi, dy, ldy, 1, part + w_off(L), fo, accum,
+               nullptr, false, nullptr, 0, nullptr, 0);
+}
+
+// R rows of `width` float32 values (row stride lds) into the scratch rows
+// at dst (row stride SCR_ROW), rounded to bf16
+__device__ __forceinline__ void to_scratch(const float* src, int lds, int width, bf16* dst) {
+  const int pairs = width / 2;
+  for (int i = threadIdx.x; i < R * pairs; i += NT) {
+    const int r = i / pairs, c = 2 * (i % pairs);
+    *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * SCR_ROW + c) =
+        __floats2bfloat162_rn(src[r * lds + c], src[r * lds + c + 1]);
   }
-  for (int n = threadIdx.x; n < fo; n += NT) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += dy[r * ldy + n];
-    part[b_off(L) + n] = accum ? part[b_off(L) + n] + s : s;
+}
+
+// the deferred weight gradient of layer L: this step's in and dy, rounded
+// to bf16, into its rows of the chunk's scratch (the product over all the
+// chunk's rows runs once, at its end: wgrad_deferred), and its bias
+// gradient now
+template <bool BD, int L>
+__device__ void wgrad_defer(const float* in, int ldi, const float* dy, int ldy, bf16* scr,
+                            bool accum) {
+  bias_sum<BD, L>(dy, ldy, accum);
+  to_scratch(in, ldi, layer_in(L), scr + scr_in(L));
+  to_scratch(dy, ldy, layer_out(L), scr + scr_dy(L));
+  __syncthreads();
+}
+
+// The deferred weight gradient of layer L over the chunk's scratch rows
+// k_lo .. k_hi (a multiple of R): part[w_off(L)..] = in^T . dy, written
+// once, on the tensor cores.  Tiles of DM x DN, warp w computing rows
+// (w % 4) 32 .. + 32 and columns (w / 4) 64 .. + 64; the depth (the rows)
+// in steps of DK through a ring of D_S slots over the step's buffers, by
+// cp.async from the scratch.  A(m, k) = in of row k, column m: staged
+// [k][m] and read by ldmatrix.trans, or under dwT (DWT) transposed by the
+// threads into [m][k] and read by ldmatrix: the same values into the same
+// products, so the same sums bit for bit.
+template <bool DWT, int L>
+__device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part) {
+  constexpr int M = layer_in(L), N = layer_out(L), MP = pad8(M), NP = pad8(N);
+  char* ring = reinterpret_cast<char*>(sm);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int mat = lane >> 3, r8 = lane & 7, g = lane >> 2, t4 = lane & 3;
+  const int nsteps = (k_hi - k_lo + DK - 1) / DK;
+  constexpr int tiles_m = (M + DM - 1) / DM, tiles_n = (N + DN - 1) / DN;
+  for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
+    const int m0 = (tile / tiles_n) * DM, n0 = (tile % tiles_n) * DN;
+    auto stage = [&](int s) {
+      char* slot = ring + (s % D_S) * D_SLOT;
+      bf16* As = reinterpret_cast<bf16*>(slot);
+      bf16* Bs = reinterpret_cast<bf16*>(slot + D_A_BYTES);
+      const int k0 = k_lo + s * DK;
+      if constexpr (DWT) {
+        for (int i = tid; i < DM * DK / 2; i += NT) {
+          const int mm = i / (DK / 2), kk = 2 * (i % (DK / 2));
+          const int m = m0 + mm, k = k0 + kk;
+          bf16 v0 = __float2bfloat16_rn(0.f), v1 = v0;
+          if (m < MP) {
+            const bf16* a = scr + (long long)k * SCR_ROW + scr_in(L) + m;
+            if (k < k_hi) v0 = a[0];
+            if (k + 1 < k_hi) v1 = a[SCR_ROW];
+          }
+          As[mm * D_AK + kk] = v0;
+          As[mm * D_AK + kk + 1] = v1;
+        }
+      } else {
+        for (int i = tid; i < DK * DM / 8; i += NT) {
+          const int kk = i / (DM / 8), mm = 8 * (i % (DM / 8));
+          const int k = k0 + kk, m = m0 + mm;
+          const bool ok = k < k_hi && m < MP;
+          cp_async16(As + kk * D_AM + mm,
+                     ok ? scr + (long long)k * SCR_ROW + scr_in(L) + m : scr, ok ? 16 : 0);
+        }
+      }
+      for (int i = tid; i < DK * DN / 8; i += NT) {
+        const int kk = i / (DN / 8), nn = 8 * (i % (DN / 8));
+        const int k = k0 + kk, n = n0 + nn;
+        const bool ok = k < k_hi && n < NP;
+        cp_async16(Bs + kk * D_BN + nn,
+                   ok ? scr + (long long)k * SCR_ROW + scr_dy(L) + n : scr, ok ? 16 : 0);
+      }
+    };
+    float acc[2][8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+    // warps whose rows or columns all lie past the layer's compute nothing
+    const bool rows_live = m0 + wm * 32 < M, cols_live = n0 + wn * 64 < N;
+    __syncthreads();  // the step's buffers, or the last tile's slots, are free
+#pragma unroll
+    for (int s = 0; s < D_S - 1; ++s) {
+      if (s < nsteps) stage(s);
+      cp_commit();
+    }
+    for (int s = 0; s < nsteps; ++s) {
+      cp_wait<D_S - 2>();
+      __syncthreads();
+      if (s + D_S - 1 < nsteps) stage(s + D_S - 1);
+      cp_commit();
+      if (!(rows_live && cols_live)) continue;
+      const char* slot = ring + (s % D_S) * D_SLOT;
+      const bf16* As = reinterpret_cast<const bf16*>(slot);
+      const bf16* Bs = reinterpret_cast<const bf16*>(slot + D_A_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < DK; kk += 16) {
+        unsigned a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int mb = wm * 32 + i * 16;
+          if constexpr (DWT)
+            ldsm4(a[i], As + (mb + (mat & 1) * 8 + r8) * D_AK + kk + (mat >> 1) * 8);
+          else
+            ldsm4t(a[i], As + (kk + (mat >> 1) * 8 + r8) * D_AM + mb + (mat & 1) * 8);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          const int nb = wn * 64 + jp * 16;
+          if (n0 + nb >= N) break;
+          unsigned b[4];
+          ldsm4t(b, Bs + (kk + (mat & 1) * 8 + r8) * D_BN + nb + (mat >> 1) * 8);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+            mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+    }
+    if (rows_live && cols_live) {
+      float* W = part + w_off(L);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int n = n0 + wn * 64 + j * 8 + 2 * t4;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + wm * 32 + i * 16 + g + 8 * h;
+            if (m >= M || n >= N) continue;
+            // N is even, so the pair lies inside the row
+            *reinterpret_cast<float2*>(W + (long long)m * N + n) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+          }
+        }
+    }
   }
   __syncthreads();
 }
 
-// the weight and bias gradient of the manual backward under knobs AB
-template <bool BF, int AB, int L>
-__device__ __forceinline__ void wgrad_ab(const float* in, int ldi, const float* dy, int ldy,
-                                         float* part, bool accum) {
-  if constexpr ((AB & K_DWT) != 0) {
-    wgrad_t<BF, L>(in, ldi, dy, ldy, part, accum);
+// the deferred weight gradients of every layer over the chunk's scratch
+// rows k_lo .. k_hi
+template <bool DWT>
+__device__ void wgrads_deferred(const bf16* scr, int k_lo, int k_hi, float* part) {
+  wgrad_deferred<DWT, L_C0>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_C1>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_E0>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_E1>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_E2>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_E3>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_ML>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_D0>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_D1>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_D2>(scr, k_lo, k_hi, part);
+  wgrad_deferred<DWT, L_D3>(scr, k_lo, k_hi, part);
+}
+
+// the block's bias-gradient sums into its partial row, layer by layer with
+// each offset a constant
+template <int L = 0>
+__device__ __forceinline__ void write_bias_sums(float* part) {
+  if constexpr (L == 11) {
+    __syncthreads();
   } else {
-    wgrad<BF, (AB & K_BIASDOT) != 0, L>(in, ldi, dy, ldy, part, accum);
+    for (int n = threadIdx.x; n < layer_out(L); n += NT)
+      part[b_off(L) + n] = sm[S_BSUM + bs_off(L) + n];
+    write_bias_sums<L + 1>(part);
+  }
+}
+
+// the weight and bias gradient of the manual backward under knobs AB:
+// deferred to the chunk's end (DEFER: the bf16 instances), else on float32
+// FMA now
+template <bool BF, bool DEFER, int AB, int L>
+__device__ __forceinline__ void wgrad_ab(const float* in, int ldi, const float* dy, int ldy,
+                                         float* part, bf16* scr, bool accum) {
+  constexpr bool BD = (AB & K_BIASDOT) != 0;
+  if constexpr (DEFER) {
+    wgrad_defer<BD, L>(in, ldi, dy, ldy, scr, accum);
+  } else {
+    wgrad<BF, BF, BD, L>(in, ldi, dy, ldy, part, accum);
   }
 }
 
 // activation gradient of layer L for inputs n_first .. n_first + n_cnt:
 // d_in = (dy . W[n_first:, :]^T (+ add)) * (mask > 0), operands rounded
-// when RA / RB, the output as gemm's RO says
+// when RA / RB (B from the bf16 copy Pb when it is given), the output as
+// gemm's RO says
 template <bool RA, bool RB, int RO, int L>
-__device__ void agrad(const float* dy, int ldy, const float* P, int n_first,
+__device__ void agrad(const float* dy, int ldy, const float* P, const bf16* Pb, int n_first,
                       int n_cnt, float* d_in, int ldd, const float* add, int lda,
                       const float* mask, int ldm) {
   constexpr int fo = layer_out(L);
-  gemm<RA, RB, RO>(R, n_cnt, fo, dy, ldy, 1, P + w_off(L) + n_first * fo, 1, fo, d_in,
-                   ldd, false, nullptr, false, add, lda, mask, ldm);
+  const int off = w_off(L) + n_first * fo;
+  gemm<RA, RB, RO>(R, n_cnt, fo, dy, ldy, 1, P + off, 1, fo, d_in, ldd, false, nullptr,
+                   false, add, lda, mask, ldm, Pb ? Pb + off : nullptr);
 }
 
 __device__ __forceinline__ void philox(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -366,7 +854,8 @@ __device__ __forceinline__ void load_step(const typename Elem<BF>::type* __restr
 
 // the forward of the staged rows: every activation into its buffer
 template <bool BF>
-__device__ __forceinline__ void forward_step(const float* __restrict__ P) {
+__device__ __forceinline__ void forward_step(const float* __restrict__ P,
+                                             const bf16* __restrict__ Pb) {
   float* X = sm + S_X;
   float* CND = sm + S_CND;
   float* EPS = sm + S_EPS;
@@ -382,23 +871,23 @@ __device__ __forceinline__ void forward_step(const float* __restrict__ P) {
   float* G3 = sm + S_G3;
   float* REC = sm + S_REC;
   const int tid = threadIdx.x;
-  fwd<BF, L_C0>(CND, C, P, C0, H, true);
-  fwd<BF, L_C1>(C0, H, P, HCAT + H, H2, true);   // hc -> hcat[:, H:]
-  fwd<BF, L_E0>(X, F, P, E0, H, true);
-  fwd<BF, L_E1>(E0, H, P, E1, H, true);
-  fwd<BF, L_E2>(E1, H, P, E2, H, true);
-  fwd<BF, L_E3>(E2, H, P, HCAT, H2, true);       // h -> hcat[:, :H]
-  fwd<BF, L_ML>(HCAT, H2, P, ML, Z2, false);     // [mu | logvar]
+  fwd<BF, L_C0>(CND, C, P, Pb, C0, H, true);
+  fwd<BF, L_C1>(C0, H, P, Pb, HCAT + H, H2, true);   // hc -> hcat[:, H:]
+  fwd<BF, L_E0>(X, F, P, Pb, E0, H, true);
+  fwd<BF, L_E1>(E0, H, P, Pb, E1, H, true);
+  fwd<BF, L_E2>(E1, H, P, Pb, E2, H, true);
+  fwd<BF, L_E3>(E2, H, P, Pb, HCAT, H2, true);       // h -> hcat[:, :H]
+  fwd<BF, L_ML>(HCAT, H2, P, Pb, ML, Z2, false);     // [mu | logvar]
   for (int i = tid; i < R * GIN; i += NT) {
     const int r = i / GIN, j = i % GIN;
     GINb[i] = j < Z ? ML[r * Z2 + j] + EPS[r * Z + j] * expf(0.5f * ML[r * Z2 + Z + j])
                     : HCAT[r * H2 + H + (j - Z)];
   }
   __syncthreads();
-  fwd<BF, L_D0>(GINb, GIN, P, G1, H, true);
-  fwd<BF, L_D1>(G1, H, P, G2, H, true);
-  fwd<BF, L_D2>(G2, H, P, G3, H, true);
-  fwd<BF, L_D3>(G3, H, P, REC, F, false);
+  fwd<BF, L_D0>(GINb, GIN, P, Pb, G1, H, true);
+  fwd<BF, L_D1>(G1, H, P, Pb, G2, H, true);
+  fwd<BF, L_D2>(G2, H, P, Pb, G3, H, true);
+  fwd<BF, L_D3>(G3, H, P, Pb, REC, F, false);
 }
 
 // the step's loss sums into `a`; with DREC_OUT the fused d_recon into DREC
@@ -463,15 +952,17 @@ __device__ __forceinline__ void head_grad(float kS) {
 }
 
 // K3's manual backward of the step (ops/manual_grad.py, phase by phase),
-// each cotangent overwriting its activation.  Knobs (template bits AB):
-// K_BIASDOT sums rounded dy for the biases; K_CHAINCD rounds each
-// activation gradient's output to bf16 (and the sum of hc's two
-// cotangents); K_NODW skips every weight and bias gradient and adds the
-// chains' last cotangents into `chk` instead; K_DWT takes each weight
-// gradient through an explicit transpose (wgrad_t).
-template <bool BF, int AB>
-__device__ __forceinline__ void backward_step(const float* __restrict__ P, float* part,
-                                              bool accum, float kS, float& chk) {
+// each cotangent overwriting its activation; the weight gradients deferred
+// into the scratch rows scr (DEFER) or on float32 FMA into part.  Knobs
+// (template bits AB): K_BIASDOT sums rounded dy for the biases; K_CHAINCD
+// rounds each activation gradient's output to bf16 (and the sum of hc's
+// two cotangents); K_NODW skips every weight and bias gradient and adds
+// the chains' last cotangents into `chk` instead; K_DWT changes only the
+// deferred products (wgrad_deferred).
+template <bool BF, bool DEFER, int AB>
+__device__ __forceinline__ void backward_step(const float* __restrict__ P,
+                                              const bf16* __restrict__ Pb, float* part,
+                                              bf16* scr, bool accum, float kS, float& chk) {
   constexpr bool NODW = (AB & K_NODW) != 0;
   constexpr int RO1 = (AB & K_CHAINCD) ? 1 : 0, RO2 = (AB & K_CHAINCD) ? 2 : 0;
   float* X = sm + S_X;
@@ -487,41 +978,44 @@ __device__ __forceinline__ void backward_step(const float* __restrict__ P, float
   float* G2 = sm + S_G2;
   float* G3 = sm + S_G3;
   float* DREC = sm + S_DREC;
+#define KS_WG(L, in, ldi, dy, ldy) \
+  if constexpr (!NODW) wgrad_ab<BF, DEFER, AB, L>(in, ldi, dy, ldy, part, scr, accum)
 
   // ---- decoder ------------------------------------------------------------
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_D3>(G3, H, DREC, F, part, accum);
-  agrad<BF, BF, RO1, L_D3>(DREC, F, P, 0, H, G3, H, nullptr, 0, G3, H);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_D2>(G2, H, G3, H, part, accum);
-  agrad<BF, BF, RO1, L_D2>(G3, H, P, 0, H, G2, H, nullptr, 0, G2, H);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_D1>(G1, H, G2, H, part, accum);
-  agrad<BF, BF, RO1, L_D1>(G2, H, P, 0, H, G1, H, nullptr, 0, G1, H);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_D0>(GINb, GIN, G1, H, part, accum);
-  agrad<BF, BF, RO1, L_D0>(G1, H, P, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);  // [dz | dhc_dec]
+  KS_WG(L_D3, G3, H, DREC, F);
+  agrad<BF, BF, RO1, L_D3>(DREC, F, P, Pb, 0, H, G3, H, nullptr, 0, G3, H);
+  KS_WG(L_D2, G2, H, G3, H);
+  agrad<BF, BF, RO1, L_D2>(G3, H, P, Pb, 0, H, G2, H, nullptr, 0, G2, H);
+  KS_WG(L_D1, G1, H, G2, H);
+  agrad<BF, BF, RO1, L_D1>(G2, H, P, Pb, 0, H, G1, H, nullptr, 0, G1, H);
+  KS_WG(L_D0, GINb, GIN, G1, H);
+  agrad<BF, BF, RO1, L_D0>(G1, H, P, Pb, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);  // [dz | dhc_dec]
 
   // ---- heads ----------------------------------------------------------------
   head_grad(kS);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_ML>(HCAT, H2, ML, Z2, part, accum);
+  KS_WG(L_ML, HCAT, H2, ML, Z2);
   // encoder top cotangent, relu-masked by h; condition cotangent from both
   // concats, relu-masked by hc
-  agrad<BF, BF, RO1, L_ML>(ML, Z2, P, 0, H, HCAT, H2, nullptr, 0, HCAT, H2);
-  agrad<BF, BF, RO2, L_ML>(ML, Z2, P, H, H, HCAT + H, H2, GINb + Z, GIN, HCAT + H, H2);
+  agrad<BF, BF, RO1, L_ML>(ML, Z2, P, Pb, 0, H, HCAT, H2, nullptr, 0, HCAT, H2);
+  agrad<BF, BF, RO2, L_ML>(ML, Z2, P, Pb, H, H, HCAT + H, H2, GINb + Z, GIN, HCAT + H, H2);
 
   // ---- encoder and condition chains -----------------------------------------
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_E3>(E2, H, HCAT, H2, part, accum);
-  agrad<BF, BF, RO1, L_E3>(HCAT, H2, P, 0, H, E2, H, nullptr, 0, E2, H);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_E2>(E1, H, E2, H, part, accum);
-  agrad<BF, BF, RO1, L_E2>(E2, H, P, 0, H, E1, H, nullptr, 0, E1, H);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_E1>(E0, H, E1, H, part, accum);
-  agrad<BF, BF, RO1, L_E1>(E1, H, P, 0, H, E0, H, nullptr, 0, E0, H);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_E0>(X, F, E0, H, part, accum);
-  if constexpr (!NODW) wgrad_ab<BF, AB, L_C1>(C0, H, HCAT + H, H2, part, accum);
-  agrad<BF, BF, RO1, L_C1>(HCAT + H, H2, P, 0, H, C0, H, nullptr, 0, C0, H);
+  KS_WG(L_E3, E2, H, HCAT, H2);
+  agrad<BF, BF, RO1, L_E3>(HCAT, H2, P, Pb, 0, H, E2, H, nullptr, 0, E2, H);
+  KS_WG(L_E2, E1, H, E2, H);
+  agrad<BF, BF, RO1, L_E2>(E2, H, P, Pb, 0, H, E1, H, nullptr, 0, E1, H);
+  KS_WG(L_E1, E0, H, E1, H);
+  agrad<BF, BF, RO1, L_E1>(E1, H, P, Pb, 0, H, E0, H, nullptr, 0, E0, H);
+  KS_WG(L_E0, X, F, E0, H);
+  KS_WG(L_C1, C0, H, HCAT + H, H2);
+  agrad<BF, BF, RO1, L_C1>(HCAT + H, H2, P, Pb, 0, H, C0, H, nullptr, 0, C0, H);
   if constexpr (!NODW) {
-    wgrad_ab<BF, AB, L_C0>(CND, C, C0, H, part, accum);
+    wgrad_ab<BF, DEFER, AB, L_C0>(CND, C, C0, H, part, scr, accum);
   } else {
     for (int i = threadIdx.x; i < R * H; i += NT) chk += E0[i] + C0[i];
     __syncthreads();
   }
+#undef KS_WG
 }
 
 // the block's sum of one value per thread, in a fixed order (RED: NT floats)
@@ -585,41 +1079,64 @@ inline long long n_chunks_of(long long n_pad, int sms) {
   return (steps + per - 1) / per;
 }
 
+// the rows of one chunk's scratch: `steps` 32-row steps of SCR_ROW bf16
+inline long long scratch_chunk(int steps) { return (long long)steps * R * SCR_ROW; }
+
 // (a) of K3 and K4: one block per chunk of `steps` 32-row steps; writes the
 // chunk's partial gradients and loss sums to partial[blockIdx.x].  AB holds
-// the ablation knobs of this instance (0: production).  Under K_NOACC every
-// step overwrites the chunk's gradient row except the steps whose rows lie
-// in the epoch's last tile, which add to it (the first of them overwriting),
-// so a chunk that reaches the last tile holds its share of that tile's
-// gradient, and the reduce reads no chunk before it.  K_FWDONLY runs no
-// backward and writes only the loss sums.  K_NODW writes the chains'
-// checksum into every element of cond_0's bias row instead of gradients.
+// the ablation knobs of this instance (0: production).  In bf16 (BF) the
+// products run on the tensor cores with B from the bf16 copy Pb of the
+// weights, and the weight gradients are deferred: each step writes its
+// products' bf16 operands to the chunk's rows of `scratch`, and after the
+// last step one product a layer over the chunk's rows writes the partial
+// row once; in float32 each step's weight gradients go onto FMA and are
+// added into the partial row.  The bias gradients are summed in shared
+// memory either way and written at the end.  Under K_NOACC every step
+// overwrites the chunk's gradient sums except the steps whose rows lie in
+// the epoch's last tile, which add to them (the first of them
+// overwriting), so a chunk that reaches the last tile holds its share of
+// that tile's gradient, and the reduce reads no chunk before it.
+// K_FWDONLY runs no backward and writes only the loss sums.  K_NODW writes
+// the chains' checksum into every element of cond_0's bias row instead of
+// gradients.
 template <bool BF, int AB>
 __global__ void __launch_bounds__(NT, 1)
 ks_grad_kernel(const typename Elem<BF>::type* __restrict__ packed, int width,
                const typename Elem<BF>::type* __restrict__ eps_hbm, int noise,
                long long n_pad, int tile, float S, LossW lw,
                unsigned long long seed_base, const float* __restrict__ P,
-               float* __restrict__ partial, int steps) {
+               const bf16* __restrict__ Pb, float* __restrict__ partial,
+               bf16* __restrict__ scratch, int steps) {
   constexpr bool NOACC = (AB & K_NOACC) != 0, FWDONLY = (AB & K_FWDONLY) != 0;
+  constexpr bool NODW = (AB & K_NODW) != 0, DEFER = BF;
   float* part = partial + (long long)blockIdx.x * PART_STRIDE;
+  bf16* scr = BF ? scratch + blockIdx.x * scratch_chunk(steps) : nullptr;
   LossAcc acc;
   float chk = 0.f;
   const LossCoef k = loss_coef(lw, S);
   const long long last_start = n_pad - tile;
+  int first = 0, done = 0;  // the steps whose weight gradients the chunk sums
 
   for (int step = 0; step < steps; ++step) {
     const long long r0 = ((long long)blockIdx.x * steps + step) * R;
     if (r0 >= n_pad) break;  // the same for the whole block
     bool accum = step > 0;
     if constexpr (NOACC) accum = step > 0 && r0 - R >= last_start;
+    if (!accum) first = step;
+    done = step + 1;
     load_step<BF>(packed, width, eps_hbm, noise, n_pad, tile, seed_base, r0);
-    forward_step<BF>(P);
+    forward_step<BF>(P, Pb);
     loss_step<!FWDONLY, (AB & K_CHAINCD) != 0, false>(acc, k, nullptr);
-    if constexpr (!FWDONLY) backward_step<BF, AB>(P, part, accum, k.kS, chk);
+    if constexpr (!FWDONLY)
+      backward_step<BF, DEFER, AB>(P, Pb, part, BF ? scr + (long long)step * R * SCR_ROW : nullptr,
+                                   accum, k.kS, chk);
   }
+  if constexpr (DEFER && !FWDONLY && !NODW) {
+    wgrads_deferred<(AB & K_DWT) != 0>(scr, first * R, done * R, part);
+  }
+  if constexpr (!FWDONLY && !NODW) write_bias_sums(part);
   write_loss_sums(acc, part + LOSS_OFF);
-  if constexpr ((AB & K_NODW) != 0) {
+  if constexpr (NODW) {
     const float s = block_sum(chk, sm + S_RED);
     for (int n = threadIdx.x; n < H; n += NT) part[b_off(L_C0) + n] = s;
   }
@@ -628,17 +1145,29 @@ ks_grad_kernel(const typename Elem<BF>::type* __restrict__ packed, int width,
 template <bool BF, int AB>
 int launch_grad(const void* packed, int width, const void* eps, int noise,
                 long long n_pad, int tile, float n_valid, LossW lw,
-                unsigned long long seed_base, const float* P, float* partial,
-                int sms, cudaStream_t stream) {
+                unsigned long long seed_base, const float* P, const bf16* Pb, float* partial,
+                bf16* scratch, int sms, cudaStream_t stream) {
   using E = typename Elem<BF>::type;
-  constexpr int smem = (AB & K_DWT) != 0 ? SMEM_BYTES_DWT : SMEM_BYTES;
+  if (BF && (!Pb || !scratch)) return (int)cudaErrorInvalidValue;
   const cudaError_t a = cudaFuncSetAttribute(
-      ks_grad_kernel<BF, AB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ks_grad_kernel<BF, AB>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (a != cudaSuccess) return (int)a;
   const long long n_chunks = n_chunks_of(n_pad, sms);
-  ks_grad_kernel<BF, AB><<<(unsigned)n_chunks, NT, smem, stream>>>(
+  ks_grad_kernel<BF, AB><<<(unsigned)n_chunks, NT, SMEM_BYTES, stream>>>(
       (const E*)packed, width, (const E*)eps, noise, n_pad, tile, 1.f / n_valid, lw,
-      seed_base, P, partial, (int)chunk_steps(n_pad, sms));
+      seed_base, P, Pb, partial, scratch, (int)chunk_steps(n_pad, sms));
+  return (int)cudaGetLastError();
+}
+
+// the bf16 copy of the weights, rounded to nearest even as rnd<true>
+__global__ void __launch_bounds__(256) ks_weights_bf16_kernel(const float* __restrict__ P,
+                                                              bf16* __restrict__ Pb) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < N_PARAMS) Pb[i] = __float2bfloat16_rn(P[i]);
+}
+
+inline int launch_weights_bf16(const float* P, bf16* Pb, cudaStream_t stream) {
+  ks_weights_bf16_kernel<<<(N_PARAMS + 255) / 256, 256, 0, stream>>>(P, Pb);
   return (int)cudaGetLastError();
 }
 
@@ -669,9 +1198,10 @@ int launch_grad(const void* packed, int width, const void* eps, int noise,
 // the forward of the staged rows in MODE: the manual instances' forward,
 // or (A_CHAIN) the bf16 chain's
 template <int MODE>
-__device__ __forceinline__ void forward_step_auto(const float* __restrict__ P) {
+__device__ __forceinline__ void forward_step_auto(const float* __restrict__ P,
+                                                  const bf16* __restrict__ Pb) {
   if constexpr (MODE != A_CHAIN) {
-    forward_step<MODE == A_ACTS>(P);
+    forward_step<MODE == A_ACTS>(P, Pb);
   } else {
     float* X = sm + S_X;
     float* CND = sm + S_CND;
@@ -694,7 +1224,7 @@ __device__ __forceinline__ void forward_step_auto(const float* __restrict__ P) {
 #define KS_CHAIN_FWD(L, in, ldi, out, ldo, relu)                                         \
     gemm<true, true, 2, true>(R, layer_out(L), layer_in(L), in, ldi, 1, P + w_off(L),    \
                               layer_out(L), 1, out, ldo, false, P + b_off(L), relu,      \
-                              nullptr, 0, nullptr, 0)
+                              nullptr, 0, nullptr, 0, Pb ? Pb + w_off(L) : nullptr)
     KS_CHAIN_FWD(L_C0, CND, C, C0, H, true);
     KS_CHAIN_FWD(L_C1, C0, H, HCAT + H, H2, true);
     KS_CHAIN_FWD(L_E0, X, F, E0, H, true);
@@ -789,31 +1319,35 @@ __device__ __forceinline__ void head_grad_auto(float kS) {
   __syncthreads();
 }
 
-// weight gradient in^T . dy of layer L with in rounded to bf16 when RA and
-// dy taken as it is, into the chunk's partial row, and the bias gradient
-// colsum(dy) in float32 (written on the first step, added after)
-template <bool RA, int L>
-__device__ void wgrad_auto(const float* in, int ldi, const float* dy, int ldy,
-                           float* part, bool accum) {
-  constexpr int fi = layer_in(L), fo = layer_out(L);
-  gemm<RA, false>(fi, fo, R, in, 1, ldi, dy, ldy, 1, part + w_off(L), fo, accum,
-                  nullptr, false, nullptr, 0, nullptr, 0);
-  for (int n = threadIdx.x; n < fo; n += NT) {
-    float s = 0.f;
-    for (int r = 0; r < R; ++r) s += dy[r * ldy + n];
-    part[b_off(L) + n] = accum ? part[b_off(L) + n] + s : s;
+// the weight and bias gradient of layer L in the autodiff instance MODE:
+// in A_CHAIN deferred to the chunk's end (both operands are bf16 values),
+// else on float32 FMA now, in rounded to bf16 in A_ACTS and dy as it is
+template <int MODE, int L>
+__device__ __forceinline__ void wgrad_auto(const float* in, int ldi, const float* dy, int ldy,
+                                           float* part, bf16* scr, bool accum) {
+  if constexpr (MODE == A_CHAIN) {
+    wgrad_defer<false, L>(in, ldi, dy, ldy, scr, accum);
+  } else {
+    wgrad<MODE != A_F32, false, false, L>(in, ldi, dy, ldy, part, accum);
   }
-  __syncthreads();
 }
 
 // the autodiff backward of the step in MODE, each cotangent overwriting
-// its activation as in backward_step
+// its activation as in backward_step.  In A_CHAIN every cotangent is a
+// bf16 value (rounded where JAX's bf16 arithmetic rounds it), so its
+// products take it as a rounded operand (rounding a bf16 value changes
+// nothing) and run on the tensor cores, and its weight gradients are
+// deferred into the scratch rows scr as the manual bf16 instances'; in
+// A_ACTS the cotangents are float32, so the activation and weight
+// gradients stay on float32 FMA, step by step into part.
 template <int MODE>
-__device__ __forceinline__ void backward_step_auto(const float* __restrict__ P, float* part,
-                                                   bool accum, float kS) {
+__device__ __forceinline__ void backward_step_auto(const float* __restrict__ P,
+                                                   const bf16* __restrict__ Pb, float* part,
+                                                   bf16* scr, bool accum, float kS) {
   constexpr bool RT = MODE != A_F32;          // bf16 operands and outputs
+  constexpr bool CH = MODE == A_CHAIN;        // bf16 cotangents too
   constexpr int RO = RT ? 1 : 0;              // an activation gradient's output
-  constexpr int RO2 = MODE == A_CHAIN ? 2 : RO;  // ... and the bf16 sum with `add`
+  constexpr int RO2 = CH ? 2 : RO;            // ... and the bf16 sum with `add`
   float* X = sm + S_X;
   float* CND = sm + S_CND;
   float* C0 = sm + S_C0;
@@ -830,47 +1364,49 @@ __device__ __forceinline__ void backward_step_auto(const float* __restrict__ P, 
   float* TMP = sm + S_G2;  // [R][H2] over G2 and G3, free after the decoder
 
   // ---- decoder ------------------------------------------------------------
-  wgrad_auto<RT, L_D3>(G3, H, DREC, F, part, accum);
-  agrad<false, RT, RO, L_D3>(DREC, F, P, 0, H, G3, H, nullptr, 0, G3, H);
-  wgrad_auto<RT, L_D2>(G2, H, G3, H, part, accum);
-  agrad<false, RT, RO, L_D2>(G3, H, P, 0, H, G2, H, nullptr, 0, G2, H);
-  wgrad_auto<RT, L_D1>(G1, H, G2, H, part, accum);
-  agrad<false, RT, RO, L_D1>(G2, H, P, 0, H, G1, H, nullptr, 0, G1, H);
-  wgrad_auto<RT, L_D0>(GINb, GIN, G1, H, part, accum);
-  agrad<false, RT, RO, L_D0>(G1, H, P, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);
+  wgrad_auto<MODE, L_D3>(G3, H, DREC, F, part, scr, accum);
+  agrad<CH, RT, RO, L_D3>(DREC, F, P, Pb, 0, H, G3, H, nullptr, 0, G3, H);
+  wgrad_auto<MODE, L_D2>(G2, H, G3, H, part, scr, accum);
+  agrad<CH, RT, RO, L_D2>(G3, H, P, Pb, 0, H, G2, H, nullptr, 0, G2, H);
+  wgrad_auto<MODE, L_D1>(G1, H, G2, H, part, scr, accum);
+  agrad<CH, RT, RO, L_D1>(G2, H, P, Pb, 0, H, G1, H, nullptr, 0, G1, H);
+  wgrad_auto<MODE, L_D0>(GINb, GIN, G1, H, part, scr, accum);
+  agrad<CH, RT, RO, L_D0>(G1, H, P, Pb, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);
 
   // ---- heads: dW of the merged head is each head's own, column by column;
   // the activation gradients are the mu head's (into TMP), then the logvar
   // head's added to it ------------------------------------------------------
   head_grad_auto<MODE>(kS);
-  wgrad_auto<RT, L_ML>(HCAT, H2, ML, Z2, part, accum);
-  gemm<false, RT, RO>(R, H2, Z, ML, Z2, 1, P + w_off(L_ML), 1, Z2, TMP, H2, false,
-                      nullptr, false, nullptr, 0, nullptr, 0);
+  wgrad_auto<MODE, L_ML>(HCAT, H2, ML, Z2, part, scr, accum);
+  const bf16* Wml = Pb ? Pb + w_off(L_ML) : nullptr;
+  gemm<CH, RT, RO>(R, H2, Z, ML, Z2, 1, P + w_off(L_ML), 1, Z2, TMP, H2, false,
+                   nullptr, false, nullptr, 0, nullptr, 0, Wml);
   // the encoder's top cotangent, relu-masked by h
-  gemm<false, RT, RO2>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + Z, 1, Z2, HCAT, H2, false,
-                       nullptr, false, TMP, H2, HCAT, H2);
+  gemm<CH, RT, RO2>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + Z, 1, Z2, HCAT, H2, false,
+                    nullptr, false, TMP, H2, HCAT, H2, Wml ? Wml + Z : nullptr);
   // hc's: hcat's part, then dec_0's added, relu-masked by hc
-  gemm<false, RT, RO2>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + H * Z2 + Z, 1, Z2,
-                       TMP + H, H2, false, nullptr, false, TMP + H, H2, nullptr, 0);
+  gemm<CH, RT, RO2>(R, H, Z, ML + Z, Z2, 1, P + w_off(L_ML) + H * Z2 + Z, 1, Z2,
+                    TMP + H, H2, false, nullptr, false, TMP + H, H2, nullptr, 0,
+                    Wml ? Wml + H * Z2 + Z : nullptr);
   for (int i = threadIdx.x; i < R * H; i += NT) {
     const int r = i / H, j = i % H;
     float* hc = HCAT + r * H2 + H + j;
-    const float d = rnd<MODE == A_CHAIN>(GINb[r * GIN + Z + j] + TMP[r * H2 + H + j]);
+    const float d = rnd<CH>(GINb[r * GIN + Z + j] + TMP[r * H2 + H + j]);
     *hc = d * (*hc > 0.f ? 1.f : 0.f);
   }
   __syncthreads();
 
   // ---- encoder and condition chains -----------------------------------------
-  wgrad_auto<RT, L_E3>(E2, H, HCAT, H2, part, accum);
-  agrad<false, RT, RO, L_E3>(HCAT, H2, P, 0, H, E2, H, nullptr, 0, E2, H);
-  wgrad_auto<RT, L_E2>(E1, H, E2, H, part, accum);
-  agrad<false, RT, RO, L_E2>(E2, H, P, 0, H, E1, H, nullptr, 0, E1, H);
-  wgrad_auto<RT, L_E1>(E0, H, E1, H, part, accum);
-  agrad<false, RT, RO, L_E1>(E1, H, P, 0, H, E0, H, nullptr, 0, E0, H);
-  wgrad_auto<RT, L_E0>(X, F, E0, H, part, accum);
-  wgrad_auto<RT, L_C1>(C0, H, HCAT + H, H2, part, accum);
-  agrad<false, RT, RO, L_C1>(HCAT + H, H2, P, 0, H, C0, H, nullptr, 0, C0, H);
-  wgrad_auto<RT, L_C0>(CND, C, C0, H, part, accum);
+  wgrad_auto<MODE, L_E3>(E2, H, HCAT, H2, part, scr, accum);
+  agrad<CH, RT, RO, L_E3>(HCAT, H2, P, Pb, 0, H, E2, H, nullptr, 0, E2, H);
+  wgrad_auto<MODE, L_E2>(E1, H, E2, H, part, scr, accum);
+  agrad<CH, RT, RO, L_E2>(E2, H, P, Pb, 0, H, E1, H, nullptr, 0, E1, H);
+  wgrad_auto<MODE, L_E1>(E0, H, E1, H, part, scr, accum);
+  agrad<CH, RT, RO, L_E1>(E1, H, P, Pb, 0, H, E0, H, nullptr, 0, E0, H);
+  wgrad_auto<MODE, L_E0>(X, F, E0, H, part, scr, accum);
+  wgrad_auto<MODE, L_C1>(C0, H, HCAT + H, H2, part, scr, accum);
+  agrad<CH, RT, RO, L_C1>(HCAT + H, H2, P, Pb, 0, H, C0, H, nullptr, 0, C0, H);
+  wgrad_auto<MODE, L_C0>(CND, C, C0, H, part, scr, accum);
 }
 
 // the autodiff instances' chunking: each tile's 32-row steps (the last
@@ -888,7 +1424,8 @@ inline void auto_chunking(long long n_pad, int tile, int sms, int* cpt, int* per
 
 // (a) of K3's and K4's autodiff instances: block c takes steps
 // (c % cpt) per .. of tile c / cpt and writes the chunk's partial
-// gradients and loss sums to partial[c]
+// gradients and loss sums to partial[c]; in A_CHAIN through `scratch`,
+// `per` steps of rows a chunk (backward_step_auto)
 template <int MODE>
 __global__ void __launch_bounds__(NT, 1)
 ks_grad_auto_kernel(const typename Elem<MODE != A_F32>::type* __restrict__ packed,
@@ -896,9 +1433,11 @@ ks_grad_auto_kernel(const typename Elem<MODE != A_F32>::type* __restrict__ packe
                     const typename Elem<MODE != A_F32>::type* __restrict__ eps_hbm,
                     int noise, int tile, float S, LossW lw,
                     unsigned long long seed_base, const float* __restrict__ P,
-                    float* __restrict__ partial, int cpt, int per) {
-  constexpr bool BF = MODE != A_F32;
+                    const bf16* __restrict__ Pb, float* __restrict__ partial,
+                    bf16* __restrict__ scratch, int cpt, int per) {
+  constexpr bool BF = MODE != A_F32, DEFER = MODE == A_CHAIN;
   float* part = partial + (long long)blockIdx.x * PART_STRIDE;
+  bf16* scr = DEFER ? scratch + blockIdx.x * scratch_chunk(per) : nullptr;
   const int spt = (tile + R - 1) / R;
   const long long t0 = (long long)(blockIdx.x / cpt) * tile;
   const int s0 = (int)(blockIdx.x % cpt) * per;
@@ -910,25 +1449,30 @@ ks_grad_auto_kernel(const typename Elem<MODE != A_F32>::type* __restrict__ packe
     // exact zeros to every sum
     load_step<BF>(packed, width, eps_hbm, noise, t0 + tile, tile, seed_base,
                   t0 + (long long)s * R);
-    forward_step_auto<MODE>(P);
+    forward_step_auto<MODE>(P, Pb);
     loss_step_auto<MODE>(acc, k);
-    backward_step_auto<MODE>(P, part, s > s0, k.kS);
+    backward_step_auto<MODE>(P, Pb, part,
+                             DEFER ? scr + (long long)(s - s0) * R * SCR_ROW : nullptr,
+                             s > s0, k.kS);
   }
+  if constexpr (DEFER) wgrads_deferred<false>(scr, 0, (s1 - s0) * R, part);
+  write_bias_sums(part);
   write_loss_sums(acc, part + LOSS_OFF);
 }
 
 template <int MODE>
 int launch_grad_auto(const void* packed, int width, const void* eps, int noise,
                      long long n_pad, int tile, float n_valid, LossW lw,
-                     unsigned long long seed_base, const float* P, float* partial,
-                     int cpt, int per, cudaStream_t stream) {
+                     unsigned long long seed_base, const float* P, const bf16* Pb,
+                     float* partial, bf16* scratch, int cpt, int per, cudaStream_t stream) {
   using E = typename Elem<MODE != A_F32>::type;
+  if ((MODE != A_F32 && !Pb) || (MODE == A_CHAIN && !scratch)) return (int)cudaErrorInvalidValue;
   const cudaError_t a = cudaFuncSetAttribute(
       ks_grad_auto_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (a != cudaSuccess) return (int)a;
   ks_grad_auto_kernel<MODE><<<(unsigned)(n_pad / tile * cpt), NT, SMEM_BYTES, stream>>>(
       (const E*)packed, width, (const E*)eps, noise, tile, 1.f / n_valid, lw, seed_base, P,
-      partial, cpt, per);
+      Pb, partial, scratch, cpt, per);
   return (int)cudaGetLastError();
 }
 
@@ -942,7 +1486,8 @@ int launch_grad_auto(const void* packed, int width, const void* eps, int noise,
                                 float n_valid, float w_recon, float w_kld,        \
                                 float w_start, float w_time,                      \
                                 unsigned long long seed_base, const float* P,     \
-                                float* partial, int sms, void* stream)
+                                const void* Pb, float* partial, void* scratch,    \
+                                int sms, void* stream)
 
 // the autodiff instances, one source compiled once per mode
 // (fused_scale_auto.cu with -DKS_AUTO_MODE=<mode>)
@@ -952,4 +1497,5 @@ int launch_grad_auto(const void* packed, int width, const void* eps, int noise,
                                  float n_valid, float w_recon, float w_kld,        \
                                  float w_start, float w_time,                      \
                                  unsigned long long seed_base, const float* P,     \
-                                 float* partial, int cpt, int per, void* stream)
+                                 const void* Pb, float* partial, void* scratch,    \
+                                 int cpt, int per, void* stream)

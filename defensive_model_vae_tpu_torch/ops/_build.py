@@ -84,7 +84,9 @@ _K4_ARGS = _K3_HEAD + [
     ctypes.c_float, ctypes.c_float,    # start, time
     ctypes.c_ulonglong,                # prng stream base
     _P, _P, ctypes.c_int,              # params, partials, SM count
-    _P, _P, _P,                        # grad, loss row, stream
+    _P, _P,                            # grad, loss row
+    _P, _P,                            # bf16 copy of the params, scratch
+    _P,                                # stream
 ]
 _K3_BODY = [
     ctypes.c_float, ctypes.c_int,      # n_valid, epochs
@@ -113,12 +115,21 @@ KERNELS: Dict[str, tuple] = {
         ("fused_scale_knob.cu", (f"-DKS_KNOB={bit}",)) for bit in (2, 4, 8, 16, 32, 64))
         + tuple(("fused_scale_auto.cu", (f"-DKS_AUTO_MODE={m}",)) for m in (0, 1, 2)), {
         "k3_train": (ctypes.c_int, _K3_HEAD + _K3_BODY + [
+            _P, _P,                            # bf16 copy of the params, scratch
             ctypes.c_int, _P,                  # ablation bits, noadam sink
             _P,                                # stream
         ]),
         "k4_grad_epoch": (ctypes.c_int, _K4_ARGS),
-        "k3_train_auto": (ctypes.c_int, _K3_HEAD + _K3_BODY + [_P]),  # + stream
+        "k3_train_auto": (ctypes.c_int, _K3_HEAD + _K3_BODY + [
+            _P, _P,                            # bf16 copy of the params, scratch
+            _P,                                # stream
+        ]),
         "k4_grad_epoch_auto": (ctypes.c_int, _K4_ARGS),
+        "ks_engine": (ctypes.c_int, []),
+        "ks_weights_bf16": (ctypes.c_int, [_P, _P, _P]),  # params, bf16 copy, stream
+        "ks_scratch_elems": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
+        "ks_scratch_elems_auto": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int,
+                                                      ctypes.c_int]),
         "ks_param_floats": (ctypes.c_longlong, []),
         "ks_partial_floats": (ctypes.c_longlong, []),
         "ks_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),

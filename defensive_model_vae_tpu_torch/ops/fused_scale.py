@@ -100,6 +100,11 @@ _KNOB_LEVERS = {"biasdot": ("bias_via_dot", True), "chaincd": ("chain_cd", True)
 # the dtype modes of the autodiff instances (k3_train_auto's ``mode``)
 AUTO_MODES = {"float32": 0, "f32_acts": 1, "bf16_chain": 2}
 
+# what the CUDA engine reports (ks_engine's bits): the bf16 products on the
+# tensor cores, and the manual bf16 instances' weight gradients deferred to
+# the end of each chunk through a scratch of their bf16 operands
+ENGINE_TENSOR_CORES, ENGINE_DEFERRED_DW = 1, 2
+
 # Guards, restated for an 80 GB H100 and this port:
 # - the tile is the unit of the noise stream (prng keys, hbm row blocks)
 #   and of the plain version's working set; the CUDA kernels stream 32-row
@@ -323,12 +328,75 @@ def _check_noise(noise, packed, cfg, eps, rows, tile):
             raise ValueError("the eps stream must match the corpus's dtype and device")
 
 
+# ---- the CUDA kernels' layout ------------------------------------------------
+
+_STEP_ROWS = 32  # the rows of one step of the CUDA gradient kernel
+
+# the kernel's 11 layers in its flat order (fan-in, fan-out); layer 6 is
+# the merged [fc_mu | fc_logvar] head
+_KERNEL_LAYERS = ((2, 128), (128, 128), (30, 128), (128, 128), (128, 128), (128, 128),
+                  (256, 16), (136, 128), (128, 128), (128, 128), (128, 30))
+
+
+def _pad8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def scratch_row() -> int:
+    """bf16 values of one corpus row of the deferred weight gradients'
+    scratch: per layer its product input, then its output cotangent, each
+    padded to 8 values (csrc/scale_common.cuh::SCR_ROW)."""
+    return sum(_pad8(fi) + _pad8(fo) for fi, fo in _KERNEL_LAYERS)
+
+
+def chunk_steps(n_pad: int, sms: int) -> int:
+    """32-row steps of one chunk (one block): about one chunk per SM."""
+    steps = -(-n_pad // _STEP_ROWS)
+    return max(1, -(-steps // sms))
+
+
+def n_chunks(n_pad: int, sms: int) -> int:
+    """Chunks (blocks, partial rows) of the manual instances."""
+    steps = -(-n_pad // _STEP_ROWS)
+    return -(-steps // chunk_steps(n_pad, sms))
+
+
+def scratch_elems(n_pad: int, sms: int) -> int:
+    """bf16 elements of the deferred weight gradients' scratch of the manual
+    bf16 instances: every chunk's steps x 32 rows of :func:`scratch_row`
+    (csrc/fused_scale.cu::ks_scratch_elems)."""
+    if n_pad <= 0 or sms <= 0:
+        return 0
+    return n_chunks(n_pad, sms) * chunk_steps(n_pad, sms) * _STEP_ROWS * scratch_row()
+
+
+def weights_bf16(params: torch.Tensor) -> torch.Tensor:
+    """The plain version of the kernels' bf16 copy of the flat params
+    (``ks_weights_bf16``): each value rounded to nearest even."""
+    return params.to(torch.bfloat16)
+
+
 # ---- the CUDA kernels' wrappers --------------------------------------------
 
-def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=False):
+def _check_engine(lib, compute_dtype):
+    """Refuse a library whose engine does not run the bf16 products on the
+    tensor cores: the bf16 instances have no other path on the card."""
+    if compute_dtype is None:
+        return
+    engine = getattr(lib, "ks_engine", None)
+    if engine is None or not engine() & ENGINE_TENSOR_CORES:
+        raise RuntimeError("the fused_scale library has no tensor-core engine "
+                           "(ks_engine): the bf16 kernels cannot run")
+
+
+def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=False,
+                   mixed_style="f32_acts"):
     """The checks and buffers both kernels share → (library, params packed
-    flat, partial-row buffer, SM count, stream).  The autodiff instances
-    cut the corpus into chunks within tiles, so they may take more rows."""
+    flat, partial-row buffer, SM count, stream, bf16 copy of the params,
+    scratch of the deferred weight gradients).  The autodiff instances cut
+    the corpus into chunks within tiles, so they may take more rows; of
+    them only bf16_chain defers its weight gradients (the others take them
+    step by step: no scratch).  In float32 there is no bf16 copy."""
     from ._build import load
 
     if cfg != _KERNEL_CFG:
@@ -342,6 +410,7 @@ def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=Fals
         raise ValueError(f"{name}: {packed.shape[0]} corpus rows are not a multiple "
                          f"of tile={tile}")
     lib = load("fused_scale")
+    _check_engine(lib, compute_dtype)
     dev = packed.device
     params = pack_kernel_params(plist)
     if params.numel() != lib.ks_param_floats() or params.device != dev:
@@ -351,7 +420,15 @@ def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=Fals
               else lib.ks_chunks(packed.shape[0], sms))
     partial = torch.empty(int(chunks) * int(lib.ks_partial_floats()),
                           dtype=torch.float32, device=dev)
-    return lib, params, partial, sms, torch.cuda.current_stream(dev).cuda_stream
+    pb = scratch = None
+    if compute_dtype is not None:
+        pb = torch.empty(params.numel(), dtype=torch.bfloat16, device=dev)
+        if not auto or mixed_style == "bf16_chain":
+            elems = (lib.ks_scratch_elems_auto(packed.shape[0], tile, sms) if auto
+                     else lib.ks_scratch_elems(packed.shape[0], sms))
+            scratch = torch.empty(int(elems), dtype=torch.bfloat16, device=dev)
+    return (lib, params, partial, sms, torch.cuda.current_stream(dev).cuda_stream, pb,
+            scratch)
 
 
 def _ptr(t):
@@ -361,9 +438,6 @@ def _ptr(t):
 def _weights_args(weights: LossWeights):
     return (ctypes.c_float(weights.recon), ctypes.c_float(weights.kld),
             ctypes.c_float(weights.start), ctypes.c_float(weights.time))
-
-
-_STEP_ROWS = 32  # the rows of one step of the CUDA gradient kernel
 
 
 def _check_kernel_knobs(bits, compute_dtype, tile):
@@ -388,8 +462,8 @@ def _fused_scale_call_auto_kernel(plist, packed, seed, cfg, weights, epochs, lr,
     (``compute_dtype``, ``mixed_style``), counted by mode in
     ``_fused_scale_call.auto_launches``."""
     mode = _auto_mode(compute_dtype, mixed_style)
-    lib, params, partial, sms, stream = _kernel_common(plist, packed, eps_all, cfg,
-                                                       compute_dtype, tile, "K3", auto=True)
+    lib, params, partial, sms, stream, pb, scratch = _kernel_common(
+        plist, packed, eps_all, cfg, compute_dtype, tile, "K3", True, mode)
     mv = torch.zeros(2 * params.numel(), dtype=torch.float32, device=packed.device)
     metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=packed.device)
     err = lib.k3_train_auto(
@@ -397,7 +471,7 @@ def _fused_scale_call_auto_kernel(plist, packed, seed, cfg, weights, epochs, lr,
         NOISE_MODES[noise], packed.shape[0], tile, ctypes.c_float(n_valid), epochs,
         ctypes.c_float(lr), *_weights_args(weights), ctypes.c_ulonglong(seed),
         params.data_ptr(), mv.data_ptr(), partial.data_ptr(), sms, metrics.data_ptr(),
-        stream)
+        _ptr(pb), _ptr(scratch), stream)
     if err != 0:
         raise RuntimeError(f"K3 ({mode} autodiff) launch failed: CUDA error {err}")
     _fused_scale_call.auto_launches[mode] += 1
@@ -410,8 +484,8 @@ def _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile
     summed gradients, in the kernel's flat layout, to ``sink`` (allocated
     here when None), which is how a check reads a knob's gradients."""
     _check_kernel_knobs(bits, compute_dtype, tile)
-    lib, params, partial, sms, stream = _kernel_common(plist, packed, eps_all, cfg,
-                                                       compute_dtype, tile, "K3")
+    lib, params, partial, sms, stream, pb, scratch = _kernel_common(
+        plist, packed, eps_all, cfg, compute_dtype, tile, "K3")
     mv = torch.zeros(2 * params.numel(), dtype=torch.float32, device=packed.device)
     metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=packed.device)
     if bits & ABLATE_BITS["noadam"] and sink is None:
@@ -426,7 +500,7 @@ def _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile
         packed.shape[0], tile, ctypes.c_float(n_valid), epochs, ctypes.c_float(lr),
         *_weights_args(weights), ctypes.c_ulonglong(seed),
         params.data_ptr(), mv.data_ptr(), partial.data_ptr(), sms,
-        metrics.data_ptr(), bits, _ptr(sink), stream)
+        metrics.data_ptr(), _ptr(pb), _ptr(scratch), bits, _ptr(sink), stream)
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     _fused_scale_call.launches += 1
@@ -440,17 +514,17 @@ def _grad_epoch_call_kernel(plist, packed, stream_base, cfg, weights, tile,
                             n_valid, compute_dtype, noise, eps_epoch, backward="manual",
                             mixed_style="f32_acts"):
     auto = backward == "auto"
-    lib, params, partial, sms, stream = _kernel_common(plist, packed, eps_epoch, cfg,
-                                                       compute_dtype, tile, "K4", auto)
+    mode = _auto_mode(compute_dtype, mixed_style)
+    lib, params, partial, sms, stream, pb, scratch = _kernel_common(
+        plist, packed, eps_epoch, cfg, compute_dtype, tile, "K4", auto, mode)
     grad = torch.empty_like(params)
     row = torch.zeros((1, 8), dtype=torch.float32, device=packed.device)
-    mode = _auto_mode(compute_dtype, mixed_style)
     args = (packed.data_ptr(), packed.shape[1], _ptr(eps_epoch),
             AUTO_MODES[mode] if auto else int(packed.dtype == torch.bfloat16),
             NOISE_MODES[noise], packed.shape[0], tile, ctypes.c_float(n_valid),
             *_weights_args(weights), ctypes.c_ulonglong(stream_base),
             params.data_ptr(), partial.data_ptr(), sms, grad.data_ptr(),
-            row.data_ptr(), stream)
+            row.data_ptr(), _ptr(pb), _ptr(scratch), stream)
     err = lib.k4_grad_epoch_auto(*args) if auto else lib.k4_grad_epoch(*args)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: CUDA error {err}")

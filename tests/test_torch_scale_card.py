@@ -146,3 +146,95 @@ def test_scale_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="compiled for"):
         fs._grad_epoch_call(plist, packed, 0, CVAEConfig(hidden_dim=64), LW, 16, nv,
                             None, "hbm", eps_all)
+
+
+# ---- the product engine (tensor cores, bf16 weight copy, deferred weight
+# gradients) at chunk-ragged sizes: 9000 rows pad to 9152 (tiles of 352:
+# 286 steps, chunks of 3 on 132 SMs, the last of 1) or 10240 (tiles of
+# 2048: 320 steps, the last chunk of 2)
+
+def _k3_k4_gaps(dev, n, tile, cd, noise, drop_step=None):
+    """K3 (one epoch) and K4 against their plain versions → whether each
+    holds TOL's limits; with ``drop_step`` the plain versions leave that
+    32-row step's rows out (mask 0), a deliberate error."""
+    plist, packed, nv, eps_all = _inputs(dev, n, tile, cd, noise, 1)
+    wrong = packed.clone()
+    if drop_step is not None:
+        wrong[32 * drop_step:32 * (drop_step + 1), 32] = 0  # the mask column
+    args = (plist, packed, 4, CFG, LW, 1, 1e-3, tile, nv, cd, noise, eps_all)
+    pk, mk = fs._fused_scale_call(*args)
+    pp, mp = fs._fused_scale_call_plain(plist, wrong, *args[2:])
+    src = fs._eps_source(noise, CFG, tile, packed.shape[0], eps_all, 4, dev)
+    gp, rp = fs._plain_grad_epoch(plist, wrong, tile, CFG, LW, nv, cd, src)
+    gk, rk = fs._grad_epoch_call(plist, packed, 4, CFG, LW, tile, nv, cd, noise, eps_all)
+    p_tol, m_tol, g_tol = TOL[cd]
+    k3_params = all(
+        float(torch.where(g.abs() >= 1e-6, (a - b).abs(), 0.0).max()) <= p_tol
+        for a, b, g in zip(pk, pp, gp))
+    k3_metrics = bool(np.allclose(mk[:, :5].cpu().numpy(), mp[:, :5].cpu().numpy(), rtol=m_tol))
+    k4_grads = all(float((a - b).abs().max()) <= g_tol * max(float(b.abs().max()), 1e-12)
+                   for a, b in zip(gk, gp))
+    k4_row = bool(np.allclose(rk[0, :5].cpu().numpy(), rp.cpu().numpy(), rtol=m_tol))
+    return {"k3_params": k3_params, "k3_metrics": k3_metrics, "k4_grads": k4_grads,
+            "k4_row": k4_row}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [352, 2048])
+@pytest.mark.parametrize("noise", ["packed", "hbm", "prng"])
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+def test_engine_k3_and_k4_match_plain_at_ragged_chunks(cd, noise, tile):
+    dev = _cuda()
+    k3, k4 = fs._fused_scale_call.launches, fs._grad_epoch_call.launches
+    held = _k3_k4_gaps(dev, 9000, tile, cd, noise)
+    assert fs._fused_scale_call.launches == k3 + 1
+    assert fs._grad_epoch_call.launches == k4 + 1
+    assert all(held.values()), held
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+def test_a_plain_version_without_one_step_fails_the_limits(cd):
+    """The limits above see one 32-row step's rows left out of 9000."""
+    dev = _cuda()
+    held = _k3_k4_gaps(dev, 9000, 352, cd, "hbm", drop_step=100)
+    assert not held["k3_metrics"] and not held["k4_row"], held
+
+
+@pytest.mark.gpu
+def test_engine_reports_tensor_cores_and_the_layout_of_the_wrappers():
+    from defensive_model_vae_tpu_torch.ops._build import load
+
+    _cuda()
+    lib = load("fused_scale")
+    assert lib.ks_engine() == fs.ENGINE_TENSOR_CORES | fs.ENGINE_DEFERRED_DW
+    for n_pad, sms in ((131072, 132), (9152, 132), (16, 132), (704, 3)):
+        assert lib.ks_chunks(n_pad, sms) == fs.n_chunks(n_pad, sms)
+        assert lib.ks_scratch_elems(n_pad, sms) == fs.scratch_elems(n_pad, sms)
+
+
+@pytest.mark.gpu
+def test_bf16_weight_copy_on_the_card_is_the_plain_rounding():
+    from defensive_model_vae_tpu_torch.ops._build import load
+
+    dev = _cuda()
+    plist = ft._flatten_params(init_params(torch.Generator().manual_seed(5), CFG, dev))
+    flat = ft.pack_kernel_params(plist)
+    pb = torch.empty(flat.numel(), dtype=torch.bfloat16, device=dev)
+    lib = load("fused_scale")
+    assert lib.ks_weights_bf16(flat.data_ptr(), pb.data_ptr(),
+                               torch.cuda.current_stream(dev).cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(pb, fs.weights_bf16(flat))
+
+
+@pytest.mark.gpu
+def test_k3_float32_digest_is_the_earlier_builds():
+    """float32 keeps its bits: every output one FMA chain over k in order."""
+    from defensive_model_vae_tpu_torch.scripts import k3_digest as k3d
+
+    dev = _cuda()
+    ref = k3d.REFERENCE.get(k3d.sm_count(dev))
+    if ref is None:
+        pytest.skip("the digests are taken on a 132-SM card")
+    assert k3d.digests(dev)["k3_f32_packed"] == ref["k3_f32_packed"]
