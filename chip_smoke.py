@@ -350,7 +350,8 @@ def tile_rounding_gaps(grads, plain, style):
     row = {"weights_bf16_exact": True, "biases_bf16_exact": True, "max_ulps": 0.0,
            "frac_unequal": 0.0, "frac_over_ulps": 0.0, "max_rel_to_array_max": 0.0,
            "ulps_tol": TILE_ULPS,
-           "frac_tol": TILE_FRAC, "rel_tol": K4_TOL["bfloat16"]["grad_rel_max"]}
+           "frac_tol": TILE_FRAC, "rel_tol": K4_TOL["bfloat16"]["grad_rel_max"],
+           "worst_array": None}
     for i, (g, p) in enumerate(zip(grads, plain)):
         weight = i % 2 == 0
         if not (weight or style == "bf16_chain"):
@@ -362,8 +363,10 @@ def tile_rounding_gaps(grads, plain, style):
                            torch.where(g != 0, inf, torch.zeros_like(g)))
         row["max_ulps"] = max(row["max_ulps"], float(ulps.max()))
         row["frac_unequal"] = max(row["frac_unequal"], float((g != p).float().mean()))
-        row["frac_over_ulps"] = max(row["frac_over_ulps"],
-                                    float((ulps > TILE_ULPS).float().mean()))
+        frac = float((ulps > TILE_ULPS).float().mean())
+        if frac > row["frac_over_ulps"]:  # the array that sets it: index, size, ulps
+            row["worst_array"] = [i, g.numel(), float(ulps.max())]
+        row["frac_over_ulps"] = max(row["frac_over_ulps"], frac)
         row["max_rel_to_array_max"] = max(row["max_rel_to_array_max"], float(
             (g - p).abs().max() / p.abs().max().clamp(min=1e-30)))
     ok = (row["weights_bf16_exact"] and row["biases_bf16_exact"]
@@ -455,8 +458,10 @@ def per_tile_rows(per_tile, plain_tiles, style):
     """:func:`tile_rounding_gaps`'s rows of each tile, merged: every flag
     held on all tiles, every number its largest."""
     rows = [tile_rounding_gaps(k, p, style)[0] for k, p in zip(per_tile, plain_tiles)]
-    return {k: (all(r[k] for r in rows) if isinstance(v, bool) else max(r[k] for r in rows))
-            for k, v in rows[0].items()}
+    out = {k: (all(r[k] for r in rows) if isinstance(v, bool) else max(r[k] for r in rows))
+           for k, v in rows[0].items() if k != "worst_array"}
+    out["worst_array"] = max(rows, key=lambda r: r["frac_over_ulps"])["worst_array"]
+    return out
 
 
 def reordered_tile_sums(fs, ft, plist, packed, tile, cfg, lw, nv, style, seed=2):
@@ -550,7 +555,7 @@ def tile_order_noise(fs, ft, scale_corpus, plist, cfg, lw, dev,
 
 def tensor_core_ops(lib_path):
     """The HMMA and HGMMA instructions in a built library's SASS
-    (``cuobjdump -sass``), counted per kernel object."""
+    (``cuobjdump -sass``), counted over all its objects."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           timeout=120).stdout.splitlines()
@@ -959,13 +964,14 @@ def main() -> int:
                      if "registers" in ln or "spill" in ln or "entry function" in ln]
             info[name] = {"seconds": b["seconds"], "cached": b["cached"], "ptxas": ptxas}
             _build.load(name)
-        # the bf16 products of K3, K4 and P1 on the tensor cores: their
-        # libraries' SASS holds mma instructions (HMMA; HGMMA for wgmma)
+        # K3's and K4's bf16 weight gradients on the tensor cores: their
+        # library's SASS holds mma instructions (HMMA; HGMMA for wgmma);
+        # P1's products, all on FMA, are counted beside it
         sass_mma = {name: tensor_core_ops(_build._lib_path(name))
                     for name in ("fused_scale", "scale_ablation")}
         info["sass_mma"] = sass_mma
-        if not all(v["HMMA"] + v["HGMMA"] for v in sass_mma.values()):
-            fail(f"a bf16 engine's library holds no tensor-core instruction: {sass_mma}")
+        if not sass_mma["fused_scale"]["HMMA"] + sass_mma["fused_scale"]["HGMMA"]:
+            fail(f"K3/K4's library holds no tensor-core instruction: {sass_mma}")
 
     # ---- 3. cache_probe: the rounds' verdicts, and P3 timed ---------------
     with phase("cache_probe", 90) as info:
@@ -1538,8 +1544,9 @@ def main() -> int:
                 if (ep == 1 and knob in ("noadam", "noacc", "nodw", "fwdonly")
                         and off <= STEP_TENTH):
                     fail(f"the {knob} knob does not change the run: {row}")
-        # K3 and K4 with _ablate=() against their build before the device
-        # code moved into csrc/scale_common.cuh, bit for bit
+        # K3 and K4 with _ablate=() against their reference digests, bit
+        # for bit (float32: the build before the tensor cores; bf16: the
+        # tensor-core engine's)
         sms = k3d.sm_count(dev)
         ref, got = k3d.REFERENCE.get(sms), k3d.digests(dev, _ablate=())
         emit({"ablation_vs_plain": {"kernel": "K3/K4", "knob": "()", "sms": sms,
@@ -1548,7 +1555,7 @@ def main() -> int:
         if ref is None:
             fail(f"no reference digests of K3/K4 for a card of {sms} SMs")
         if got != ref:
-            fail("K3/K4 with _ablate=() are not their earlier build bit for bit")
+            fail("K3/K4 with _ablate=() are not their reference build bit for bit")
         # P1 on the same corpus
         n_chain = sa.sol_chain_length(cfg)
         g = torch.Generator().manual_seed(5)
@@ -2277,6 +2284,9 @@ def main() -> int:
         "library_ms": None,
         "fp32_fma_bound_ms": 1e3 * k3_flops / FP32_FLOPS,
         "f32_ms": k3_f32_ms,
+        # the tensor-core instructions of its library's SASS (every
+        # instance's: manual, knobs, autodiff)
+        "sass_mma": sass_mma["fused_scale"],
         "ablation_calls": abl_launches["_fused_scale_call"],
         "flops": k3_flops,
         "card": card,
@@ -2290,6 +2300,7 @@ def main() -> int:
         # initial params, so also the error as a fraction of each array's max
         "max_abs_err": k4_bench["grad_max_abs"],
         "max_rel_err": k4_bench["grad_max_rel_to_array_max"],
+        "sass_mma": sass_mma["fused_scale"],
         "ms": k4_ms,
         "plain_ms": k4_plain_ms,
         "bound_ms": k4_bound,

@@ -16,40 +16,50 @@
 // blocks run in parallel and in no order, so an epoch is two launches:
 //   (a) ks_grad_kernel: the padded corpus is cut into chunks of whole
 //       32-row steps, one chunk per block, about one block per SM (the
-//       wrapper passes the SM count; a block needs 206 KB of shared memory,
+//       wrapper passes the SM count; a block needs 225 KB of shared memory,
 //       so one block fills an SM).  A block runs each step's forward, loss
 //       and backward with every activation of its 32 rows in shared memory
 //       (the backward overwrites each saved activation with its own
 //       relu-masked cotangent), reads the weights from global memory (they
-//       stay in L2), and sums its weight and bias gradients and its five
-//       loss sums into its own row of a (chunks, params) partial buffer:
-//       the first step writes, the later ones add.
+//       stay in L2) and sums its bias gradients in shared memory.  In
+//       float32 each step's weight gradients are added into the block's
+//       row of a (chunks, params) partial buffer (the first step writes);
+//       in bf16 they are deferred: each step writes its products' bf16
+//       operands to the chunk's rows of a scratch buffer, and after the
+//       chunk's last step one tensor-core product a layer over all its
+//       rows writes the partial row once.
 //   (b) ks_reduce_kernel: one thread per parameter sums the partial rows in
 //       chunk order (so in row and tile order, and the same way every run)
-//       and applies Adam (K3) or writes the sum (K4); block 0 writes the
-//       epoch's metrics row.
-// K3's entry point launches (a) and (b) once per epoch on the caller's
-// stream.  Products are float32 FMA over shared-memory tiles (32 x 128
-// outputs, depth 32, 4 x 4 outputs a thread).  In bf16 mode both operands
-// of every product are rounded to bf16 (nearest even) as they are staged
-// into shared memory and the product accumulates in float32: exactly the
-// arithmetic of the JAX f32_acts mode and of the tensor cores' bf16 mma,
-// so a later version can move the products onto wgmma without changing
-// results.  Time differences, bias gradients, the head math and the loss
-// stay float32.
+//       and applies Adam (K3), refreshing the bf16 copy of the params, or
+//       writes the sum (K4); block 0 writes the epoch's metrics row.
+// K3's entry point makes the bf16 copy once, then launches (a) and (b) once
+// per epoch on the caller's stream; K4's makes it at every call.  The
+// products (csrc/scale_common.cuh): the step's forward and activation
+// gradients on float32 FMA over shared-memory tiles (32 x 128 outputs,
+// depth 32, 4 x 4 outputs a thread, each output one chain over k in
+// order), their operands staged by 16-byte cp.async one depth step ahead
+// (in bf16 the weights from the bf16 copy, half the bytes); in bf16 mode
+// both operands rounded to bf16 (nearest even) and the sum float32: the
+// arithmetic of the JAX f32_acts mode.  The deferred weight gradients run
+// mma.sync m16n8k16 bf16 -> float32 on the tensor cores.  The step's
+// products stay off the tensor cores because their outputs are rounded to
+// bf16 again as the next product's operands, and a sum in another order
+// than the plain version's flips some of those roundings past K3_TOL
+// (scale_common.cuh, TC_STEP).  Time differences, bias gradients, the head
+// math and the loss stay float32.
 //
 // Bound (bench shape: 131,072 windows x 200 epochs, tile 2048).  The
 // products are 2 (2 sum in.out + sum in.out without cond_0 and enc_0) =
 // 758,272 FLOP a window-epoch, 19.9 TFLOP a run.  On the tensor cores in
-// bf16 (989 TFLOP/s) that is 20.1 ms; on float32 FMA (67 TFLOP/s), the
-// floor of this design, 297 ms.  The bytes that must move are the corpus
-// and the eps stream, read once an epoch, ~2.15 GB a run in bf16 (0.64 ms
-// at 3.35 TB/s), so operations bound it.  This design also moves the
-// weights from L2 twice a step and the partial rows once (about 2 MB a
-// 32-row step): its L2 traffic is of the order of its FMA time, which is
-// the next thing to cut (larger steps, bf16 activations, tensor cores).
+// bf16 (989 TFLOP/s) that is 20.1 ms; on float32 FMA (67 TFLOP/s) 297 ms.
+// The bytes that must move are the corpus and the eps stream, read once an
+// epoch, ~2.15 GB a run in bf16 (0.64 ms at 3.35 TB/s), so operations
+// bound it.  This design moves more: in float32 the partial rows, read and
+// written every step (4.2 GB an epoch at the bench shape); in bf16 the
+// scratch, written and read once (1.33 GB an epoch) and the partial rows
+// once (66 MB).
 //
-// The device code (the product engine, the step's forward, loss and
+// The device code (the product engines, the step's forward, loss and
 // backward, the gradient kernel (a)) is in scale_common.cuh, shared with
 // the ablation's kernels in scale_ablation.cu.
 //
@@ -71,9 +81,9 @@
 //            gradient is zero and Adam runs on them, as in JAX.
 //   fwdonly  (a) runs forward and loss only; (b) reads no gradient row and
 //            runs Adam on zeros (params unchanged), and writes the loss.
-//   biasdot, chaincd, dwT  only (a) changes (dwT: each weight gradient
-//            through its activations transposed into shared memory, the
-//            same sums bit for bit).
+//   biasdot, chaincd, dwT  only (a) changes (dwT: each deferred weight
+//            gradient's activations transposed into shared memory by the
+//            threads, the same sums bit for bit).
 //
 // The autodiff instances (backward="auto"; JAX's jax.value_and_grad of
 // _forward_loss inside the kernel) are (a) compiled once per dtype mode
@@ -84,8 +94,10 @@
 // float32.  So these instances cut each tile into its own chunks (no chunk
 // straddles a tile; as many a tile as fill the SMs: two of 32 steps at the
 // bench shape, the manual layout), and their reduce (b) sums a tile's
-// chunks in order, rounds that sum, then adds the tiles in order.  The
-// manual instances and their reduce are the code they were.
+// chunks in order, rounds that sum, then adds the tiles in order.  Of
+// them bf16_chain defers its weight gradients as the manual bf16 instances
+// do (its cotangents are bf16 values); float32 and f32_acts (float32
+// cotangents) add theirs into the partial rows step by step on FMA.
 //
 // Interface: plain C, built by nvcc into a shared library and called
 // through ctypes (ops/_build.py).  The caller allocates everything.

@@ -21,13 +21,14 @@
 //                the launches (two an epoch) are what this one measures.
 //   p1_sol       per 32-row step h = x W_in (41 x 128), then n_chain
 //                products h W (128 x 128), no relu, on K3's own `gemm`
-//                (scale_common.cuh): both operands rounded to bf16, the
-//                products on the tensor cores (mma.sync, float32
-//                accumulators; the weights, float32 here, rounded as they
-//                are staged); sum(h) into metrics[e, 0].  The FLOPs of K3's
-//                products with none of K3's other work, so sol - stream
-//                against K3 reads as "K3's products against everything
-//                else in K3".
+//                (scale_common.cuh) with its staging, its rounding of both
+//                operands to bf16 and float32 FMA, each output one chain
+//                over k in order, as K3's step products; sum(h) into
+//                metrics[e, 0].  The FLOPs of K3's products with none of
+//                K3's other work.  Every h is rounded to bf16 again by the
+//                next of its 23 chained products, so another order of the
+//                sums moves the total past P1_TOL's 1e-6 of Σ|terms| (the
+//                tensor cores: 2.7e-6, PERF.md PR 11).
 //   p1_ablation  K3's forward and loss (mode 0, fwd) under fixed params
 //                with packed eps, and (mode 1, dx) the gradient of the total
 //                loss in x, summed into metrics[e, 5].  dx is JAX autodiff's

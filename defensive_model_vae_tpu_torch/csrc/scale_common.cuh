@@ -5,13 +5,15 @@
 //
 // What lives here: the model's shape and its flat parameter layout, the
 // shared-memory layout of one block (every activation of a 32-row step),
-// the staged product `gemm` and its forward / weight-gradient /
-// activation-gradient forms, the Philox noise, and the pieces of one step
-// of K3: stage the rows, the forward, the loss sums with d_recon, the
-// manual backward (with the ablation knobs as template bits), the
-// autodiff backward (backward="auto", in three dtype modes), and the
-// block-wide sums.  The design note of fused_scale.cu says how K3 uses
-// them, and why a step is 32 rows.
+// the product engine (`gemm`: float32 FMA over cp.async-staged tiles, or
+// mma.sync on the tensor cores; the deferred weight gradients on the
+// tensor cores over a per-chunk scratch of bf16 operands) and its forward /
+// weight-gradient / activation-gradient forms, the Philox noise, and the
+// pieces of one step of K3: stage the rows, the forward, the loss sums
+// with d_recon, the manual backward (with the ablation knobs as template
+// bits), the autodiff backward (backward="auto", in three dtype modes),
+// and the block-wide sums.  The design note of fused_scale.cu says how K3
+// uses them, and why a step is 32 rows.
 //
 // Everything is in an anonymous namespace: each source that includes this
 // file compiles its own copy of the kernels it instantiates.  Functions
@@ -22,8 +24,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -88,14 +88,19 @@ enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
 enum Engine { E_TENSOR_CORES = 1, E_DEFERRED_DW = 2 };
 
 // the staging of the step's products, one ring of slots:
-// tensor cores (bf16): TC_S slots of A [TM][TK + 8] and B [TN][TK + 8] or
-// [TK][TN + 8] (rows of 80 and 272 bytes: ldmatrix reads them without bank
-// conflicts); float32 FMA: FM_S slots of A [TK][TMP] and B [TK][TNP]
-constexpr int TC_S = 3, TC_AK = TK + 8, TC_BK = TK + 8, TC_BN = TN + 8;
+// tensor cores (bf16): TC_S slots of A [TM][TC_TK + 8] and B [TN][TC_TK + 8]
+// or [TC_TK][TN + 8] (rows of 144 and 272 bytes, odd multiples of 16:
+// ldmatrix reads them without bank conflicts); float32 FMA: FM_S slots of
+// A [TK][TMP] and B [TK][TNP]
+constexpr int TC_TK = 64, TC_S = 2;
+constexpr int TC_AK = TC_TK + 8, TC_BK = TC_TK + 8, TC_BN = TN + 8;
 constexpr int TC_A_BYTES = TM * TC_AK * 2;
-constexpr int TC_B_BYTES = TN * TC_BK * 2 > TK * TC_BN * 2 ? TN * TC_BK * 2 : TK * TC_BN * 2;
+constexpr int TC_B_BYTES =
+    TN * TC_BK * 2 > TC_TK * TC_BN * 2 ? TN * TC_BK * 2 : TC_TK * TC_BN * 2;
 constexpr int TC_SLOT = TC_A_BYTES + TC_B_BYTES;
 constexpr int FM_S = 2, FM_A = TK * TMP, FM_B = TK * TNP, FM_SLOT = FM_A + FM_B;
+constexpr int FM_BH = TN + 8;  // a bf16 B row in an FMA slot: 272 bytes, 16-byte aligned
+static_assert(TK * FM_BH * 2 <= FM_B * 4, "a bf16 B tile fits the slot's float32 one");
 constexpr int STG_BYTES = TC_S * TC_SLOT > FM_S * FM_SLOT * 4 ? TC_S * TC_SLOT
                                                                 : FM_S * FM_SLOT * 4;
 // the deferred weight-gradient products' tiles and ring (over the step's
@@ -148,6 +153,7 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <bool BF> struct Elem { using type = float; };
+template <bool B> struct Flag { static constexpr bool value = B; };
 template <> struct Elem<true> { using type = __nv_bfloat16; };
 
 // ---- device-only helpers: asynchronous copies, ldmatrix, mma --------------
@@ -201,6 +207,18 @@ __device__ __forceinline__ void mma16816(float d[4], const unsigned a[4], unsign
 
 // ---- end of the device-only helpers ----------------------------------------
 
+// acc += a . b, the 16-deep product summed by the tensor core from zero and
+// then added in float32 with rounding to nearest: the tensor core's own
+// accumulation truncates, so chaining it through its accumulator input
+// would bias every long sum toward zero by about an ulp a step
+__device__ __forceinline__ void mma16816_add(float acc[4], const unsigned a[4], unsigned b0,
+                                             unsigned b1) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma16816(d, a, b0, b1);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] += d[c];
+}
+
 // one product's epilogue on one output element (gemm's note)
 template <int RO, bool RBI>
 __device__ __forceinline__ float epilogue(float v, int m, int n, const float* bias, bool relu,
@@ -249,13 +267,15 @@ __device__ __forceinline__ void stage8(bf16* dst, const float* Bm, const bf16* B
 // The step's products with both operands rounded to bf16 on the tensor
 // cores: mma.sync m16n8k16, float32 accumulators.  Output tiles of TM x TN,
 // warp w computing rows (w % 2) 16 .. + 16 and columns (w / 2) 32 .. + 32;
-// the depth in steps of TK through a ring of TC_S slots, each step's copies
-// issued two steps ahead.  A (float32, shared memory) is rounded into the
+// the depth in steps of TC_TK through a ring of TC_S slots, all of them
+// filled before the first step (so a product of K <= TC_S TC_TK waits for
+// one round trip of its copies) and each refilled as soon as it is used.  A (float32, shared memory) is rounded into the
 // slot as [m][k]; B from the bf16 copy Bb by cp.async, or from the float32
 // Bm rounded, as [k][n] when n is its contiguous index (sbn == 1), else as
-// [n][k] (sbk == 1).
+// [n][k] (sbk == 1).  Not inlined: a few instances serve every call site,
+// which keeps the objects' build short.
 template <int RO, bool RBI>
-__device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
+__device__ __noinline__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
                         const float* Bm, const bf16* Bb, int sbk, int sbn, float* Cm, int ldc,
                         bool accum, const float* bias, bool relu, const float* add, int lda,
                         const float* mask, int ldm) {
@@ -266,16 +286,16 @@ __device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
   const bool bkn = sbn == 1;
   if (!bkn && sbk != 1) __trap();  // B needs a contiguous index
   const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
-  const int nsteps = (K + TK - 1) / TK;
+  const int nsteps = (K + TC_TK - 1) / TC_TK;
   for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
     const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
     auto stage = [&](int s) {
       char* slot = stg + (s % TC_S) * TC_SLOT;
       bf16* As = reinterpret_cast<bf16*>(slot);
       bf16* Bs = reinterpret_cast<bf16*>(slot + TC_A_BYTES);
-      const int k0 = s * TK;
-      for (int i = tid; i < TM * TK / 2; i += NT) {
-        const int mm = i / (TK / 2), kk = 2 * (i % (TK / 2));
+      const int k0 = s * TC_TK;
+      for (int i = tid; i < TM * TC_TK / 2; i += NT) {
+        const int mm = i / (TC_TK / 2), kk = 2 * (i % (TC_TK / 2));
         const int m = m0 + mm, k = k0 + kk;
         float v0 = 0.f, v1 = 0.f;
         if (m < M) {
@@ -286,15 +306,15 @@ __device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
         *reinterpret_cast<__nv_bfloat162*>(As + mm * TC_AK + kk) = __floats2bfloat162_rn(v0, v1);
       }
       if (bkn) {
-        for (int i = tid; i < TK * TN / 8; i += NT) {
+        for (int i = tid; i < TC_TK * TN / 8; i += NT) {
           const int kk = i / (TN / 8), nn = 8 * (i % (TN / 8));
           const int k = k0 + kk, n = n0 + nn;
           const int valid = k < K ? (N - n < 8 ? N - n : 8) : 0;
           stage8(Bs + kk * TC_BN + nn, Bm, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
         }
       } else {
-        for (int i = tid; i < TN * TK / 8; i += NT) {
-          const int nn = i / (TK / 8), kk = 8 * (i % (TK / 8));
+        for (int i = tid; i < TN * TC_TK / 8; i += NT) {
+          const int nn = i / (TC_TK / 8), kk = 8 * (i % (TC_TK / 8));
           const int k = k0 + kk, n = n0 + nn;
           const int valid = n < N ? (K - k < 8 ? K - k : 8) : 0;
           stage8(Bs + nn * TC_BK + kk, Bm, Bb, (long long)n * sbn + k, valid < 0 ? 0 : valid);
@@ -308,21 +328,19 @@ __device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
       for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
     if (tile) __syncthreads();  // every warp is done with the last tile's slots
 #pragma unroll
-    for (int s = 0; s < TC_S - 1; ++s) {
+    for (int s = 0; s < TC_S; ++s) {
       if (s < nsteps) stage(s);
       cp_commit();
     }
     for (int s = 0; s < nsteps; ++s) {
-      cp_wait<TC_S - 2>();
+      cp_wait<TC_S - 1>();  // step s's copies have landed
       __syncthreads();
-      if (s + TC_S - 1 < nsteps) stage(s + TC_S - 1);
-      cp_commit();
       const char* slot = stg + (s % TC_S) * TC_SLOT;
       const bf16* As = reinterpret_cast<const bf16*>(slot);
       const bf16* Bs = reinterpret_cast<const bf16*>(slot + TC_A_BYTES);
-      const int kmax = K - s * TK;
+      const int kmax = K - s * TC_TK;
 #pragma unroll
-      for (int kk = 0; kk < TK; kk += 16) {
+      for (int kk = 0; kk < TC_TK; kk += 16) {
         if (kk >= kmax) break;
         unsigned a[4];
         ldsm4(a, As + (wm * 16 + (mat & 1) * 8 + r8) * TC_AK + kk + (mat >> 1) * 8);
@@ -335,10 +353,15 @@ __device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
             ldsm4t(b, Bs + (kk + (mat & 1) * 8 + r8) * TC_BN + nb + (mat >> 1) * 8);
           else
             ldsm4(b, Bs + (nb + (mat >> 1) * 8 + r8) * TC_BK + kk + (mat & 1) * 8);
-          mma16816(acc[2 * jp], a, b[0], b[1]);
-          mma16816(acc[2 * jp + 1], a, b[2], b[3]);
+          mma16816_add(acc[2 * jp], a, b[0], b[1]);
+          mma16816_add(acc[2 * jp + 1], a, b[2], b[3]);
         }
       }
+      if (s + TC_S < nsteps) {  // refill this slot once every warp is done with it
+        __syncthreads();
+        stage(s + TC_S);
+      }
+      cp_commit();
     }
     // epilogue: thread (g, t4) holds rows g, g + 8 and columns 2 t4, 2 t4 + 1
     // of each of its four 16 x 8 tiles
@@ -363,23 +386,26 @@ __device__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
   __syncthreads();
 }
 
-// The float32 FMA products (both operands float32, or one rounded to bf16):
+// The float32 FMA products (both operands float32, or rounded to bf16):
 // tiles of TM x TN, each thread 4 x 4 outputs, every output one FMA chain
 // over k in order.  The depth in steps of TK through a ring of FM_S slots:
 // A (shared memory) copied in rounded when RA; B, when it lies in global
-// memory (the weights), by cp.async (16 bytes along n where aligned, else
-// 4 bytes an element) one step ahead, and rounded when read if RB; from
-// shared memory copied in rounded when RB.  The old C of an accumulating
-// product is read before the depth loop.
+// memory (the weights), by cp.async one step ahead: a rounded B with n its
+// contiguous index from the bf16 copy Bb, 16 bytes along n, kept bf16 in
+// the slot and widened when read (exact), else float32 (16 bytes along n
+// where aligned, else 4 bytes an element) and rounded when read if RB; B
+// in shared memory copied in rounded when RB.  The old C of an
+// accumulating product is read before the depth loop.
 template <bool RA, bool RB, int RO, bool RBI>
 __device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
-                         const float* Bm, int sbk, int sbn, float* Cm, int ldc, bool accum,
-                         const float* bias, bool relu, const float* add, int lda,
-                         const float* mask, int ldm) {
+                         const float* Bm, const bf16* Bb, int sbk, int sbn, float* Cm,
+                         int ldc, bool accum, const float* bias, bool relu, const float* add,
+                         int lda, const float* mask, int ldm) {
   float* stg = sm + S_STG;
   const int tid = threadIdx.x;
   const int tx = tid % 32, ty = tid / 32;
   const bool b_async = !__isShared(Bm);
+  const bool b_bf16 = RB && b_async && Bb != nullptr && sbn == 1;
   const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
   const int nsteps = (K + TK - 1) / TK;
   const bool vec = (ldc % 4 == 0) && ((reinterpret_cast<uintptr_t>(Cm) & 15) == 0);
@@ -397,7 +423,15 @@ __device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
         As[kk * TMP + mm] =
             (m < M && k < K) ? rnd<RA>(A[(long long)m * sam + (long long)k * sak]) : 0.f;
       }
-      if (b_async && sbn == 1) {
+      if (b_bf16) {
+        bf16* Bh = reinterpret_cast<bf16*>(Bs);
+        for (int i = tid; i < TK * TN / 8; i += NT) {
+          const int kk = i / (TN / 8), nn = 8 * (i % (TN / 8));
+          const int k = k0 + kk, n = n0 + nn;
+          const int valid = k < K ? (N - n < 8 ? N - n : 8) : 0;
+          stage8(Bh + kk * FM_BH + nn, Bm, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
+        }
+      } else if (b_async && sbn == 1) {
         for (int i = tid; i < TK * TN / 4; i += NT) {
           const int kk = i / (TN / 4), nn = 4 * (i % (TN / 4));
           const int k = k0 + kk, n = n0 + nn;
@@ -447,24 +481,39 @@ __device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
       __syncthreads();
       const float* As = stg + (s % FM_S) * FM_SLOT;
       const float* Bs = As + FM_A;
-      auto body = [&](auto round_b) {
+      // B(kk, n .. n + 3) as floats: widened from bf16, rounded if RB and
+      // staged unrounded, or as staged
+      auto body = [&](auto load_b) {
 #pragma unroll 8
         for (int kk = 0; kk < TK; ++kk) {
           const float4 a = *reinterpret_cast<const float4*>(As + kk * TMP + ty * 4);
-          const float4 b = *reinterpret_cast<const float4*>(Bs + kk * TNP + tx * 4);
+          float bv[4];
+          load_b(kk, bv);
           const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {rnd<decltype(round_b)::value>(b.x),
-                               rnd<decltype(round_b)::value>(b.y),
-                               rnd<decltype(round_b)::value>(b.z),
-                               rnd<decltype(round_b)::value>(b.w)};
 #pragma unroll
           for (int r = 0; r < 4; ++r)
 #pragma unroll
             for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
         }
       };
-      if (RB && b_async) body(std::integral_constant<bool, RB>{});
-      else body(std::integral_constant<bool, false>{});
+      if (b_bf16) {
+        const bf16* Bh = reinterpret_cast<const bf16*>(Bs);
+        body([&](int kk, float* bv) {
+          const uint2 q = *reinterpret_cast<const uint2*>(Bh + kk * FM_BH + tx * 4);
+          bv[0] = __uint_as_float(q.x << 16); bv[1] = __uint_as_float(q.x & 0xFFFF0000u);
+          bv[2] = __uint_as_float(q.y << 16); bv[3] = __uint_as_float(q.y & 0xFFFF0000u);
+        });
+      } else if (RB && b_async) {
+        body([&](int kk, float* bv) {
+          const float4 b = *reinterpret_cast<const float4*>(Bs + kk * TNP + tx * 4);
+          bv[0] = rnd<RB>(b.x); bv[1] = rnd<RB>(b.y); bv[2] = rnd<RB>(b.z); bv[3] = rnd<RB>(b.w);
+        });
+      } else {
+        body([&](int kk, float* bv) {
+          const float4 b = *reinterpret_cast<const float4*>(Bs + kk * TNP + tx * 4);
+          bv[0] = b.x; bv[1] = b.y; bv[2] = b.z; bv[3] = b.w;
+        });
+      }
       __syncthreads();
     }
 #pragma unroll
@@ -496,13 +545,28 @@ __device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
   __syncthreads();
 }
 
+// Whether the step's products with both operands bf16 (the forward, the
+// activation gradients) run on the tensor cores.  They do not: their
+// outputs are rounded to bf16 again as the next product's operands, so a
+// sum taken in another order than the plain version's rounds some of them
+// (about 2^-13) to the other bf16 neighbour, and those flips move K3's
+// loss rows and its trajectory past K3_TOL (chip_smoke.py), which holds
+// them in the FMA order: measured on the card (PERF.md, PR 11), with the
+// forward on the tensor cores the first epoch's loss rows 1.37e-5 of
+// themselves apart (the limit 1e-5), with the activation gradients there
+// too twenty epochs' rows 7.5e-3 (the limit 1e-3).  The weight gradients,
+// whose float32 sums are never rounded again, run on the tensor cores
+// (wgrad_deferred).
+constexpr bool TC_STEP = false;
+
 // C[M, N] = A[M, K] . B[K, N] with A(m, k) = A[m sam + k sak] and
 // B(k, n) = B[k sbk + n sbn], so one routine serves the forward (act . W)
 // and the activation gradient (dY . W^T) (and, in float32, the weight
-// gradient act^T . dY).  A operand is rounded to bf16 when RA / RB; with
-// both rounded the product runs on the tensor cores (tc_gemm), B read from
-// the bf16 copy Bb when it is given (the weights), else on float32 FMA
-// (fma_gemm), each output one chain over k in order.  Epilogue, in order:
+// gradient act^T . dY).  An operand is rounded to bf16 when RA / RB; with
+// both rounded and TC_STEP the product runs on the tensor cores (tc_gemm),
+// else on float32 FMA (fma_gemm), each output one chain over k in order;
+// the bf16 copy Bb of B (the weights), when it is given, is what a rounded
+// B is staged from.  Epilogue, in order:
 // the product rounded to bf16 when RO >= 1, + bias[n] (itself rounded to
 // bf16 when RBI), + add[m lda + n], rounded again when RO == 2, relu, times
 // (mask[m ldm + n] > 0), then + the old C when accum.
@@ -514,12 +578,12 @@ __device__ void gemm(int M, int N, int K,
                      const float* bias, bool relu,
                      const float* add, int lda,
                      const float* mask, int ldm, const bf16* Bb = nullptr) {
-  if constexpr (RA && RB) {
+  if constexpr (RA && RB && TC_STEP) {
     tc_gemm<RO, RBI>(M, N, K, A, sam, sak, Bm, Bb, sbk, sbn, Cm, ldc, accum, bias, relu, add,
                      lda, mask, ldm);
   } else {
-    fma_gemm<RA, RB, RO, RBI>(M, N, K, A, sam, sak, Bm, sbk, sbn, Cm, ldc, accum, bias, relu,
-                              add, lda, mask, ldm);
+    fma_gemm<RA, RB, RO, RBI>(M, N, K, A, sam, sak, Bm, Bb, sbk, sbn, Cm, ldc, accum, bias,
+                              relu, add, lda, mask, ldm);
   }
 }
 
@@ -529,8 +593,8 @@ template <bool BF, int L>
 __device__ void fwd(const float* in, int ldi, const float* P, const bf16* Pb, float* out,
                     int ldo, bool relu) {
   constexpr int fi = layer_in(L), fo = layer_out(L);
-  gemm<BF, BF>(R, fo, fi, in, ldi, 1, P + w_off(L), fo, 1, out, ldo, false,
-               P + b_off(L), relu, nullptr, 0, nullptr, 0, Pb ? Pb + w_off(L) : nullptr);
+  gemm<BF, BF>(R, fo, fi, in, ldi, 1, P + w_off(L), fo, 1, out, ldo, false, P + b_off(L),
+               relu, nullptr, 0, nullptr, 0, Pb ? Pb + w_off(L) : nullptr);
 }
 
 // the bias gradient colsum(dy) of layer L into the block's running sums
@@ -560,14 +624,24 @@ __device__ void wgrad(const float* in, int ldi, const float* dy, int ldy, float*
                nullptr, false, nullptr, 0, nullptr, 0);
 }
 
-// R rows of `width` float32 values (row stride lds) into the scratch rows
-// at dst (row stride SCR_ROW), rounded to bf16
+// R rows of `width` float32 values (row stride lds, even) into the scratch
+// rows at dst (row stride SCR_ROW), rounded to bf16, 8 values (16 bytes) a
+// store: the pad up to pad8(width) takes whatever follows the row in shared
+// memory, which only the deferred product's discarded rows and columns read
 __device__ __forceinline__ void to_scratch(const float* src, int lds, int width, bf16* dst) {
-  const int pairs = width / 2;
-  for (int i = threadIdx.x; i < R * pairs; i += NT) {
-    const int r = i / pairs, c = 2 * (i % pairs);
-    *reinterpret_cast<__nv_bfloat162*>(dst + (long long)r * SCR_ROW + c) =
-        __floats2bfloat162_rn(src[r * lds + c], src[r * lds + c + 1]);
+  const int oct = (width + 7) / 8;
+  for (int i = threadIdx.x; i < R * oct; i += NT) {
+    const int r = i / oct, c = 8 * (i % oct);
+    const float* s = src + r * lds + c;
+    uint4 v;
+    unsigned* w = reinterpret_cast<unsigned*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = *reinterpret_cast<const float2*>(s + 2 * e);
+      const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+      w[e] = *reinterpret_cast<const unsigned*>(&b);
+    }
+    *reinterpret_cast<uint4*>(dst + (long long)r * SCR_ROW + c) = v;
   }
 }
 
@@ -584,24 +658,27 @@ __device__ void wgrad_defer(const float* in, int ldi, const float* dy, int ldy, 
   __syncthreads();
 }
 
-// The deferred weight gradient of layer L over the chunk's scratch rows
-// k_lo .. k_hi (a multiple of R): part[w_off(L)..] = in^T . dy, written
-// once, on the tensor cores.  Tiles of DM x DN, warp w computing rows
-// (w % 4) 32 .. + 32 and columns (w / 4) 64 .. + 64; the depth (the rows)
-// in steps of DK through a ring of D_S slots over the step's buffers, by
-// cp.async from the scratch.  A(m, k) = in of row k, column m: staged
-// [k][m] and read by ldmatrix.trans, or under dwT (DWT) transposed by the
-// threads into [m][k] and read by ldmatrix: the same values into the same
-// products, so the same sums bit for bit.
-template <bool DWT, int L>
-__device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part) {
-  constexpr int M = layer_in(L), N = layer_out(L), MP = pad8(M), NP = pad8(N);
+// The deferred weight gradient of one layer (fan-in M, fan-out N, its
+// scratch columns in_col and dy_col, its weights at w_off) over the chunk's
+// scratch rows k_lo .. k_hi (a multiple of R): part[w_off..] = in^T . dy,
+// written once, on the tensor cores.  Tiles of DM x DN, warp w computing
+// rows (w % 4) 32 .. + 32 and columns (w / 4) 64 .. + 64; the depth (the
+// rows) in steps of DK through a ring of D_S slots over the step's
+// buffers, by cp.async from the scratch.  A(m, k) = in of row k, column m:
+// staged [k][m] and read by ldmatrix.trans, or under dwT (DWT) transposed
+// by the threads into [m][k] and read by ldmatrix: the same values into
+// the same products, so the same sums bit for bit.  One instance for all
+// layers (not inlined), to keep the objects' build short.
+template <bool DWT>
+__device__ __noinline__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part,
+                                            int M, int N, int in_col, int dy_col, int w_off) {
+  const int MP = pad8(M), NP = pad8(N);
   char* ring = reinterpret_cast<char*>(sm);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 3, wn = warp >> 2;
   const int mat = lane >> 3, r8 = lane & 7, g = lane >> 2, t4 = lane & 3;
   const int nsteps = (k_hi - k_lo + DK - 1) / DK;
-  constexpr int tiles_m = (M + DM - 1) / DM, tiles_n = (N + DN - 1) / DN;
+  const int tiles_m = (M + DM - 1) / DM, tiles_n = (N + DN - 1) / DN;
   for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
     const int m0 = (tile / tiles_n) * DM, n0 = (tile % tiles_n) * DN;
     auto stage = [&](int s) {
@@ -615,7 +692,7 @@ __device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part)
           const int m = m0 + mm, k = k0 + kk;
           bf16 v0 = __float2bfloat16_rn(0.f), v1 = v0;
           if (m < MP) {
-            const bf16* a = scr + (long long)k * SCR_ROW + scr_in(L) + m;
+            const bf16* a = scr + (long long)k * SCR_ROW + in_col + m;
             if (k < k_hi) v0 = a[0];
             if (k + 1 < k_hi) v1 = a[SCR_ROW];
           }
@@ -628,7 +705,7 @@ __device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part)
           const int k = k0 + kk, m = m0 + mm;
           const bool ok = k < k_hi && m < MP;
           cp_async16(As + kk * D_AM + mm,
-                     ok ? scr + (long long)k * SCR_ROW + scr_in(L) + m : scr, ok ? 16 : 0);
+                     ok ? scr + (long long)k * SCR_ROW + in_col + m : scr, ok ? 16 : 0);
         }
       }
       for (int i = tid; i < DK * DN / 8; i += NT) {
@@ -636,7 +713,7 @@ __device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part)
         const int k = k0 + kk, n = n0 + nn;
         const bool ok = k < k_hi && n < NP;
         cp_async16(Bs + kk * D_BN + nn,
-                   ok ? scr + (long long)k * SCR_ROW + scr_dy(L) + n : scr, ok ? 16 : 0);
+                   ok ? scr + (long long)k * SCR_ROW + dy_col + n : scr, ok ? 16 : 0);
       }
     };
     float acc[2][8][4];
@@ -682,14 +759,14 @@ __device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part)
           ldsm4t(b, Bs + (kk + (mat & 1) * 8 + r8) * D_BN + nb + (mat >> 1) * 8);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
-            mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+            mma16816_add(acc[i][2 * jp], a[i], b[0], b[1]);
+            mma16816_add(acc[i][2 * jp + 1], a[i], b[2], b[3]);
           }
         }
       }
     }
     if (rows_live && cols_live) {
-      float* W = part + w_off(L);
+      float* W = part + w_off;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -711,19 +788,14 @@ __device__ void wgrad_deferred(const bf16* scr, int k_lo, int k_hi, float* part)
 
 // the deferred weight gradients of every layer over the chunk's scratch
 // rows k_lo .. k_hi
-template <bool DWT>
-__device__ void wgrads_deferred(const bf16* scr, int k_lo, int k_hi, float* part) {
-  wgrad_deferred<DWT, L_C0>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_C1>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_E0>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_E1>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_E2>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_E3>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_ML>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_D0>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_D1>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_D2>(scr, k_lo, k_hi, part);
-  wgrad_deferred<DWT, L_D3>(scr, k_lo, k_hi, part);
+template <bool DWT, int L = 0>
+__device__ __forceinline__ void wgrads_deferred(const bf16* scr, int k_lo, int k_hi,
+                                                float* part) {
+  if constexpr (L < 11) {
+    wgrad_deferred<DWT>(scr, k_lo, k_hi, part, layer_in(L), layer_out(L), scr_in(L),
+                        scr_dy(L), w_off(L));
+    wgrads_deferred<DWT, L + 1>(scr, k_lo, k_hi, part);
+  }
 }
 
 // the block's bias-gradient sums into its partial row, layer by layer with
@@ -1080,7 +1152,9 @@ inline long long n_chunks_of(long long n_pad, int sms) {
 }
 
 // the rows of one chunk's scratch: `steps` 32-row steps of SCR_ROW bf16
-inline long long scratch_chunk(int steps) { return (long long)steps * R * SCR_ROW; }
+__host__ __device__ inline long long scratch_chunk(int steps) {
+  return (long long)steps * R * SCR_ROW;
+}
 
 // (a) of K3 and K4: one block per chunk of `steps` 32-row steps; writes the
 // chunk's partial gradients and loss sums to partial[blockIdx.x].  AB holds

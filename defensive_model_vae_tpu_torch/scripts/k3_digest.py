@@ -1,16 +1,18 @@
 """SHA-256 digests of K3's and K4's results on fixed small cases, to hold
-the kernels' default instances bit for bit against an earlier build:
+the kernels' default instances bit for bit to their reference:
 
     python -m defensive_model_vae_tpu_torch.scripts.k3_digest
 
 Each case trains (K3) or takes one epoch's gradients (K4) from seeded
 inputs at 8,448 rows, tiles of 352, and hashes the bytes of every result
-array in order.  ``REFERENCE`` holds the digests of the build at commit
-d8a64ec, before the kernels' device code moved into
-``csrc/scale_common.cuh``; the kernels' sums are laid out by the card's SM
-count, so the digests are keyed by it.  Prints one JSON line.  Runs on the
-card unless ``--device cpu`` (the plain versions' digests, which no
-reference holds).
+array in order.  ``REFERENCE`` holds the digests the kernels must give:
+float32's is still the build at commit d8a64ec's (every float32 output is
+one FMA chain over k in order, as it was), the bf16 cases' the engine's
+that runs the bf16 weight gradients on the tensor cores (their sums over a
+block's rows are one product, not 32-row steps added up);
+``D8A64EC_BF16`` keeps the bf16 cases of d8a64ec.  The kernels' sums are
+laid out by the card's SM count, so the digests are keyed by it.  Prints one JSON line.  Runs on the card unless ``--device
+cpu`` (the plain versions' digests, which no reference holds).
 """
 
 from __future__ import annotations
@@ -35,12 +37,21 @@ CASES = {"k3_bf16_packed": ("k3", "bfloat16", "packed"),
          "k3_bf16_hbm": ("k3", "bfloat16", "hbm"),
          "k3_f32_packed": ("k3", None, "packed"),
          "k4_bf16_packed": ("k4", "bfloat16", "packed")}
-# {SM count: {case: digest}}, from the build at commit d8a64ec on an
-# NVIDIA H100 80GB HBM3 (132 SMs), CUDA 12.8
+# {SM count: {case: digest}} on an NVIDIA H100 80GB HBM3 (132 SMs), CUDA
+# 12.8: float32 from the build at commit d8a64ec, bf16 from the engine with
+# the bf16 weight gradients on the tensor cores
 REFERENCE = {132: {
+    "k3_bf16_packed": "4e6bcc95d6109bb87921d23d20703def0e3616c3f707268a4f9bc25063a9e83a",
+    "k3_bf16_hbm": "a99218ed459feb1183af93d6dbefe3adb1d5182d3647d5dda5eceacabd881612",
+    "k3_f32_packed": "f76e90a1a2ae889ababcc229fa4d53c9b74b907996c327b9faae5c7e81b3fbe1",
+    "k4_bf16_packed": "3082d3539710533fceaa70e71076b9528d5507754ac8edda032a31722b6e8b2f",
+}}
+# the bf16 cases of the d8a64ec build, which the parent of this engine
+# still gave (float32 FMA over bf16 operands, the weight gradients added
+# into the partial rows step by step)
+D8A64EC_BF16 = {132: {
     "k3_bf16_packed": "92291421b4e25de0d6260d741f095b0533ba8ac0196399cc72a80a12a47808af",
     "k3_bf16_hbm": "06035ebc56d117932119292b7c327ada4e780293a36d2c972b0eb63a37337d5d",
-    "k3_f32_packed": "f76e90a1a2ae889ababcc229fa4d53c9b74b907996c327b9faae5c7e81b3fbe1",
     "k4_bf16_packed": "8c62b21658395ac75ec04d7916cdfc6a426f1a664302f985696613c4eccb1b42",
 }}
 

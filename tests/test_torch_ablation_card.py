@@ -21,7 +21,8 @@ the sum of the absolute values of its terms, 1e-5 for the plain sums
 (P1-stream, P2) and 1e-6 for P1-sol's and dx's, which lies below the gaps
 of plain versions with one deliberate error (chip_smoke.py's ``P1_TOL``);
 the loss components rtol 1e-5.  K3 with ``_ablate=()`` and K4 are held bit
-for bit to digests of their earlier build (``scripts/k3_digest.py``).
+for bit to their reference digests (``scripts/k3_digest.py``: float32 the
+build before the tensor cores, bf16 the tensor-core engine's).
 """
 
 import numpy as np
@@ -83,8 +84,8 @@ def test_k3_knob_matches_plain(knob):
 
 
 def test_k3_without_knobs_is_the_default_call():
-    """K3 with ``_ablate=()`` (and K4) bit for bit the build before their
-    device code moved into ``csrc/scale_common.cuh``."""
+    """K3 with ``_ablate=()`` (and K4) bit for bit their reference digests:
+    the default call's engine."""
     dev = _cuda()
     ref = k3_digest.REFERENCE.get(k3_digest.sm_count(dev))
     assert ref is not None, "no reference digests for this card's SM count"
