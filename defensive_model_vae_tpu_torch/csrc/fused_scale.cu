@@ -45,7 +45,7 @@
 // products stay off the tensor cores because their outputs are rounded to
 // bf16 again as the next product's operands, and a sum in another order
 // than the plain version's flips some of those roundings past K3_TOL
-// (scale_common.cuh, TC_STEP).  Time differences, bias gradients, the head
+// (scale_common.cuh, gemm).  Time differences, bias gradients, the head
 // math and the loss stay float32.
 //
 // Bound (bench shape: 131,072 windows x 200 epochs, tile 2048).  The
@@ -260,8 +260,8 @@ long long ks_partial_floats() { return PART_STRIDE; }
 
 long long ks_chunks(long long n_pad, int sms) { return n_chunks_of(n_pad, sms); }
 
-// what the engine does: E_TENSOR_CORES | E_DEFERRED_DW
-int ks_engine() { return E_TENSOR_CORES | E_DEFERRED_DW; }
+// what the engine does: E_TENSOR_CORES
+int ks_engine() { return E_TENSOR_CORES; }
 
 // the bf16 elements of the deferred weight gradients' scratch of the
 // manual bf16 instances: one chunk's rows (its steps x 32) of SCR_ROW each

@@ -83,26 +83,16 @@ enum Knob { K_NOADAM = 1, K_NOACC = 2, K_BIASDOT = 4, K_CHAINCD = 8, K_NODW = 16
 // the autodiff instances' dtype modes (ops/fused_scale.py::AUTO_MODES)
 enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
 
-// what the engine does (ks_engine): bf16 products on the tensor cores, and
-// the manual bf16 instances' weight gradients deferred to the chunk's end
-enum Engine { E_TENSOR_CORES = 1, E_DEFERRED_DW = 2 };
+// what the engine does (ks_engine): the bf16 weight gradients on the
+// tensor cores
+enum Engine { E_TENSOR_CORES = 1 };
 
-// the staging of the step's products, one ring of slots:
-// tensor cores (bf16): TC_S slots of A [TM][TC_TK + 8] and B [TN][TC_TK + 8]
-// or [TC_TK][TN + 8] (rows of 144 and 272 bytes, odd multiples of 16:
-// ldmatrix reads them without bank conflicts); float32 FMA: FM_S slots of
-// A [TK][TMP] and B [TK][TNP]
-constexpr int TC_TK = 64, TC_S = 2;
-constexpr int TC_AK = TC_TK + 8, TC_BK = TC_TK + 8, TC_BN = TN + 8;
-constexpr int TC_A_BYTES = TM * TC_AK * 2;
-constexpr int TC_B_BYTES =
-    TN * TC_BK * 2 > TC_TK * TC_BN * 2 ? TN * TC_BK * 2 : TC_TK * TC_BN * 2;
-constexpr int TC_SLOT = TC_A_BYTES + TC_B_BYTES;
+// the staging of the step's products: FM_S slots of A [TK][TMP] and B
+// [TK][TNP] (float32; a bf16 B as [TK][FM_BH])
 constexpr int FM_S = 2, FM_A = TK * TMP, FM_B = TK * TNP, FM_SLOT = FM_A + FM_B;
 constexpr int FM_BH = TN + 8;  // a bf16 B row in an FMA slot: 272 bytes, 16-byte aligned
 static_assert(TK * FM_BH * 2 <= FM_B * 4, "a bf16 B tile fits the slot's float32 one");
-constexpr int STG_BYTES = TC_S * TC_SLOT > FM_S * FM_SLOT * 4 ? TC_S * TC_SLOT
-                                                                : FM_S * FM_SLOT * 4;
+constexpr int STG_BYTES = FM_S * FM_SLOT * 4;
 // the deferred weight-gradient products' tiles and ring (over the step's
 // buffers, which are free by then): A [DK][DM + 8] (or, under dwT,
 // [DM][DK + 8]) and B [DK][DN + 8]
@@ -153,7 +143,6 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 template <bool BF> struct Elem { using type = float; };
-template <bool B> struct Flag { static constexpr bool value = B; };
 template <> struct Elem<true> { using type = __nv_bfloat16; };
 
 // ---- device-only helpers: asynchronous copies, ldmatrix, mma --------------
@@ -233,174 +222,55 @@ __device__ __forceinline__ float epilogue(float v, int m, int n, const float* bi
   return v;
 }
 
-// eight bf16 of B along its contiguous index into dst (16 bytes): from the
-// bf16 copy Bb by cp.async when it is given (16 bytes where aligned and
-// whole, else 2-byte-granular 4-byte copies), else from the float32 Bm
-// (global or shared memory), rounded; `valid` of the eight are real, the
-// rest zero
-__device__ __forceinline__ void stage8(bf16* dst, const float* Bm, const bf16* Bb,
-                                       long long off, int valid) {
-  if (Bb) {
-    const bf16* src = Bb + off;
-    if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      cp_async16(dst, src, 16);
-    } else if ((reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+// eight bf16 of B from the bf16 copy Bb along its contiguous index into dst
+// (16 bytes) by cp.async: 16 bytes where aligned and whole, else
+// 2-byte-granular 4-byte copies; `valid` of the eight are real, the rest
+// zero
+__device__ __forceinline__ void stage8(bf16* dst, const bf16* Bb, long long off, int valid) {
+  const bf16* src = Bb + off;
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    cp_async16(dst, src, 16);
+  } else if ((reinterpret_cast<uintptr_t>(src) & 3) == 0) {
 #pragma unroll
-      for (int e = 0; e < 8; e += 2) {
-        const int b = valid - e >= 2 ? 4 : valid - e == 1 ? 2 : 0;
-        cp_async4(dst + e, b ? src + e : Bb, b);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst[e] = e < valid ? src[e] : __float2bfloat16_rn(0.f);
+    for (int e = 0; e < 8; e += 2) {
+      const int b = valid - e >= 2 ? 4 : valid - e == 1 ? 2 : 0;
+      cp_async4(dst + e, b ? src + e : Bb, b);
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < 8; e += 2) {
-      const float v0 = e < valid ? Bm[off + e] : 0.f;
-      const float v1 = e + 1 < valid ? Bm[off + e + 1] : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(dst + e) = __floats2bfloat162_rn(v0, v1);
-    }
+    for (int e = 0; e < 8; ++e) dst[e] = e < valid ? src[e] : __float2bfloat16_rn(0.f);
   }
 }
 
-// The step's products with both operands rounded to bf16 on the tensor
-// cores: mma.sync m16n8k16, float32 accumulators.  Output tiles of TM x TN,
-// warp w computing rows (w % 2) 16 .. + 16 and columns (w / 2) 32 .. + 32;
-// the depth in steps of TC_TK through a ring of TC_S slots, all of them
-// filled before the first step (so a product of K <= TC_S TC_TK waits for
-// one round trip of its copies) and each refilled as soon as it is used.  A (float32, shared memory) is rounded into the
-// slot as [m][k]; B from the bf16 copy Bb by cp.async, or from the float32
-// Bm rounded, as [k][n] when n is its contiguous index (sbn == 1), else as
-// [n][k] (sbk == 1).  Not inlined: a few instances serve every call site,
-// which keeps the objects' build short.
-template <int RO, bool RBI>
-__device__ __noinline__ void tc_gemm(int M, int N, int K, const float* A, int sam, int sak,
-                        const float* Bm, const bf16* Bb, int sbk, int sbn, float* Cm, int ldc,
-                        bool accum, const float* bias, bool relu, const float* add, int lda,
-                        const float* mask, int ldm) {
-  char* stg = reinterpret_cast<char*>(sm + S_STG);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp & 1, wn = warp >> 1;
-  const int mat = lane >> 3, r8 = lane & 7, g = lane >> 2, t4 = lane & 3;
-  const bool bkn = sbn == 1;
-  if (!bkn && sbk != 1) __trap();  // B needs a contiguous index
-  const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
-  const int nsteps = (K + TC_TK - 1) / TC_TK;
-  for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
-    const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
-    auto stage = [&](int s) {
-      char* slot = stg + (s % TC_S) * TC_SLOT;
-      bf16* As = reinterpret_cast<bf16*>(slot);
-      bf16* Bs = reinterpret_cast<bf16*>(slot + TC_A_BYTES);
-      const int k0 = s * TC_TK;
-      for (int i = tid; i < TM * TC_TK / 2; i += NT) {
-        const int mm = i / (TC_TK / 2), kk = 2 * (i % (TC_TK / 2));
-        const int m = m0 + mm, k = k0 + kk;
-        float v0 = 0.f, v1 = 0.f;
-        if (m < M) {
-          const float* a = A + (long long)m * sam + (long long)k * sak;
-          if (k < K) v0 = a[0];
-          if (k + 1 < K) v1 = a[sak];
-        }
-        *reinterpret_cast<__nv_bfloat162*>(As + mm * TC_AK + kk) = __floats2bfloat162_rn(v0, v1);
-      }
-      if (bkn) {
-        for (int i = tid; i < TC_TK * TN / 8; i += NT) {
-          const int kk = i / (TN / 8), nn = 8 * (i % (TN / 8));
-          const int k = k0 + kk, n = n0 + nn;
-          const int valid = k < K ? (N - n < 8 ? N - n : 8) : 0;
-          stage8(Bs + kk * TC_BN + nn, Bm, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
-        }
-      } else {
-        for (int i = tid; i < TN * TC_TK / 8; i += NT) {
-          const int nn = i / (TC_TK / 8), kk = 8 * (i % (TC_TK / 8));
-          const int k = k0 + kk, n = n0 + nn;
-          const int valid = n < N ? (K - k < 8 ? K - k : 8) : 0;
-          stage8(Bs + nn * TC_BK + kk, Bm, Bb, (long long)n * sbn + k, valid < 0 ? 0 : valid);
-        }
-      }
-    };
-    float acc[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-    if (tile) __syncthreads();  // every warp is done with the last tile's slots
-#pragma unroll
-    for (int s = 0; s < TC_S; ++s) {
-      if (s < nsteps) stage(s);
-      cp_commit();
-    }
-    for (int s = 0; s < nsteps; ++s) {
-      cp_wait<TC_S - 1>();  // step s's copies have landed
-      __syncthreads();
-      const char* slot = stg + (s % TC_S) * TC_SLOT;
-      const bf16* As = reinterpret_cast<const bf16*>(slot);
-      const bf16* Bs = reinterpret_cast<const bf16*>(slot + TC_A_BYTES);
-      const int kmax = K - s * TC_TK;
-#pragma unroll
-      for (int kk = 0; kk < TC_TK; kk += 16) {
-        if (kk >= kmax) break;
-        unsigned a[4];
-        ldsm4(a, As + (wm * 16 + (mat & 1) * 8 + r8) * TC_AK + kk + (mat >> 1) * 8);
-#pragma unroll
-        for (int jp = 0; jp < 2; ++jp) {
-          const int nb = wn * 32 + jp * 16;
-          if (n0 + nb >= N) break;
-          unsigned b[4];
-          if (bkn)
-            ldsm4t(b, Bs + (kk + (mat & 1) * 8 + r8) * TC_BN + nb + (mat >> 1) * 8);
-          else
-            ldsm4(b, Bs + (nb + (mat >> 1) * 8 + r8) * TC_BK + kk + (mat & 1) * 8);
-          mma16816_add(acc[2 * jp], a, b[0], b[1]);
-          mma16816_add(acc[2 * jp + 1], a, b[2], b[3]);
-        }
-      }
-      if (s + TC_S < nsteps) {  // refill this slot once every warp is done with it
-        __syncthreads();
-        stage(s + TC_S);
-      }
-      cp_commit();
-    }
-    // epilogue: thread (g, t4) holds rows g, g + 8 and columns 2 t4, 2 t4 + 1
-    // of each of its four 16 x 8 tiles
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + wn * 32 + j * 8 + 2 * t4;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * 16 + g + 8 * h;
-        if (m >= M) continue;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (n + c >= N) continue;
-          const float v = epilogue<RO, RBI>(acc[j][2 * h + c], m, n + c, bias, relu, add,
-                                            lda, mask, ldm);
-          float* dst = Cm + (long long)m * ldc + n + c;
-          *dst = accum ? *dst + v : v;
-        }
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// The float32 FMA products (both operands float32, or rounded to bf16):
-// tiles of TM x TN, each thread 4 x 4 outputs, every output one FMA chain
-// over k in order.  The depth in steps of TK through a ring of FM_S slots:
-// A (shared memory) copied in rounded when RA; B, when it lies in global
-// memory (the weights), by cp.async one step ahead: a rounded B with n its
-// contiguous index from the bf16 copy Bb, 16 bytes along n, kept bf16 in
-// the slot and widened when read (exact), else float32 (16 bytes along n
-// where aligned, else 4 bytes an element) and rounded when read if RB; B
-// in shared memory copied in rounded when RB.  The old C of an
-// accumulating product is read before the depth loop.
-template <bool RA, bool RB, int RO, bool RBI>
-__device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
-                         const float* Bm, const bf16* Bb, int sbk, int sbn, float* Cm,
-                         int ldc, bool accum, const float* bias, bool relu, const float* add,
-                         int lda, const float* mask, int ldm) {
+// C[M, N] = A[M, K] . B[K, N] with A(m, k) = A[m sam + k sak] and
+// B(k, n) = B[k sbk + n sbn], so one routine serves the forward (act . W),
+// the activation gradient (dY . W^T) and, in float32 and f32_acts, the
+// weight gradient (act^T . dY), on float32 FMA: an operand rounded to bf16
+// when RA / RB, tiles of TM x TN, each thread 4 x 4 outputs, every output
+// one FMA chain over k in order.  The order matters: these products'
+// outputs are rounded to bf16 again as the next product's operands, and
+// summed in another order than the plain version's (the tensor cores:
+// PERF.md, PR 11) some of them (about 2^-13) round to the other bf16
+// neighbour, which moved K3's first-epoch loss rows 1.37e-5 of themselves
+// from the plain version's (chip_smoke.py's K3_TOL: 1e-5) and, with the
+// activation gradients there too, twenty epochs' rows 7.5e-3 (1e-3).  The
+// bf16 weight gradients, whose float32 sums are never rounded again, run
+// on the tensor cores (wgrad_deferred).  The depth in steps of TK through a
+// ring of FM_S slots: A (shared memory) copied in rounded when RA; B, when
+// it lies in global memory (the weights), by cp.async one step ahead: a
+// rounded B with n its contiguous index from its bf16 copy Bb (when given)
+// 16 bytes along n, kept bf16 in the slot and widened when read (exact),
+// else float32 (16 bytes along n where aligned, else 4 bytes an element)
+// and rounded when read if RB; B in shared memory copied in rounded when
+// RB.  Epilogue, in order: the product rounded to bf16 when RO >= 1, +
+// bias[n] (itself rounded to bf16 when RBI), + add[m lda + n], rounded
+// again when RO == 2, relu, times (mask[m ldm + n] > 0), then + the old C
+// (read before the depth loop) when accum.
+template <bool RA, bool RB, int RO = 0, bool RBI = false>
+__device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, const float* Bm,
+                     int sbk, int sbn, float* Cm, int ldc, bool accum, const float* bias,
+                     bool relu, const float* add, int lda, const float* mask, int ldm,
+                     const bf16* Bb = nullptr) {
   float* stg = sm + S_STG;
   const int tid = threadIdx.x;
   const int tx = tid % 32, ty = tid / 32;
@@ -429,7 +299,7 @@ __device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
           const int kk = i / (TN / 8), nn = 8 * (i % (TN / 8));
           const int k = k0 + kk, n = n0 + nn;
           const int valid = k < K ? (N - n < 8 ? N - n : 8) : 0;
-          stage8(Bh + kk * FM_BH + nn, Bm, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
+          stage8(Bh + kk * FM_BH + nn, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
         }
       } else if (b_async && sbn == 1) {
         for (int i = tid; i < TK * TN / 4; i += NT) {
@@ -543,48 +413,6 @@ __device__ void fma_gemm(int M, int N, int K, const float* A, int sam, int sak,
     }
   }
   __syncthreads();
-}
-
-// Whether the step's products with both operands bf16 (the forward, the
-// activation gradients) run on the tensor cores.  They do not: their
-// outputs are rounded to bf16 again as the next product's operands, so a
-// sum taken in another order than the plain version's rounds some of them
-// (about 2^-13) to the other bf16 neighbour, and those flips move K3's
-// loss rows and its trajectory past K3_TOL (chip_smoke.py), which holds
-// them in the FMA order: measured on the card (PERF.md, PR 11), with the
-// forward on the tensor cores the first epoch's loss rows 1.37e-5 of
-// themselves apart (the limit 1e-5), with the activation gradients there
-// too twenty epochs' rows 7.5e-3 (the limit 1e-3).  The weight gradients,
-// whose float32 sums are never rounded again, run on the tensor cores
-// (wgrad_deferred).
-constexpr bool TC_STEP = false;
-
-// C[M, N] = A[M, K] . B[K, N] with A(m, k) = A[m sam + k sak] and
-// B(k, n) = B[k sbk + n sbn], so one routine serves the forward (act . W)
-// and the activation gradient (dY . W^T) (and, in float32, the weight
-// gradient act^T . dY).  An operand is rounded to bf16 when RA / RB; with
-// both rounded and TC_STEP the product runs on the tensor cores (tc_gemm),
-// else on float32 FMA (fma_gemm), each output one chain over k in order;
-// the bf16 copy Bb of B (the weights), when it is given, is what a rounded
-// B is staged from.  Epilogue, in order:
-// the product rounded to bf16 when RO >= 1, + bias[n] (itself rounded to
-// bf16 when RBI), + add[m lda + n], rounded again when RO == 2, relu, times
-// (mask[m ldm + n] > 0), then + the old C when accum.
-template <bool RA, bool RB, int RO = 0, bool RBI = false>
-__device__ void gemm(int M, int N, int K,
-                     const float* A, int sam, int sak,
-                     const float* Bm, int sbk, int sbn,
-                     float* Cm, int ldc, bool accum,
-                     const float* bias, bool relu,
-                     const float* add, int lda,
-                     const float* mask, int ldm, const bf16* Bb = nullptr) {
-  if constexpr (RA && RB && TC_STEP) {
-    tc_gemm<RO, RBI>(M, N, K, A, sam, sak, Bm, Bb, sbk, sbn, Cm, ldc, accum, bias, relu, add,
-                     lda, mask, ldm);
-  } else {
-    fma_gemm<RA, RB, RO, RBI>(M, N, K, A, sam, sak, Bm, Bb, sbk, sbn, Cm, ldc, accum, bias,
-                              relu, add, lda, mask, ldm);
-  }
 }
 
 // forward layer over the step's rows: out = act(in . W + b), B from the

@@ -100,10 +100,9 @@ _KNOB_LEVERS = {"biasdot": ("bias_via_dot", True), "chaincd": ("chain_cd", True)
 # the dtype modes of the autodiff instances (k3_train_auto's ``mode``)
 AUTO_MODES = {"float32": 0, "f32_acts": 1, "bf16_chain": 2}
 
-# what the CUDA engine reports (ks_engine's bits): the bf16 products on the
-# tensor cores, and the manual bf16 instances' weight gradients deferred to
-# the end of each chunk through a scratch of their bf16 operands
-ENGINE_TENSOR_CORES, ENGINE_DEFERRED_DW = 1, 2
+# what the CUDA engine reports (ks_engine's bits): the bf16 weight
+# gradients on the tensor cores
+ENGINE_TENSOR_CORES = 1
 
 # Guards, restated for an 80 GB H100 and this port:
 # - the tile is the unit of the noise stream (prng keys, hbm row blocks)
@@ -379,8 +378,8 @@ def weights_bf16(params: torch.Tensor) -> torch.Tensor:
 # ---- the CUDA kernels' wrappers --------------------------------------------
 
 def _check_engine(lib, compute_dtype):
-    """Refuse a library whose engine does not run the bf16 products on the
-    tensor cores: the bf16 instances have no other path on the card."""
+    """Refuse a library whose engine does not run the bf16 weight gradients
+    on the tensor cores: the bf16 instances have no other path on the card."""
     if compute_dtype is None:
         return
     engine = getattr(lib, "ks_engine", None)

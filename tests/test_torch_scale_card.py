@@ -207,7 +207,7 @@ def test_engine_reports_tensor_cores_and_the_layout_of_the_wrappers():
 
     _cuda()
     lib = load("fused_scale")
-    assert lib.ks_engine() == fs.ENGINE_TENSOR_CORES | fs.ENGINE_DEFERRED_DW
+    assert lib.ks_engine() == fs.ENGINE_TENSOR_CORES
     for n_pad, sms in ((131072, 132), (9152, 132), (16, 132), (704, 3)):
         assert lib.ks_chunks(n_pad, sms) == fs.n_chunks(n_pad, sms)
         assert lib.ks_scratch_elems(n_pad, sms) == fs.scratch_elems(n_pad, sms)

@@ -1,9 +1,9 @@
 """The host side of K3's and K4's product engine, on the CPU.
 
-The engine (``csrc/scale_common.cuh``) runs the bf16 products on the
-tensor cores over a bf16 copy of the weights and defers the manual bf16
-instances' weight gradients to the end of each chunk through a scratch of
-their bf16 operands.  What the wrappers compute around it is held here:
+The engine (``csrc/scale_common.cuh``) stages the bf16 modes' forward
+weights from a bf16 copy of the params and defers their weight gradients
+to the end of each chunk, through a scratch of their bf16 operands, onto
+the tensor cores.  What the wrappers compute around it is held here:
 the C entries' arguments, the bf16 copy's rounding, the chunk and scratch
 layout, and the refusals, among them a library without the tensor-core
 engine (no fallback to another path).  The kernels themselves run on the
@@ -139,7 +139,7 @@ def _stub_lib(engine=None):
     return lib
 
 
-@pytest.mark.parametrize("engine", [None, 0, fs.ENGINE_DEFERRED_DW])
+@pytest.mark.parametrize("engine", [None, 0, 2 * fs.ENGINE_TENSOR_CORES])
 def test_bf16_refuses_a_library_without_the_tensor_core_engine(engine):
     with pytest.raises(RuntimeError, match="tensor-core engine"):
         fs._check_engine(_stub_lib(engine), "bfloat16")
@@ -147,7 +147,7 @@ def test_bf16_refuses_a_library_without_the_tensor_core_engine(engine):
 
 def test_float32_needs_no_tensor_core_engine():
     fs._check_engine(_stub_lib(), None)
-    fs._check_engine(_stub_lib(fs.ENGINE_TENSOR_CORES | fs.ENGINE_DEFERRED_DW), "bfloat16")
+    fs._check_engine(_stub_lib(fs.ENGINE_TENSOR_CORES), "bfloat16")
 
 
 @pytest.mark.parametrize("call", ["k3", "k3_auto", "k4"])
@@ -170,8 +170,3 @@ def test_missing_tensor_core_entry_raises_before_any_launch(monkeypatch, call):
         else:
             fs._grad_epoch_call_kernel(plist, packed, 0, CFG, LossWeights(), tile, float(nv),
                                        "bfloat16", "packed", None)
-
-
-def test_engine_bits_are_distinct():
-    assert fs.ENGINE_TENSOR_CORES & fs.ENGINE_DEFERRED_DW == 0
-    assert fs.ENGINE_TENSOR_CORES and fs.ENGINE_DEFERRED_DW
