@@ -87,11 +87,16 @@ enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
 // tensor cores
 enum Engine { E_TENSOR_CORES = 1 };
 
-// the staging of the step's products: FM_S slots of A [TK][TMP] and B
-// [TK][TNP] (float32; a bf16 B as [TK][FM_BH])
-constexpr int FM_S = 2, FM_A = TK * TMP, FM_B = TK * TNP, FM_SLOT = FM_A + FM_B;
-constexpr int FM_BH = TN + 8;  // a bf16 B row in an FMA slot: 272 bytes, 16-byte aligned
-static_assert(TK * FM_BH * 2 <= FM_B * 4, "a bf16 B tile fits the slot's float32 one");
+// the staging of the step's products: FM_S slots of A [TK][TMP] and B,
+// float32 [TK][TNP] (n contiguous) or [TN][FM_BK] (k contiguous), bf16
+// [TK][FM_BH] or [TN][FM_BKH]; rows of 528, 144, 272 and 80 bytes, each a
+// multiple of 16 and read without bank conflicts (two-way for the last)
+constexpr int FM_BK = TK + 4, FM_BH = TN + 8, FM_BKH = TK + 8;
+constexpr int FM_S = 2, FM_A = TK * TMP;
+constexpr int FM_B = TK * TNP > TN * FM_BK ? TK * TNP : TN * FM_BK;
+constexpr int FM_SLOT = FM_A + FM_B;
+static_assert(TK * FM_BH * 2 <= FM_B * 4 && TN * FM_BKH * 2 <= FM_B * 4,
+              "a bf16 B tile fits the slot's float32 one");
 constexpr int STG_BYTES = FM_S * FM_SLOT * 4;
 // the deferred weight-gradient products' tiles and ring (over the step's
 // buffers, which are free by then): A [DK][DM + 8] (or, under dwT,
@@ -257,12 +262,12 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* Bb, long long off,
 // bf16 weight gradients, whose float32 sums are never rounded again, run
 // on the tensor cores (wgrad_deferred).  The depth in steps of TK through a
 // ring of FM_S slots: A (shared memory) copied in rounded when RA; B, when
-// it lies in global memory (the weights), by cp.async one step ahead: a
-// rounded B with n its contiguous index from its bf16 copy Bb (when given)
-// 16 bytes along n, kept bf16 in the slot and widened when read (exact),
-// else float32 (16 bytes along n where aligned, else 4 bytes an element)
-// and rounded when read if RB; B in shared memory copied in rounded when
-// RB.  Epilogue, in order: the product rounded to bf16 when RO >= 1, +
+// it lies in global memory (the weights), by cp.async one step ahead along
+// its contiguous index (n: the forward; k: the activation gradients' W^T,
+// staged [n][k]), 16 bytes where aligned, else 4 bytes an element: a
+// rounded B from its bf16 copy Bb when given, kept bf16 in the slot and
+// widened when read (exact), else float32 and rounded when read if RB; B
+// in shared memory copied in rounded when RB.  Epilogue, in order: the product rounded to bf16 when RO >= 1, +
 // bias[n] (itself rounded to bf16 when RBI), + add[m lda + n], rounded
 // again when RO == 2, relu, times (mask[m ldm + n] > 0), then + the old C
 // (read before the depth loop) when accum.
@@ -275,13 +280,20 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
   const int tid = threadIdx.x;
   const int tx = tid % 32, ty = tid / 32;
   const bool b_async = !__isShared(Bm);
-  const bool b_bf16 = RB && b_async && Bb != nullptr && sbn == 1;
+  // B in global memory with k its contiguous index (the activation
+  // gradients' W^T) is staged as [n][k], and each thread then takes the
+  // columns tx + 32 c (else tx 4 + c): its reads of four k at a time miss
+  // each other's banks
+  const bool b_k = b_async && sbk == 1 && sbn != 1;
+  const bool b_bf16 = RB && b_async && Bb != nullptr;
   const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
   const int nsteps = (K + TK - 1) / TK;
-  const bool vec = (ldc % 4 == 0) && ((reinterpret_cast<uintptr_t>(Cm) & 15) == 0);
+  const bool vec = !b_k && (ldc % 4 == 0) && ((reinterpret_cast<uintptr_t>(Cm) & 15) == 0);
+  const int cstep = b_k ? 32 : 1;  // a thread's columns: cbase + c cstep
   for (int tile = 0; tile < tiles_m * tiles_n; ++tile) {
     const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
     const int nb = n0 + tx * 4;
+    const int cbase = b_k ? n0 + tx : nb;
     auto stage = [&](int s) {
       float* As = stg + (s % FM_S) * FM_SLOT;
       float* Bs = As + FM_A;
@@ -293,13 +305,35 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
         As[kk * TMP + mm] =
             (m < M && k < K) ? rnd<RA>(A[(long long)m * sam + (long long)k * sak]) : 0.f;
       }
-      if (b_bf16) {
+      if (b_bf16 && b_k) {
+        bf16* Bh = reinterpret_cast<bf16*>(Bs);
+        for (int i = tid; i < TN * TK / 8; i += NT) {
+          const int nn = i / (TK / 8), kk = 8 * (i % (TK / 8));
+          const int k = k0 + kk, n = n0 + nn;
+          const int valid = n < N ? (K - k < 8 ? K - k : 8) : 0;
+          stage8(Bh + nn * FM_BKH + kk, Bb, (long long)n * sbn + k, valid < 0 ? 0 : valid);
+        }
+      } else if (b_bf16 && sbn == 1) {
         bf16* Bh = reinterpret_cast<bf16*>(Bs);
         for (int i = tid; i < TK * TN / 8; i += NT) {
           const int kk = i / (TN / 8), nn = 8 * (i % (TN / 8));
           const int k = k0 + kk, n = n0 + nn;
           const int valid = k < K ? (N - n < 8 ? N - n : 8) : 0;
           stage8(Bh + kk * FM_BH + nn, Bb, (long long)k * sbk + n, valid < 0 ? 0 : valid);
+        }
+      } else if (b_k) {
+        for (int i = tid; i < TN * TK / 4; i += NT) {
+          const int nn = i / (TK / 4), kk = 4 * (i % (TK / 4));
+          const int k = k0 + kk, n = n0 + nn;
+          const float* src = Bm + (long long)n * sbn + k;
+          float* dst = Bs + nn * FM_BK + kk;
+          const int valid = n < N ? (K - k < 4 ? K - k : 4) : 0;
+          if (valid == 4 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+            cp_async16(dst, src, 16);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < valid ? src + e : Bm, e < valid ? 4 : 0);
+          }
         }
       } else if (b_async && sbn == 1) {
         for (int i = tid; i < TK * TN / 4; i += NT) {
@@ -339,7 +373,7 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         acc[r][c] = 0.f;
-        const int m = m0 + ty * 4 + r, n = nb + c;
+        const int m = m0 + ty * 4 + r, n = cbase + c * cstep;
         old[r][c] = accum && m < M && n < N ? Cm[(long long)m * ldc + n] : 0.f;
       }
     stage(0);
@@ -366,7 +400,41 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
             for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
         }
       };
-      if (b_bf16) {
+      // [n][k]: four k of the thread's four columns at a time, then each
+      // output's four FMAs in k order
+      auto body_k = [&](auto load_b4) {
+#pragma unroll 2
+        for (int kk = 0; kk < TK; kk += 4) {
+          float4 a[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            a[j] = *reinterpret_cast<const float4*>(As + (kk + j) * TMP + ty * 4);
+          float b[4][4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) load_b4(tx + 32 * c, kk, b[c]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float av[4] = {a[j].x, a[j].y, a[j].z, a[j].w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r], b[c][j], acc[r][c]);
+          }
+        }
+      };
+      if (b_k && b_bf16) {
+        const bf16* Bh = reinterpret_cast<const bf16*>(Bs);
+        body_k([&](int nn, int kk, float* bv) {
+          const uint2 q = *reinterpret_cast<const uint2*>(Bh + nn * FM_BKH + kk);
+          bv[0] = __uint_as_float(q.x << 16); bv[1] = __uint_as_float(q.x & 0xFFFF0000u);
+          bv[2] = __uint_as_float(q.y << 16); bv[3] = __uint_as_float(q.y & 0xFFFF0000u);
+        });
+      } else if (b_k) {
+        body_k([&](int nn, int kk, float* bv) {
+          const float4 q = *reinterpret_cast<const float4*>(Bs + nn * FM_BK + kk);
+          bv[0] = rnd<RB>(q.x); bv[1] = rnd<RB>(q.y); bv[2] = rnd<RB>(q.z); bv[3] = rnd<RB>(q.w);
+        });
+      } else if (b_bf16) {
         const bf16* Bh = reinterpret_cast<const bf16*>(Bs);
         body([&](int kk, float* bv) {
           const uint2 q = *reinterpret_cast<const uint2*>(Bh + kk * FM_BH + tx * 4);
@@ -393,11 +461,11 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
       float val[4];
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int n = nb + c;
+        const int n = cbase + c * cstep;
         val[c] = n < N ? epilogue<RO, RBI>(acc[r][c], m, n, bias, relu, add, lda, mask, ldm)
                        : acc[r][c];
       }
-      float* dst = Cm + (long long)m * ldc + nb;
+      float* dst = Cm + (long long)m * ldc + cbase;
       if (vec && nb + 4 <= N) {
         float4 o = make_float4(val[0], val[1], val[2], val[3]);
         if (accum) {
@@ -408,7 +476,8 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (nb + c < N) dst[c] = accum ? old[r][c] + val[c] : val[c];
+          if (cbase + c * cstep < N)
+            dst[c * cstep] = accum ? old[r][c] + val[c] : val[c];
       }
     }
   }
