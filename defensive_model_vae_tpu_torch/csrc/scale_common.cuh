@@ -5,9 +5,9 @@
 //
 // What lives here: the model's shape and its flat parameter layout, the
 // shared-memory layout of one block (every activation of a 32-row step),
-// the product engine (`gemm`: float32 FMA over cp.async-staged tiles, or
-// mma.sync on the tensor cores; the deferred weight gradients on the
-// tensor cores over a per-chunk scratch of bf16 operands) and its forward /
+// the product engine (`gemm`: float32 FMA over cp.async-staged tiles; the
+// deferred weight gradients, mma.sync on the tensor cores over a per-chunk
+// scratch of bf16 operands) and its forward /
 // weight-gradient / activation-gradient forms, the Philox noise, and the
 // pieces of one step of K3: stage the rows, the forward, the loss sums
 // with d_recon, the manual backward (with the ablation knobs as template
@@ -1056,10 +1056,10 @@ __host__ __device__ inline long long scratch_chunk(int steps) {
 // (a) of K3 and K4: one block per chunk of `steps` 32-row steps; writes the
 // chunk's partial gradients and loss sums to partial[blockIdx.x].  AB holds
 // the ablation knobs of this instance (0: production).  In bf16 (BF) the
-// products run on the tensor cores with B from the bf16 copy Pb of the
-// weights, and the weight gradients are deferred: each step writes its
-// products' bf16 operands to the chunk's rows of `scratch`, and after the
-// last step one product a layer over the chunk's rows writes the partial
+// step's products stage their weights from the bf16 copy Pb, and the
+// weight gradients are deferred: each step writes its products' bf16
+// operands to the chunk's rows of `scratch`, and after the last step one
+// tensor-core product a layer over the chunk's rows writes the partial
 // row once; in float32 each step's weight gradients go onto FMA and are
 // added into the partial row.  The bias gradients are summed in shared
 // memory either way and written at the end.  Under K_NOACC every step
@@ -1307,10 +1307,9 @@ __device__ __forceinline__ void wgrad_auto(const float* in, int ldi, const float
 // its activation as in backward_step.  In A_CHAIN every cotangent is a
 // bf16 value (rounded where JAX's bf16 arithmetic rounds it), so its
 // products take it as a rounded operand (rounding a bf16 value changes
-// nothing) and run on the tensor cores, and its weight gradients are
-// deferred into the scratch rows scr as the manual bf16 instances'; in
-// A_ACTS the cotangents are float32, so the activation and weight
-// gradients stay on float32 FMA, step by step into part.
+// nothing) and its weight gradients are deferred into the scratch rows scr
+// as the manual bf16 instances'; in A_ACTS the cotangents are float32, so
+// the weight gradients stay on FMA, step by step into part.
 template <int MODE>
 __device__ __forceinline__ void backward_step_auto(const float* __restrict__ P,
                                                    const bf16* __restrict__ Pb, float* part,
