@@ -11,7 +11,8 @@ traceback and a non-zero exit:
 2. ``build``       ``nvcc`` builds every kernel of the port, all at once,
                    beside the cache probe's rounds A and A2, P3 (built,
                    launched, held against x * 2 + 1 bit for bit) and round
-                   B (``scripts/cache_probe.py``);
+                   B (``scripts/cache_probe.py``); the tensor-core
+                   instructions of K3/K4's library counted (``cuobjdump``);
 3. ``cache_probe`` the probe's verdicts for each object; P3 timed in
                    turns with ``torch.add`` through its wrapper and on the
                    device alone (calls replayed from a CUDA graph, every
@@ -59,7 +60,7 @@ traceback and a non-zero exit:
                    of 352: two 32-row steps a block, one chunk straddling the
                    last tile): K3 under each of its seven ``_ablate`` knobs at
                    1 and 3 epochs (dwT among them), K3 with ``_ablate=()`` and K4 bit for
-                   bit their earlier build (``scripts/k3_digest.py``), P1's
+                   bit their reference digests (``scripts/k3_digest.py``), P1's
                    stream, sol, fwd and dx kernels, sol's and dx's limit
                    held below plain versions with one deliberate error; P2
                    at the full 200 × 131,072 × 8 bf16 stream, four calls
@@ -87,8 +88,9 @@ traceback and a non-zero exit:
                    ``k2_vs_plain``; K3-auto (float32, f32_acts, bf16_chain) at
                    8,448 rows, tiles of 352, 1 and 3 epochs; K4-auto on one
                    tile: every rounded gradient an exact bf16 value (the
-                   per-tile rounding), two wrong plain versions failing
-                   that check; K4-auto on three tiles the float32 sum of
+                   per-tile rounding; its limit above the plain version's
+                   own order noise on three corpora), two wrong plain
+                   versions failing that check; K4-auto on three tiles the float32 sum of
                    K4-auto on each tile alone bit for bit, each of those
                    held as one tile is, three wrong plain versions (one
                    rounding only the cross-tile total) failing that check;

@@ -267,11 +267,12 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* Bb, long long off,
 // staged [n][k]), 16 bytes where aligned, else 4 bytes an element: a
 // rounded B from its bf16 copy Bb when given, kept bf16 in the slot and
 // widened when read (exact), else float32 and rounded when read if RB; B
-// in shared memory copied in rounded when RB.  Epilogue, in order: the product rounded to bf16 when RO >= 1, +
+// in shared memory (BSM: the weight gradients' dY) copied in rounded when
+// RB.  Epilogue, in order: the product rounded to bf16 when RO >= 1, +
 // bias[n] (itself rounded to bf16 when RBI), + add[m lda + n], rounded
 // again when RO == 2, relu, times (mask[m ldm + n] > 0), then + the old C
 // (read before the depth loop) when accum.
-template <bool RA, bool RB, int RO = 0, bool RBI = false>
+template <bool RA, bool RB, int RO = 0, bool RBI = false, bool BSM = false>
 __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, const float* Bm,
                      int sbk, int sbn, float* Cm, int ldc, bool accum, const float* bias,
                      bool relu, const float* add, int lda, const float* mask, int ldm,
@@ -279,7 +280,8 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
   float* stg = sm + S_STG;
   const int tid = threadIdx.x;
   const int tx = tid % 32, ty = tid / 32;
-  const bool b_async = !__isShared(Bm);
+  constexpr bool b_async = !BSM;
+  if (b_async && sbn != 1 && sbk != 1) __trap();  // global B needs a contiguous index
   // B in global memory with k its contiguous index (the activation
   // gradients' W^T) is staged as [n][k], and each thread then takes the
   // columns tx + 32 c (else tx 4 + c): its reads of four k at a time miss
@@ -348,14 +350,6 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
 #pragma unroll
             for (int e = 0; e < 4; ++e) cp_async4(dst + e, e < valid ? src + e : Bm, e < valid ? 4 : 0);
           }
-        }
-      } else if (b_async) {
-        for (int i = tid; i < TK * TN; i += NT) {
-          const int kk = i % TK, nn = i / TK;
-          const int k = k0 + kk, n = n0 + nn;
-          const bool ok = n < N && k < K;
-          cp_async4(Bs + kk * TNP + nn, ok ? Bm + (long long)k * sbk + (long long)n * sbn : Bm,
-                    ok ? 4 : 0);
         }
       } else {
         for (int i = tid; i < TK * TN; i += NT) {
@@ -517,8 +511,8 @@ __device__ void wgrad(const float* in, int ldi, const float* dy, int ldy, float*
                       bool accum) {
   constexpr int fi = layer_in(L), fo = layer_out(L);
   bias_sum<BD, L>(dy, ldy, accum);
-  gemm<RA, RB>(fi, fo, R, in, 1, ldi, dy, ldy, 1, part + w_off(L), fo, accum,
-               nullptr, false, nullptr, 0, nullptr, 0);
+  gemm<RA, RB, 0, false, true>(fi, fo, R, in, 1, ldi, dy, ldy, 1, part + w_off(L), fo,
+                               accum, nullptr, false, nullptr, 0, nullptr, 0);
 }
 
 // R rows of `width` float32 values (row stride lds, even) into the scratch
