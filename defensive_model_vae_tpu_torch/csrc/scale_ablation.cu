@@ -68,6 +68,9 @@
 // through ctypes (ops/_build.py).  The caller allocates everything.  Each
 // entry counts the kernel launches it issues (sa_cuda_launches).
 
+// P1's weights have no bf16 copy: its rounded weight operands are rounded
+// as they are read (scale_common.cuh, WEIGHT_COPY)
+#define KS_NO_WEIGHT_COPY
 #include "scale_common.cuh"
 
 namespace {

@@ -87,6 +87,15 @@ enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
 // tensor cores
 enum Engine { E_TENSOR_CORES = 1 };
 
+// whether a rounded weight operand is staged from the bf16 copy of the
+// params, which K3's and K4's entries always pass; P1's kernels have no
+// copy (scale_ablation.cu defines KS_NO_WEIGHT_COPY) and round as they read
+#ifdef KS_NO_WEIGHT_COPY
+constexpr bool WEIGHT_COPY = false;
+#else
+constexpr bool WEIGHT_COPY = true;
+#endif
+
 // the staging of the step's products: FM_S slots of A [TK][TMP] and B,
 // float32 [TK][TNP] (n contiguous) or [TN][FM_BK] (k contiguous), bf16
 // [TK][FM_BH] or [TN][FM_BKH]; rows of 528, 144, 272 and 80 bytes, each a
@@ -265,7 +274,7 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* Bb, long long off,
 // it lies in global memory (the weights), by cp.async one step ahead along
 // its contiguous index (n: the forward; k: the activation gradients' W^T,
 // staged [n][k]), 16 bytes where aligned, else 4 bytes an element: a
-// rounded B from its bf16 copy Bb when given, kept bf16 in the slot and
+// rounded B from its bf16 copy Bb (WEIGHT_COPY), kept bf16 in the slot and
 // widened when read (exact), else float32 and rounded when read if RB; B
 // in shared memory (BSM: the weight gradients' dY) copied in rounded when
 // RB.  Epilogue, in order: the product rounded to bf16 when RO >= 1, +
@@ -287,7 +296,8 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
   // columns tx + 32 c (else tx 4 + c): its reads of four k at a time miss
   // each other's banks
   const bool b_k = b_async && sbk == 1 && sbn != 1;
-  const bool b_bf16 = RB && b_async && Bb != nullptr;
+  constexpr bool b_bf16 = RB && b_async && WEIGHT_COPY;
+  if (b_bf16 && !Bb) __trap();  // the caller passes the copy
   const int tiles_m = (M + TM - 1) / TM, tiles_n = (N + TN - 1) / TN;
   const int nsteps = (K + TK - 1) / TK;
   const bool vec = !b_k && (ldc % 4 == 0) && ((reinterpret_cast<uintptr_t>(Cm) & 15) == 0);
