@@ -28,7 +28,7 @@
 //                K3's other work.  Every h is rounded to bf16 again by the
 //                next of its 23 chained products, so another order of the
 //                sums moves the total past P1_TOL's 1e-6 of Σ|terms| (the
-//                tensor cores: 2.7e-6, PERF.md PR 11).
+//                tensor cores: 2.7e-6, PERF.md §6).
 //   p1_ablation  K3's forward and loss (mode 0, fwd) under fixed params
 //                with packed eps, and (mode 1, dx) the gradient of the total
 //                loss in x, summed into metrics[e, 5].  dx is JAX autodiff's

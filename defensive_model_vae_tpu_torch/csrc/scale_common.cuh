@@ -264,7 +264,7 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* Bb, long long off,
 // one FMA chain over k in order.  The order matters: these products'
 // outputs are rounded to bf16 again as the next product's operands, and
 // summed in another order than the plain version's (the tensor cores:
-// PERF.md, PR 11) some of them (about 2^-13) round to the other bf16
+// PERF.md §6) some of them (about 2^-13) round to the other bf16
 // neighbour, which moved K3's first-epoch loss rows 1.37e-5 of themselves
 // from the plain version's (chip_smoke.py's K3_TOL: 1e-5) and, with the
 // activation gradients there too, twenty epochs' rows 7.5e-3 (1e-3).  The
