@@ -22,8 +22,8 @@ traceback and a non-zero exit:
 5. ``train``       the main path: ``fused_train`` on sce4 at full width
                    (134 windows, H=128, 3000 epochs) in one K1 launch (one
                    thread-block cluster), its time against the plain
-                   version's, a checkpoint round trip; one more run with
-                   the phase timer for K1's phase split;
+                   version's, a checkpoint round trip; one more run of 300
+                   epochs with the phase timer for K1's phase split;
 6. ``sample``      one trajectory per sce4 start point, with re-draws;
 7. ``track``       the samples tracked by the batched MPC, and the SLSQP
                    golden windows held to the bands of tests/test_mpc.py;
@@ -69,7 +69,7 @@ traceback and a non-zero exit:
                    or a block;
 15. ``ablation``   the ported ``scripts/scale_ablation.py`` at the bench
                    width (131,072 windows, tile 2048, bf16), 20 epochs, 1
-                   warm + 2 timed reps of every variant, its breakdown line;
+                   warm + 1 timed rep of every variant, its breakdown line;
                    the ported P2 probe's two variants at full shape; every
                    ablation kernel launched (the CUDA launches as the C
                    entries count them; P2 one a call); P2 timed in turns
@@ -108,7 +108,21 @@ traceback and a non-zero exit:
                    grid (50 and 3000 epochs) bit for bit the one-block
                    build's digests at the picked cluster size, and K1's
                    50-epoch case at each forced size 1, 2, 4, 8 and 16;
-21. ``kernels``    one line listing every ported kernel with its launches on
+21. ``serve``      the serving path (``serving.serve_checkpoint``): the
+                   four committed checkpoints behind one local endpoint,
+                   batch 16, 512 steps; one /serve to sce4 with 16 sce4
+                   starts (every row finite or listed in 'invalid'), the
+                   first row alone bit for bit, the answer equal to a direct
+                   call of the serve program, each row's device reference
+                   against the host PathReference (θ 1e-4, v 0.05), its
+                   states against the same waypoints tracked through the
+                   host reference (atol 1e-3), row 0 against its waypoints
+                   (mean < 2 m; every row's mean printed), one /generate
+                   to sce1 as npz; each request's wall time, the program's
+                   CUDA-event time, its device kernels' time (torch.profiler
+                   over 4 and 8 steps, extrapolated to 512) and the host
+                   share.  No kernel of the port is on this path;
+22. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound (P2 and P3 also
                    their device times, their library call's both ways, and
                    the spread of each; the K1 family its cluster size, its
@@ -133,6 +147,20 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "defensive_model_vae_tpu_torch"
+
+# the serve phase: the README's deployment (the four committed models behind
+# one endpoint, batch 16), the CLI's 512 steps, dt 0.02, P = 30, M = 20; the
+# reference held to tests/test_mpc.py:248-249's bounds, the tracking to
+# :290's
+SERVE_BATCH, SERVE_STEPS, SERVE_DT = 16, 512, 0.02
+SERVE_SEED = 5
+# the steps of the two profiled runs whose difference gives a step's
+# device time (the profiler's cost grows with the kernels it records)
+SERVE_PROFILE_STEPS = (4, 8)
+SERVE_THETA_TOL, SERVE_V_TOL, SERVE_POS_MEAN_M = 1e-4, 0.05, 2.0
+# the served states against the same waypoints tracked through the host
+# PathReference: the tracker's whole-simulation tolerance
+SERVE_HOST_TRACK_TOL = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # bf16 dense on the tensor cores, HBM
@@ -217,6 +245,10 @@ PLAIN_K1_EPOCHS, PLAIN_MULTI_EPOCHS, PLAIN_SEEDS, PLAIN_SEEDS_EPOCHS = 100, 50, 
 CHECK_EPOCHS, CHECK_SEEDS = 300, (0, 9, 22, 31)
 # the k1_digest phase: K1's 50-epoch case at each forced cluster size
 K1_FORCED_SIZES = (1, 2, 4, 8, 16)
+# the K1 family's phase split: one more timed launch a kernel, at this
+# depth (every epoch runs the same phases, so each phase's share is the
+# full run's; its milliseconds are this many epochs')
+SPLIT_EPOCHS = 300
 # K1, K1-auto, K2 and the seed grid are timed on their main paths' own run,
 # so their ``ms`` holds the entry call's host work around the one launch
 ENTRY_MS_OF = "the entry call: the inputs' preparation, the launch, the copy back"
@@ -237,7 +269,7 @@ PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
 # deliberate error each (p1_wrong_sums), which both phases print and hold
 # above it.
 ABL_N, ABL_TILE = 8448, 352
-ABL_EPOCHS, ABL_REPS, ABL_PLAIN_EPOCHS = 20, 3, 2
+ABL_EPOCHS, ABL_REPS, ABL_PLAIN_EPOCHS = 20, 2, 2
 P1_TOL = {"stream": 1e-5, "sol": 1e-6, "dx": 1e-6, "fwd_rel": 1e-5}
 # P2 at the full stream (P2_EPOCHS x 131,072 x 8, N(0, 1) in bf16): the
 # kernel and its plain version are float32 sums of the same 2.1e8 terms in
@@ -885,6 +917,201 @@ def bound(flops, nbytes, peak):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _http(port, path, payload=None, raw=False):
+    """(seconds, status, body) of one request to the local server."""
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = r.read()
+        status = r.status
+    return time.perf_counter() - t0, status, body if raw else json.loads(body)
+
+
+def device_busy_ms(torch, fn):
+    """(milliseconds of the device work that ``fn()`` ran, its count of
+    device events) by ``torch.profiler``, read from the raw trace (building
+    the profiler's event tree costs ~0.5 s for a few thousand kernels).
+    Fails where the profiler records no device time: the phase's host
+    share needs it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0]
+    if not ns:
+        fail("torch.profiler recorded no device time for the serve program")
+    return sum(ns) / 1e6, len(ns)
+
+
+def serve_phase(np, torch, dev, w4, card):
+    """The serving path at the deployment's size: the four committed
+    checkpoints (CVAEConfig(), nothing cut) behind one endpoint, batch 16,
+    512 steps.  One /serve to sce4 with 16 sce4 starts, the first row alone
+    bit for bit the batch's row 0, the answer equal to what the serve
+    program returned inside the request, each row's device reference held
+    against the host PathReference and its states against the same
+    waypoints tracked through the host reference, row 0's against its own
+    waypoints (every row's error printed: the request's fixture speeds run
+    ahead of some sampled paths, in JAX's program too), one /generate to
+    sce1 as npz.  Times: each request's wall time; the serve program's
+    inside the first request by CUDA events; its device kernels' time by
+    torch.profiler over 4 and 8 steps of the same program, extrapolated
+    to 512 (every step runs the same kernels), and so the host share."""
+    import io
+    import threading
+
+    from defensive_model_vae_tpu_torch import serving
+    from defensive_model_vae_tpu_torch.control import MPCConfig, PathReference
+    from defensive_model_vae_tpu_torch.control import device_reference as dr
+    from defensive_model_vae_tpu_torch.control.mpc import _initial_tracker_state, _simulate
+    from defensive_model_vae_tpu_torch.models import sample
+    from defensive_model_vae_tpu_torch.pipeline import fixture_starts
+    from defensive_model_vae_tpu_torch.train import load_checkpoint
+
+    info = {"card": card}
+    ckpts = {k: os.path.join(HERE, "results", "checkpoints", k)
+             for k in ("sce1", "sce2", "sce3", "sce4")}
+    t0 = time.perf_counter()
+    server = serving.serve_checkpoint(ckpts, SERVE_BATCH, SERVE_STEPS, dt=SERVE_DT,
+                                      port=0, warm_seed=1, device=dev)
+    info["load_and_warm_s"] = time.perf_counter() - t0
+    # the sce4 program, timed by CUDA events inside the request, its
+    # outputs kept for the comparison with the answer
+    program, seen = server.serve_fns["sce4"], []
+
+    def timed_program(seed, starts, inits):
+        ms, out = cuda_ms(lambda: program(seed, starts, inits))
+        seen.append((ms, [o.cpu().numpy() for o in out]))
+        return out
+
+    server.serve_fns["sce4"] = timed_program
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = server.server_address[1]
+        _, code, health = _http(port, "/healthz")
+        if code != 200 or health["models"] != sorted(ckpts) or \
+                (health["batch"], health["steps"]) != (SERVE_BATCH, SERVE_STEPS):
+            fail(f"/healthz: {code} {health}")
+        starts, inits = fixture_starts(w4[:SERVE_BATCH])
+        rows = [{"start_x": float(a[0]), "start_y": float(a[1]), "heading": float(b[2]),
+                 "vx": float(b[3]), "vy": float(b[4])} for a, b in zip(starts, inits)]
+        req = {"requests": rows, "seed": SERVE_SEED, "model": "sce4"}
+        wall, code, body = _http(port, "/serve", req)
+        bad = set(body.get("invalid", []))
+        if code != 200 or body["n"] != SERVE_BATCH:
+            fail(f"/serve: {code} n={body.get('n')}")
+        ev_ms, (d_states, _) = seen[0]
+        for b, st in enumerate(body["states"]):
+            if st is None and b not in bad or st is not None and \
+                    not np.all(np.isfinite(np.asarray(st))):
+                fail(f"/serve row {b}: neither finite nor listed in 'invalid'")
+            if st is not None and not np.array_equal(np.asarray(st, np.float32), d_states[b]):
+                fail(f"/serve row {b} differs from what the serve program returned")
+        wall1, _, one = _http(port, "/serve", {**req, "requests": rows[:1]})
+        if one["states"][0] != body["states"][0]:
+            fail("the first request alone is not row 0 of the batch bit for bit")
+        info.update(serve_wall_s=wall, serve_one_row_wall_s=wall1,
+                    serve_fn_cuda_event_ms=ev_ms, ms_per_step=ev_ms / SERVE_STEPS)
+
+        # the device's share: the same program at 4 and 8 steps, profiled
+        p4, c4, m4 = load_checkpoint(ckpts["sce4"], dev)
+        P, M = serving.SERVE_HORIZONS
+        mpc = MPCConfig(prediction_horizon=P, control_horizon=M, dt=SERVE_DT)
+        pstarts, pinits, _ = serving._parse_requests(rows, SERVE_BATCH)
+        prof, prof_s = {}, []
+        for steps in SERVE_PROFILE_STEPS:
+            short = dr.make_serve_fn(p4, c4, mpc, steps, m4.get("offset_mode", True))
+            t0 = time.perf_counter()
+            prof[steps] = device_busy_ms(torch, lambda: short(SERVE_SEED, pstarts, pinits))
+            prof_s.append(time.perf_counter() - t0)
+        # the first session's seconds hold the profiler's start-up
+        info["profile_s"] = prof_s
+        lo, hi = SERVE_PROFILE_STEPS
+        per_step = (prof[hi][0] - prof[lo][0]) / (hi - lo)
+        busy = prof[hi][0] + per_step * (SERVE_STEPS - hi)
+        info.update(device_busy_ms_extrapolated=busy, device_busy_ms_per_step=per_step,
+                    kernels_per_step=(prof[hi][1] - prof[lo][1]) / (hi - lo),
+                    profiled_steps=list(SERVE_PROFILE_STEPS),
+                    profiled_busy_ms=[prof[lo][0], prof[hi][0]],
+                    profiled_kernels=[prof[lo][1], prof[hi][1]],
+                    host_share=1.0 - busy / ev_ms)
+
+        # each row's reference and tracking against the host, from its draws
+        t0 = time.perf_counter()
+        z = dr.request_draws(SERVE_SEED, SERVE_BATCH, dr._N_DRAWS, c4.latent_dim, dev)
+        st_t, in_t = torch.as_tensor(pstarts).to(dev), torch.as_tensor(pinits).to(dev)
+        with torch.no_grad():
+            cands = sample(p4, None, st_t.repeat_interleave(dr._N_DRAWS, dim=0), c4,
+                           z=z.reshape(-1, c4.latent_dim))
+            traj = dr.select_valid_trajectory(cands.reshape(SERVE_BATCH, dr._N_DRAWS,
+                                                            c4.seq_len, c4.dim))
+            wp = torch.stack([traj[..., 1], traj[..., 2], traj[..., 0]], dim=-1)
+            refs = dr.build_reference_device(wp, in_t, SERVE_STEPS, P, SERVE_DT).cpu().numpy()
+        wp = wp.cpu().numpy().astype(float)
+        live = [b for b in range(SERVE_BATCH) if b not in bad]
+        worst = {"theta": 0.0, "v": 0.0}
+        host_refs, pos_mean = [], {}
+        for b in live:
+            ref = PathReference(wp[b], pinits[b].astype(float))
+            host = ref.build(SERVE_STEPS, P, SERVE_DT)
+            host_refs.append(host)
+            gap = np.abs(host - refs[b]).reshape(-1, 2).max(axis=0)
+            worst = {"theta": max(worst["theta"], float(gap[0])),
+                     "v": max(worst["v"], float(gap[1]))}
+            n = min(SERVE_STEPS + 1, int(wp[b, -1, 2] / SERVE_DT) + 1)
+            pos_mean[b] = float(ref.position_error(np.arange(n) * SERVE_DT,
+                                                   d_states[b, :n, :2]).mean())
+        # the same waypoints tracked through the host reference (the
+        # track_batch path) on the host: the served states within the
+        # tracker's whole-simulation tolerance (tests/test_torch_mpc.py)
+        s0 = np.stack([_initial_tracker_state(pinits[b]) for b in live])
+        hs, _ = _simulate(mpc, torch.as_tensor(s0, dtype=torch.float32),
+                          torch.as_tensor(np.stack(host_refs), dtype=torch.float32),
+                          torch.zeros((len(live), 2)))
+        host_gap = float(np.abs(hs.numpy() - d_states[live]).max())
+        info.update(n_invalid=len(bad), worst=worst, host_track_max_abs=host_gap,
+                    pos_mean_m=pos_mean, host_checks_s=time.perf_counter() - t0)
+        if worst["theta"] >= SERVE_THETA_TOL or worst["v"] >= SERVE_V_TOL:
+            fail(f"device reference against the host PathReference: {worst}")
+        if host_gap >= SERVE_HOST_TRACK_TOL:
+            fail(f"served states against the host reference's tracking: {host_gap}")
+        # request 0 tracks its own waypoints, as tests/test_mpc.py:290 holds it
+        if 0 in bad or pos_mean[0] >= SERVE_POS_MEAN_M:
+            fail(f"served row 0 does not track its waypoints: {pos_mean.get(0)}")
+
+        # /generate to sce1, npz
+        s1, _ = fixture_starts(np.load(os.path.join(HERE, "fixtures",
+                                                    "trajectory_sce1_cond.npy"))[:SERVE_BATCH])
+        gwall, code, raw = _http(port, "/generate", {
+            "requests": [{"start_x": float(a[0]), "start_y": float(a[1])} for a in s1],
+            "seed": SERVE_SEED, "model": "sce1", "format": "npz"}, raw=True)
+        gz = np.load(io.BytesIO(raw))
+        tr = gz["trajectories"]
+        if code != 200 or tr.shape != (len(s1), 10, 3) or str(gz["model"]) != "sce1":
+            fail(f"/generate: {code} {tr.shape}")
+        fin = np.isfinite(tr.reshape(len(s1), -1)).all(axis=1)
+        if sorted(np.flatnonzero(~fin).tolist()) != sorted(gz["invalid"].tolist()):
+            fail("/generate: non-finite rows not listed in 'invalid'")
+        _, _, health = _http(port, "/healthz")
+        info.update(generate_wall_s=gwall, served=health["served"],
+                    rejected=health["rejected"], errors=health["errors"],
+                    last_ms=health["last_ms"])
+        if health["served"] != 3 or health["errors"] or health["rejected"]:
+            fail(f"/healthz counters: {health}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=10)
+    return info
+
+
 def main() -> int:
     import torch
 
@@ -1133,11 +1360,12 @@ def main() -> int:
         if not same or cfg2 != cfg:
             fail("checkpoint round trip changed the params")
         # K1's phase split: one more run with the timer (off the main path)
-        k1_split = k1p.split(dev, "k1", epochs)
+        k1_split = k1p.split(dev, "k1", SPLIT_EPOCHS)
         info.update(epochs=epochs, B=len(w4), launches=launches, main_path_s=wall,
                     cluster=k1_cluster, loss_first=float(tot[0]), loss_last=float(tot[-1]),
                     kernel_ms=kernel_ms, plain_ms=plain_ms,
                     plain_epochs_timed=PLAIN_K1_EPOCHS, timed_ms=k1_split[0],
+                    split_epochs=SPLIT_EPOCHS,
                     phases_ms=k1_split[1], card=card)
 
     # ---- 6. sample ----------------------------------------------------------
@@ -1436,9 +1664,10 @@ def main() -> int:
                           "tracked_steps": check_tracked(traces_k, mpc_k, k),
                           "seconds": time.perf_counter() - t0}
             seed0_traces[k] = (traces_k, idx_k)
-        k2_split = k1p.split(dev, "k2", DEPTH)
+        k2_split = k1p.split(dev, "k2", SPLIT_EPOCHS)
         info.update(epochs=DEPTH, rows=off, k2_launches=k2_launches, main_path_s=multi_wall,
                     cluster=k2_cluster, timed_ms=k2_split[0], phases_ms=k2_split[1],
+                    split_epochs=SPLIT_EPOCHS,
                     losses=losses, k2_ms=k2_ms, k2_plain_ms=k2_plain_ms,
                     plain_epochs_timed=PLAIN_MULTI_EPOCHS, vs_fused_train_max_abs=gap,
                     tracked=tracked, card=card)
@@ -1504,9 +1733,10 @@ def main() -> int:
             if not (all(torch.equal(p_chk[q][n][k], p1[n][k]) for n in p1 for k in ("w", "b"))
                     and all(np.array_equal(h_chk[q][m], h1[m]) for m in h1)):
                 fail(f"seed {q} of the seed grid is not fused_train's run bit for bit")
-        seeds_split = k1p.split(dev, "grid", DEPTH, seeds=SWEEP_SEEDS)
+        seeds_split = k1p.split(dev, "grid", SPLIT_EPOCHS, seeds=SWEEP_SEEDS)
         info.update(seeds=SWEEP_SEEDS, epochs=DEPTH, B=len(w4), launches=seeds_launches,
                     cluster=seeds_cluster, timed_ms=seeds_split[0],
+                    split_epochs=SPLIT_EPOCHS,
                     phases_ms=seeds_split[1],
                     main_path_s=seeds_wall, kernel_ms=seeds_ms, plain_ms=seeds_plain_ms,
                     plain_timed=[PLAIN_SEEDS, PLAIN_SEEDS_EPOCHS],
@@ -1801,9 +2031,10 @@ def main() -> int:
         # noise stream: their gap is the chaos of 3000 Adam steps, printed
         k1a_vs_manual = max(float((aparams[k][q] - params[k][q]).abs().max())
                             for k in params for q in ("w", "b"))
-        k1a_split = k1p.split(dev, "k1_auto", epochs)
+        k1a_split = k1p.split(dev, "k1_auto", SPLIT_EPOCHS)
         info.update(epochs=epochs, B=len(w4), launches=k1a_launches, main_path_s=k1a_wall,
                     cluster=k1a_cluster, timed_ms=k1a_split[0], phases_ms=k1a_split[1],
+                    split_epochs=SPLIT_EPOCHS,
                     kernel_ms=k1a_ms, plain_ms=k1a_plain_ms,
                     loss_first=float(tot[0]), loss_last=float(tot[-1]),
                     manual_loss_last=float(hist["total"][-1]),
@@ -2111,7 +2342,11 @@ def main() -> int:
         if any(bad.values()):
             fail(f"the K1 family differs from the one-block build's digests: {bad}")
 
-    # ---- 21. kernels --------------------------------------------------------
+    # ---- 21. serve: the four committed models behind one HTTP endpoint -------
+    with phase("serve", 150) as info:
+        info.update(serve_phase(np, torch, dev, w4, card))
+
+    # ---- 22. kernels --------------------------------------------------------
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)
     width = cfg.seq_len * cfg.dim + cfg.cond_dim + 1
@@ -2169,6 +2404,7 @@ def main() -> int:
              k1a_ms, k1a_plain_ms, (flops, nbytes, FP32_FLOPS),
              {"one_sm_bound_ms": bound_ms * 132, "cluster": k1a_cluster,
               "cluster_bound_ms": bound_ms * 132 / k1a_cluster, "phases_ms": k1a_split[1],
+              "phases_epochs": SPLIT_EPOCHS,
               "ms_of": ENTRY_MS_OF, "vs_manual_3000_epochs_params_max_abs": k1a_vs_manual}),
             ("k3_auto_bf16", "fused_scale_auto.cu", "ops/fused_scale.py:191",
              cli_runs["f32_acts"]["launches"], auto_bench["f32_acts"]["max_abs_err"],
@@ -2226,6 +2462,7 @@ def main() -> int:
         "cluster": k1_cluster,
         "cluster_bound_ms": bound_ms * 132 / k1_cluster,
         "phases_ms": k1_split[1],
+        "phases_epochs": SPLIT_EPOCHS,
         "flops": flops,
         "card": card,
     }, {
@@ -2247,6 +2484,7 @@ def main() -> int:
         "cluster": seeds_cluster,
         "cluster_bound_ms": one_sm_ms / seeds_cluster,
         "phases_ms": seeds_split[1],
+        "phases_epochs": SPLIT_EPOCHS,
         "flops": sw_flops,
         "card": card,
     }, {
@@ -2268,6 +2506,7 @@ def main() -> int:
         "cluster": k2_cluster,
         "cluster_bound_ms": one_sm_ms / k2_cluster,
         "phases_ms": k2_split[1],
+        "phases_epochs": SPLIT_EPOCHS,
         "flops": k2_flops,
         "card": card,
     }, {

@@ -1,9 +1,9 @@
-"""Command-line interface of the port: ``train [--fused | --fused-scale]``
-and ``generate``.
+"""Command-line interface of the port: ``train [--fused | --fused-scale]``,
+``generate`` and ``serve``.
 
 Run as ``python -m defensive_model_vae_tpu_torch.cli``; mirrors the JAX
-package's ``defvae train`` / ``defvae generate`` (cli.py:45-170, :711,
-:766) and writes the same checkpoint manifest ``recipe``:
+package's ``defvae train`` / ``generate`` / ``serve`` (cli.py:45-170,
+:436-500, :711, :766) and writes the same checkpoint manifest ``recipe``:
 
     python -m defensive_model_vae_tpu_torch.cli train --scenario sce4 \\
         --windows fixtures/trajectory_sce4_cond.npy --ckpt ckpt/ --fused
@@ -12,6 +12,8 @@ package's ``defvae train`` / ``defvae generate`` (cli.py:45-170, :711,
         --dtype bfloat16 [--backward auto] [--noise prng]
     python -m defensive_model_vae_tpu_torch.cli generate --ckpt ckpt/ \\
         --start-x 11 --start-y 0 -n 5
+    python -m defensive_model_vae_tpu_torch.cli serve \\
+        --ckpt sce4=results/checkpoints/sce4 --listen 0 --batch 16
 
 ``--fused-scale`` is the production-scale trainer (kernel K3; with
 ``--mesh``, the per-epoch tier through kernel K4, on one device until the
@@ -104,6 +106,79 @@ def _cmd_generate(args):
         print(np.asarray(out))
 
 
+def _parse_ckpt_specs(specs):
+    """``--ckpt`` values → ``{model_name: directory}`` (JAX cli.py:405): a
+    spec is NAME=DIR iff it matches ``<simple-name>=<rest>`` with a name of
+    ``[A-Za-z0-9_.-]+``; a single bare directory serves as model
+    "default", and several models must all be named."""
+    import re
+
+    pat = re.compile(r"([A-Za-z0-9_.-]+)=(.+)")
+    ckpts = {}
+    for spec in specs:
+        m = pat.fullmatch(spec)
+        if m:
+            name, d = m.groups()
+        elif len(specs) == 1:
+            name, d = "default", spec
+        else:
+            raise SystemExit(f"--ckpt {spec!r}: with several models each must be "
+                             "NAME=DIR so requests can route by 'model'")
+        if name in ckpts:
+            raise SystemExit(f"duplicate model name {name!r}")
+        ckpts[name] = d
+    return ckpts
+
+
+def _cmd_serve(args):
+    """condition → sample → reference → MPC on the device (JAX cli.py:436):
+    one-shot, or with ``--listen PORT`` the warm program behind a local
+    HTTP endpoint (``serving.py``)."""
+    import json
+
+    if args.data_parallel:
+        raise SystemExit("--data-parallel is not ported yet (ROADMAP Queue 1's "
+                         "data-parallel item); serve on one device")
+    if args.listen is not None:
+        from .serving import serve_checkpoint
+
+        ckpts = _parse_ckpt_specs(args.ckpt)
+        server = serve_checkpoint(ckpts, args.batch, args.steps, dt=args.dt,
+                                  host=args.host, port=args.listen, device=args.device)
+        h, p = server.server_address[:2]
+        print(f"serving {sorted(ckpts)} on http://{h}:{p} "
+              f"(batch {args.batch}, steps {args.steps}); "
+              f"POST /serve, POST /generate, GET /healthz", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
+        return
+
+    if args.start_x is None or args.start_y is None:
+        raise SystemExit("--start-x/--start-y are required without --listen")
+    if len(args.ckpt) != 1:
+        raise SystemExit("one-shot serve takes exactly one --ckpt")
+    from .serving import build_serve_fn
+
+    (ckpt_dir,) = _parse_ckpt_specs(args.ckpt).values()
+    serve = build_serve_fn(ckpt_dir, args.steps, args.dt, device=args.device)
+    starts = np.tile([[args.start_x, args.start_y]], (args.batch, 1)).astype(np.float32)
+    inits = np.tile([[args.start_x, args.start_y, args.heading, args.vx, args.vy]],
+                    (args.batch, 1)).astype(np.float32)
+    states, _ = serve(args.seed, starts, inits)
+    states = states.cpu().numpy()
+    if args.out:
+        np.save(args.out, states)
+        print(f"saved {states.shape} tracked states to {args.out}")
+    else:
+        print(json.dumps({"batch": args.batch, "steps": args.steps,
+                          "final_xy": states[0, -1, :2].round(2).tolist(),
+                          "mean_speed": round(float(states[..., 3].mean()), 2)}))
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m defensive_model_vae_tpu_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -149,6 +224,32 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--out")
     g.add_argument("--device", default="cuda")
     g.set_defaults(fn=_cmd_generate)
+
+    from .serving import _DEFAULTS
+
+    sv = sub.add_parser("serve", help="sample → reference → MPC, one device program")
+    sv.add_argument("--data-parallel", action="store_true",
+                    help="shard the request batch over devices (not ported yet)")
+    sv.add_argument("--ckpt", required=True, action="append",
+                    help="checkpoint directory; repeatable with --listen as NAME=DIR "
+                         "to host several models")
+    sv.add_argument("--start-x", type=float, default=None,
+                    help="required unless --listen (requests carry their starts)")
+    sv.add_argument("--start-y", type=float, default=None)
+    sv.add_argument("--heading", type=float, default=_DEFAULTS["heading"])
+    sv.add_argument("--vx", type=float, default=_DEFAULTS["vx"])
+    sv.add_argument("--vy", type=float, default=_DEFAULTS["vy"])
+    sv.add_argument("--steps", type=int, default=512)
+    sv.add_argument("--batch", type=int, default=1)
+    sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--dt", type=float, default=0.02)
+    sv.add_argument("--out", default=None)
+    sv.add_argument("--listen", type=int, default=None, metavar="PORT",
+                    help="stay up: serve requests over local HTTP (0 = an "
+                         "ephemeral port) instead of the one-shot run")
+    sv.add_argument("--host", default="127.0.0.1", help="bind address for --listen")
+    sv.add_argument("--device", default="cuda")
+    sv.set_defaults(fn=_cmd_serve)
     return p
 
 

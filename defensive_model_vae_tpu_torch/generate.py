@@ -7,6 +7,8 @@ trajectory and shift it to global [t, x, y] — batched over start points
 and samples.  z is drawn from a CPU ``torch.Generator`` seeded with
 ``seed``, so a seed gives the same trajectories on every device; ``z``
 feeds explicit draws instead (the tests pass the z the JAX side drew).
+:func:`make_generate_fn` is the server's batched sampler, its draws made on
+the device from a counter-based stream.
 """
 
 from __future__ import annotations
@@ -47,6 +49,32 @@ def generate_trajectories(params, cfg: CVAEConfig, start_xy: np.ndarray,
     if B == 1 and n_samples == 1:
         return out[0, 0]
     return out
+
+
+def make_generate_fn(params, cfg: CVAEConfig, offset_mode: bool = True):
+    """The batched device sampler behind the server's ``/generate`` (JAX
+    ``generate._sample_jit`` as ``serving._generate_fn_from`` uses it), on
+    the device the params live on.
+
+    Returns ``gen(seed, start_xy, z=None) → (B, T, D)`` global [t, x, y]
+    trajectories as a device tensor.  Row b's z is row b of the seed's
+    Philox stream (``control.device_reference.request_draws``, one draw a
+    row), so a row's draw depends only on (seed, b); ``z`` (B, Z) feeds
+    explicit draws.  ``offset_mode=False`` is the legacy non-offset
+    decoder."""
+    from .control.device_reference import _as_f32, request_draws
+
+    dev = params["dec_3"]["w"].device
+
+    def gen(seed, start_xy, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        starts = _as_f32(start_xy, dev)
+        if z is None:
+            z = request_draws(seed, starts.shape[0], 1, cfg.latent_dim, dev)[:, 0]
+        with torch.inference_mode():
+            return sample(params, None, starts, cfg, z=_as_f32(z, dev),
+                          shift_start=offset_mode)
+
+    return gen
 
 
 def load_and_generate(checkpoint_dir: str, start_x: float, start_y: float,

@@ -249,10 +249,18 @@ def philox_normal(seed: int, epoch: int, rows: int, cols: int,
     generator in ``csrc/fused_trainer.cu``: counter (epoch, row, col // 4, 0)
     keyed by (seed low, seed high); words (0, 1) and (2, 3) are two
     Box–Muller pairs over 24-bit uniforms, u1 = (w0 >> 8 + 1)·2⁻²⁴ ∈ (0, 1],
-    giving r·cos and r·sin for columns 4k..4k+3."""
+    giving r·cos and r·sin for columns 4k..4k+3.  Computed on the CPU and
+    moved to ``device``."""
+    return philox_normal_on(seed, epoch, rows, cols, "cpu").to(device)
+
+
+def philox_normal_on(seed: int, epoch: int, rows: int, cols: int,
+                     device) -> torch.Tensor:
+    """:func:`philox_normal` computed on ``device``: the same words, and
+    Box–Muller with that device's ``log``, ``sqrt``, ``cos`` and ``sin``."""
     groups = (cols + 3) // 4
-    row = torch.arange(rows, dtype=torch.int64).repeat_interleave(groups)
-    grp = torch.arange(groups, dtype=torch.int64).repeat(rows)
+    row = torch.arange(rows, dtype=torch.int64, device=device).repeat_interleave(groups)
+    grp = torch.arange(groups, dtype=torch.int64, device=device).repeat(rows)
     zero = torch.zeros_like(row)
     words = philox4x32(
         (zero + (epoch & _U32), row, grp, zero),
@@ -267,7 +275,7 @@ def philox_normal(seed: int, epoch: int, rows: int, cols: int,
         th = (2.0 * math.pi) * u2
         out += [r * torch.cos(th), r * torch.sin(th)]
     z = torch.stack(out, dim=1).reshape(rows, groups * 4)[:, :cols]
-    return z.contiguous().to(device)
+    return z.contiguous()
 
 
 # ---- the kernel's flat parameter layout -------------------------------------

@@ -197,6 +197,23 @@ def test_slice_runs_with_banned_modules_blocked(tmp_path):
             ck, cfg, s, i, seeds=[0, 1], mpc_cfg=MPCConfig(prediction_horizon=6,
                                                           control_horizon=3, dt=0.1))
         assert all(len(multi[k][0]) == 2 for k in (0, 1))
+        import json, threading, urllib.request
+        from defensive_model_vae_tpu_torch import generate, serving
+        from defensive_model_vae_tpu_torch.control import device_reference
+        server = serving.serve_checkpoint({{"sce2": {str(SCE2_CKPT)!r}}}, batch=2,
+                                          num_steps=3, dt=0.1, warm_seed=1, device="cpu")
+        th = threading.Thread(target=server.serve_forever, daemon=True)
+        th.start()
+        host, port = server.server_address[:2]
+        body = json.dumps({{"requests": [{{"start_x": -150.0, "start_y": -0.7}}],
+                           "seed": 3}}).encode()
+        with urllib.request.urlopen(f"http://{{host}}:{{port}}/serve", data=body,
+                                    timeout=120) as r:
+            got = json.loads(r.read())
+        server.shutdown()
+        server.server_close()
+        assert np.asarray(got["states"]).shape == (1, 4, 4)
+        assert np.isfinite(np.asarray(got["states"])).all()
         banned = [m for m in sys.modules if m.split(".")[0] in {BANNED!r}
                   and sys.modules[m] is not None]
         assert not banned, banned
