@@ -1,10 +1,14 @@
-"""Command-line interface of the port: ``train [--fused | --fused-scale]``,
-``generate`` and ``serve``.
+"""Command-line interface of the port: ``dataset``, ``train [--fused |
+--fused-scale]``, ``generate``, ``pipeline``, ``validate``, ``thw`` and
+``serve``.
 
 Run as ``python -m defensive_model_vae_tpu_torch.cli``; mirrors the JAX
-package's ``defvae train`` / ``generate`` / ``serve`` (cli.py:45-170,
-:436-500, :711, :766) and writes the same checkpoint manifest ``recipe``:
+package's ``defvae`` commands of the same names (cli.py:692, :712-770, :775,
+:803, :846, :929) with their arguments, and writes the same checkpoint
+manifest ``recipe``:
 
+    python -m defensive_model_vae_tpu_torch.cli dataset --scenario sce2 \\
+        --data-root DefensiveData --out windows.npy [--point-mode extend_mid]
     python -m defensive_model_vae_tpu_torch.cli train --scenario sce4 \\
         --windows fixtures/trajectory_sce4_cond.npy --ckpt ckpt/ --fused
     python -m defensive_model_vae_tpu_torch.cli train --scenario big \\
@@ -12,6 +16,13 @@ package's ``defvae train`` / ``generate`` / ``serve`` (cli.py:45-170,
         --dtype bfloat16 [--backward auto] [--noise prng]
     python -m defensive_model_vae_tpu_torch.cli generate --ckpt ckpt/ \\
         --start-x 11 --start-y 0 -n 5
+    python -m defensive_model_vae_tpu_torch.cli pipeline \\
+        --ckpt results/checkpoints/sce2 --scenario sce2 \\
+        --data-root DefensiveData --out out/ [--trace DIR]
+    python -m defensive_model_vae_tpu_torch.cli validate --scenario sce2 \\
+        --tracked-dir out/GeneratedData --data-root DefensiveData
+    python -m defensive_model_vae_tpu_torch.cli thw --scenario sce4 \\
+        --data-root DefensiveData
     python -m defensive_model_vae_tpu_torch.cli serve \\
         --ckpt sce4=results/checkpoints/sce4 --listen 0 --batch 16
 
@@ -19,16 +30,28 @@ package's ``defvae train`` / ``generate`` / ``serve`` (cli.py:45-170,
 ``--mesh``, the per-epoch tier through kernel K4, on one device until the
 data-parallel slice); ``--backward auto`` runs its autodiff instance.
 Without ``--fused``/``--fused-scale``, ``--dtype bfloat16`` runs the scan
-trainer's bf16 chain.  ``--device`` defaults to ``cuda``; ``--device cpu``
-runs on the CPU (the kernels' plain versions).
+trainer's bf16 chain.  A command that touches the device takes
+``--device``, default ``cuda``; ``--device cpu`` runs on the CPU (the
+kernels' plain versions).  JSON output writes non-finite metrics as
+``null``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 
 import numpy as np
+
+
+def _cmd_dataset(args):
+    from .data import build_dataset, save_windows
+
+    arr = build_dataset(args.data_root, args.scenario, args.points,
+                        point_mode=args.point_mode, dataset_variant=args.variant)
+    save_windows(arr, args.out)
+    print(f"saved {arr.shape} windows to {args.out}")
 
 
 def _cmd_train(args):
@@ -106,6 +129,47 @@ def _cmd_generate(args):
         print(np.asarray(out))
 
 
+def _cmd_pipeline(args):
+    from .pipeline import run_scenario
+    from .utils import jsonable, trace_to  # no-op context when --trace is absent
+
+    with trace_to(args.trace):
+        report = run_scenario(args.ckpt, args.scenario, args.data_root, args.out,
+                              seed=args.seed, device=args.device)
+    print(json.dumps(jsonable(report), indent=2))
+
+
+def _cmd_validate(args):
+    from . import scenarios
+    from .data import collect_csv_files
+    from .pipeline import load_humans, load_tracked, validate
+    from .utils import jsonable
+
+    sce = scenarios.get(args.scenario)
+    tracked = load_tracked(args.tracked_dir, sce.key)
+    humans = load_humans(sce, collect_csv_files(os.path.join(args.data_root, sce.town)))
+    print(json.dumps(jsonable(validate(tracked, humans, sce)), indent=2))
+
+
+def _cmd_thw(args):
+    """Start speeds and THWs of a scenario's episodes (reference
+    ``Get_THW.py``).  The histogram PNGs wait for the port's ``viz/``."""
+    from . import scenarios
+    from .data import collect_csv_files
+    from .metrics.thw import start_velocities, thw_values
+    from .utils import jsonable
+
+    if args.out_velocity or args.out_thw:
+        raise SystemExit("--out-velocity/--out-thw need viz/, which is not ported yet "
+                         "(the card has no matplotlib)")
+    sce = scenarios.get(args.scenario)
+    sv = start_velocities(collect_csv_files(os.path.join(args.data_root, sce.town)), sce)
+    report = {"start_speeds": {n: round(v, 3) for n, v in sv}}
+    if sce.thw_distance is not None or sce.thw_distance_by_suffix is not None:
+        report["thw"] = [round(float(t), 3) for t in thw_values(sv, sce)]
+    print(json.dumps(jsonable(report), indent=2))
+
+
 def _parse_ckpt_specs(specs):
     """``--ckpt`` values → ``{model_name: directory}`` (JAX cli.py:405): a
     spec is NAME=DIR iff it matches ``<simple-name>=<rest>`` with a name of
@@ -134,8 +198,6 @@ def _cmd_serve(args):
     """condition → sample → reference → MPC on the device (JAX cli.py:436):
     one-shot, or with ``--listen PORT`` the warm program behind a local
     HTTP endpoint (``serving.py``)."""
-    import json
-
     if args.data_parallel:
         raise SystemExit("--data-parallel is not ported yet (ROADMAP Queue 1's "
                          "data-parallel item); serve on one device")
@@ -183,6 +245,20 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m defensive_model_vae_tpu_torch.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    d = sub.add_parser("dataset", help="extract trajectory windows from CSVs")
+    d.add_argument("--scenario", required=True)
+    d.add_argument("--data-root", required=True)
+    d.add_argument("--out", required=True)
+    d.add_argument("--points", type=int, default=10)
+    d.add_argument("--variant", choices=("shipped", "artifact"), default="shipped",
+                   help="extraction predicate set: 'shipped' reproduces the reference's "
+                        "npy datasets; 'artifact' uses the predicates the published "
+                        "results were trained with (sce1: ego_y>=40)")
+    d.add_argument("--point-mode", choices=("normal", "extend_mid"), default="normal",
+                   help="'extend_mid' appends the reference's ceil-midpoint-augmented "
+                        "windows to the normal ones (the sce4 checkpoint's corpus)")
+    d.set_defaults(fn=_cmd_dataset)
+
     t = sub.add_parser("train", help="train a scenario CVAE")
     t.add_argument("--scenario", required=True)
     t.add_argument("--windows", required=True)
@@ -224,6 +300,33 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--out")
     g.add_argument("--device", default="cuda")
     g.set_defaults(fn=_cmd_generate)
+
+    pl = sub.add_parser("pipeline", help="generate+track+validate a scenario")
+    pl.add_argument("--ckpt", required=True)
+    pl.add_argument("--scenario", required=True)
+    pl.add_argument("--data-root", required=True)
+    pl.add_argument("--out", required=True)
+    pl.add_argument("--seed", type=int, default=0)
+    pl.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the run to DIR/trace.json "
+                         "(view in Perfetto or chrome://tracing)")
+    pl.add_argument("--device", default="cuda")
+    pl.set_defaults(fn=_cmd_pipeline)
+
+    v = sub.add_parser("validate", help="metric sweep over tracked traces")
+    v.add_argument("--scenario", required=True)
+    v.add_argument("--tracked-dir", required=True)
+    v.add_argument("--data-root", required=True)
+    v.set_defaults(fn=_cmd_validate)
+
+    th = sub.add_parser("thw", help="THW / start-velocity analysis")
+    th.add_argument("--scenario", required=True)
+    th.add_argument("--data-root", required=True)
+    th.add_argument("--out-velocity", default=None,
+                    help="histogram PNG: waits for the port's viz/ (not ported yet)")
+    th.add_argument("--out-thw", default=None,
+                    help="histogram PNG: waits for the port's viz/ (not ported yet)")
+    th.set_defaults(fn=_cmd_thw)
 
     from .serving import _DEFAULTS
 
