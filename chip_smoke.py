@@ -40,35 +40,47 @@ traceback and a non-zero exit:
                    ``validation_sce2.json`` of finite metrics over the 16
                    human tracks; the stage split.  No kernel of the port is
                    on this path;
-10. ``k3_vs_plain`` kernels K3 and K4 against their plain torch versions on
+10. ``dnda``       SUT risk scoring (``dnda/``, ``sut/``,
+                   ``metrics/surrogate.py``; plain torch and host numpy, no
+                   kernel of the port): 256 synthetic frames of the four
+                   scenarios (``scripts/dnda_sweep.py``) swept on the card in
+                   float32 and float64 SAT, index for index the numpy
+                   oracle, DA/RL bit for bit the host's; the pinned frame of
+                   tests/test_dnda.py:231; the sweep tiled to 3,072 frames
+                   timed (wall, CUDA events, host padding, peak memory)
+                   beside the numpy sweep; the SUT chain: eight committed
+                   traces written back into the data phase's episodes,
+                   scored by ``score_directory`` on the card and on the host
+                   (rows equal), TTC, PET and JERK on each;
+11. ``k3_vs_plain`` kernels K3 and K4 against their plain torch versions on
                    the card (f32 and bf16, packed, hbm and prng noise, ragged
                    corpora, blocks of one 32-row step and of several);
-11. ``train_scale`` the production-scale path at the bench shape:
+12. ``train_scale`` the production-scale path at the bench shape:
                    ``fused_train_scale`` on 131,072 windows, 200 epochs, tile
                    2048, bf16, hbm noise, in one K3 call; K3's time against
                    the plain version's, and K3 held against it over the
                    first 10 epochs; a float32 run; a per-epoch
                    ``fused_train_scale_dp`` run through K4; K4 timed and held
                    against its plain version; a checkpoint round trip;
-12. ``k2_vs_plain`` kernel K2 against its plain (padded and masked) torch
+13. ``k2_vs_plain`` kernel K2 against its plain (padded and masked) torch
                    version on the card: the four fixture corpora, explicit ε,
                    1 and 50 epochs; and K1 on a grid of 4 seeds against K1's
                    plain version once per seed;
-13. ``multi``      the path that trains every scenario's model:
+14. ``multi``      the path that trains every scenario's model:
                    ``fused_train_multi`` on the four corpora at 3000 epochs
                    in one K2 launch, each scenario converging (last <
                    first/5); K2 timed against its plain version; at 300
                    epochs each scenario held against ``fused_train`` with
                    seed + i; each model sampled and tracked with its
                    scenario's tracker, controls within bounds;
-14. ``track_multi`` ``generate_and_track_multi_from_starts`` with 4
+15. ``track_multi`` ``generate_and_track_multi_from_starts`` with 4
                    generation seeds on the sce2 model, row by row against
                    per-seed ``generate_and_track_from_starts``;
-15. ``seeds``      the seed sweep: ``fused_train_seeds`` on sce4, 32 seeds ×
+16. ``seeds``      the seed sweep: ``fused_train_seeds`` on sce4, 32 seeds ×
                    3000 epochs in one launch of K1 on 32 clusters, every seed
                    converging; timed against the plain version; at 300
                    epochs 4 seeds bit for bit against ``fused_train``;
-16. ``ablation_vs_plain`` the K3 ablation's kernels against their plain
+17. ``ablation_vs_plain`` the K3 ablation's kernels against their plain
                    versions on an 8,448-row bf16 corpus with packed ε (tiles
                    of 352: two 32-row steps a block, one chunk straddling the
                    last tile): K3 under each of its seven ``_ablate`` knobs at
@@ -80,7 +92,7 @@ traceback and a non-zero exit:
                    (the second on the stream negated) bit for bit alike,
                    its limit held below plain versions that drop a batch
                    or a block;
-17. ``ablation``   the ported ``scripts/scale_ablation.py`` at the bench
+18. ``ablation``   the ported ``scripts/scale_ablation.py`` at the bench
                    width (131,072 windows, tile 2048, bf16), 20 epochs, 1
                    warm + 1 timed rep of every variant, its breakdown line;
                    the ported P2 probe's two variants at full shape; every
@@ -88,12 +100,12 @@ traceback and a non-zero exit:
                    entries count them; P2 one a call); P2 timed in turns
                    with ``torch.sum`` through its wrapper and on the device
                    alone; P1 held against its plain versions
-                   there, as in phase 16, and timed; K3 under dwT held
+                   there, as in phase 17, and timed; K3 under dwT held
                    against its plain version over the first 2 epochs;
-18. ``train_auto`` K1's autodiff instance on its main path:
+19. ``train_auto`` K1's autodiff instance on its main path:
                    ``fused_train(backward="auto")`` on sce4 at 3000 epochs,
                    timed, its gap to the manual run printed;
-19. ``auto_vs_plain`` the autodiff instances against their plain versions
+20. ``auto_vs_plain`` the autodiff instances against their plain versions
                    (autograd of ``_forward_loss``): K1-auto at 1 and 50
                    epochs; K1-auto against K1-manual over JAX's 5-epoch run
                    (printed); K2-auto and the seed grid under auto bit for
@@ -108,20 +120,20 @@ traceback and a non-zero exit:
                    held as one tile is, three wrong plain versions (one
                    rounding only the cross-tile total) failing that check;
                    K3 under dwT bit for bit the default;
-20. ``train_scale_auto`` ``train --fused-scale --backward auto`` at the
+21. ``train_scale_auto`` ``train --fused-scale --backward auto`` at the
                    bench shape, prng, bf16 and float32, and a bf16_chain
                    run; each instance's launch timed alone and held against
                    its plain version over its first epochs; the per-epoch
                    tier through K4-auto;
-21. ``scan_bf16`` the scan trainer's bf16 chain, ``train_multi_scenario``
+22. ``scan_bf16`` the scan trainer's bf16 chain, ``train_multi_scenario``
                    on the four fixtures and ``train_conditioned`` with one
-                   extra condition column, 150 epochs each, every final
+                   extra condition column, 100 epochs each, every final
                    loss within its band of the float32 run's;
-22. ``k1_digest``  ``scripts/k1_digest.py``: K1, K1-auto, K2 and the seed
+23. ``k1_digest``  ``scripts/k1_digest.py``: K1, K1-auto, K2 and the seed
                    grid (50 and 3000 epochs) bit for bit the one-block
                    build's digests at the picked cluster size, and K1's
                    50-epoch case at each forced size 1, 2, 4, 8 and 16;
-23. ``serve``      the serving path (``serving.serve_checkpoint``): the
+24. ``serve``      the serving path (``serving.serve_checkpoint``): the
                    four committed checkpoints behind one local endpoint,
                    batch 16, 512 steps; one /serve to sce4 with 16 sce4
                    starts (every row finite or listed in 'invalid'), the
@@ -135,7 +147,7 @@ traceback and a non-zero exit:
                    CUDA-event time, its device kernels' time (torch.profiler
                    over 4 and 8 steps, extrapolated to 512) and the host
                    share.  No kernel of the port is on this path;
-24. ``kernels``    one line listing every ported kernel with its launches on
+25. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound (P2 and P3 also
                    their device times, their library call's both ways, and
                    the spread of each; the K1 family its cluster size, its
@@ -175,6 +187,16 @@ SERVE_THETA_TOL, SERVE_V_TOL, SERVE_POS_MEAN_M = 1e-4, 0.05, 2.0
 # the served states against the same waypoints tracked through the host
 # PathReference: the tracker's whole-simulation tolerance
 SERVE_HOST_TRACK_TOL = 1e-3
+
+# the dnda phase: 256 distinct synthetic SUT frames (the four scenarios'
+# baselines, 0-6 vehicles; scripts/dnda_sweep.py) held index for index
+# against the numpy oracle, then tiled to 3,072 frames (the SUT corpus's
+# 3,014 scored frames rounded up to 12 chunks of 256) and timed; the SUT
+# chain on the first two committed traces of each scenario
+DNDA_FRAMES, DNDA_TILE, DNDA_SEED, DNDA_REPS = 256, 3072, 0, 2
+DNDA_TRACES_EACH = 2
+# the frame pinned from live runs of the reference (tests/test_dnda.py:231)
+DNDA_PINNED = {"da": 42.6688, "da_tol": 1e-3, "rl": 0.767949, "rl_tol": 1e-5}
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # bf16 dense on the tensor cores, HBM
@@ -273,7 +295,7 @@ PLAIN_BUDGET_S = 30.0   # the plain version runs the full 200 epochs if it fits
 PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
 
 
-# the K3 ablation (phases 16 and 17).  P1 and P2 against their plain
+# the K3 ablation (phases 17 and 18).  P1 and P2 against their plain
 # versions: each sum within a fraction of the sum of the absolute values of
 # its terms — float32 sums in another order (stream: 1e-5); fwd's loss
 # components rtol 1e-5, as K3's one-epoch rows.  sol's and dx's sums pass
@@ -356,9 +378,9 @@ AUTO_CHECK_EPOCHS = 50
 AUTO_PROBE_EPOCHS, AUTO_DP_EPOCHS = 1, 20
 # the scan trainer's bf16 chain (scan_bf16): each final loss below twice
 # the float32 run's (JAX tests/test_model.py:217-235, "on-par
-# convergence"), finite and descending; at half that test's 300 epochs to
-# keep the check under 300 s (no kernel runs in this phase)
-SCAN_EPOCHS, SCAN_BF16_BAND = 150, 2.0
+# convergence"), finite and descending; at a third of that test's 300
+# epochs to keep the check under 300 s (no kernel runs in this phase)
+SCAN_EPOCHS, SCAN_BF16_BAND = 100, 2.0
 # the cache probe: each round's nvccs, and the phase that waits for them
 CACHE_PROBE_ROUND_S = 85.0
 # P3 and P2 timed beside their one-call library yardsticks, each in blocks
@@ -1127,6 +1149,155 @@ def serve_phase(np, torch, dev, w4, card):
     return info
 
 
+def dnda_pinned_frame(core, Road, Vehicle, np):
+    """The pinned straight frame of tests/test_dnda.py:231, prepared."""
+    speed, rel = 13.158535541215322, -0.04972614998298519
+    ego = Vehicle(x=0.17449996586169148, y=0.8701448475755365, length=7.2, width=2.3,
+                  speed=speed, speed_x=speed * np.cos(rel), speed_y=speed * np.sin(rel),
+                  acc=1.4296171063502774, init_q=0.8701448475755365, lane_posi=1,
+                  absolute_theta=0.0, relative_theta=rel)
+    baseline = np.column_stack([np.arange(600) * 0.25 - 20.0, np.zeros(600)])
+    sv = np.array([[16.0141393484983, 1.7887666332953127, 4.0, 2.0, -1.946066276384646,
+                    0.0, 0.0, 0.0, 0.0]])
+    return core.prepare_frame(3.0, 0.1, Road(False, 2, 2, 3.5, 9.8), ego, baseline, sv, 400)
+
+
+def sut_chain(np, dev, trees, work):
+    """The SUT chain on the first DNDA_TRACES_EACH committed traces of each
+    scenario: each written back (``sut.writeback_npy_to_csv``) into the
+    data phase's episode of its scenario whose ego track passes nearest the
+    trace's start, saved under the name ``expected_csv_name`` asks for; the
+    ``_def.csv`` files scored as ``DEF_<town>_<k>.csv`` by
+    ``score_directory`` on the card (host preparation in a spawned pool of
+    two) and on the host (inline; rows equal); TTC,
+    PET and JERK on each by ``compute_metric`` and by the ``metrics``
+    command (finite counts equal; sce4's written episodes hold sv1's
+    acceleration at 0, so they have no SUT start row, and both say so)."""
+    import io
+
+    from defensive_model_vae_tpu_torch import cli, scenarios
+    from defensive_model_vae_tpu_torch.data.csv_io import read_csv
+    from defensive_model_vae_tpu_torch.dnda import score_directory
+    from defensive_model_vae_tpu_torch.metrics import compute_metric
+    from defensive_model_vae_tpu_torch.sut import (expected_csv_name,
+                                                   parse_tracked_npy_name,
+                                                   writeback_npy_to_csv)
+
+    gen = os.path.join(HERE, "results", "GeneratedData")
+    score = os.path.join(work, "score")
+    os.makedirs(score)
+    t0 = time.perf_counter()
+    written = []
+    for key in scenarios.keys():
+        sce = scenarios.get(key)
+        names = sorted(f for f in os.listdir(gen)
+                       if f.startswith(f"tracked_trajectory_{key}_"))[:DNDA_TRACES_EACH]
+        for k, name in enumerate(names, 1):
+            x0, y0 = np.load(os.path.join(gen, name))[0, :2]
+            best = min(trees[key], key=lambda p: float(np.min(
+                np.hypot(read_csv(p)["ego_x"] - x0, read_csv(p)["ego_y"] - y0))))
+            src = os.path.join(work, "src", sce.town)
+            os.makedirs(src, exist_ok=True)
+            shutil.copy(best, os.path.join(src, expected_csv_name(*parse_tracked_npy_name(name))))
+            out = writeback_npy_to_csv(os.path.join(gen, name), os.path.join(work, "src"),
+                                       os.path.join(work, "def"))
+            dst = os.path.join(score, f"DEF_{sce.town}_{k}.csv")
+            shutil.copy(out, dst)
+            written.append((key, name, dst))
+    writeback_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_rows = score_directory(score, device=dev, processes=2)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_rows = score_directory(score, host=True, processes=1)
+    host_s = time.perf_counter() - t0
+    if card_rows != host_rows:
+        fail(f"score_directory on the card differs from the host pool: {card_rows} "
+             f"against {host_rows}")
+    def finite_count(fn):
+        """fn()'s count of finite values, or the refusal's message."""
+        try:
+            return fn()
+        except ValueError as e:
+            return str(e)
+
+    metrics = {}
+    for key, name, path in written:
+        counts = {}
+        for metric in ("TTC", "PET", "JERK"):
+            lib = finite_count(lambda: int(np.isfinite(
+                compute_metric(path, key, metric)[metric]).sum()))
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cmd = finite_count(lambda: cli.main(
+                    ["metrics", "--scenario", key, "--csv", path, "--metric", metric])
+                    or json.loads(buf.getvalue())["valid"])
+            if cmd != lib:
+                fail(f"{metric} on {name}: the metrics command gives {cmd!r}, "
+                     f"compute_metric {lib!r}")
+            counts[metric] = lib if isinstance(lib, int) else None
+        metrics[name] = counts
+    return {"traces": [n for _, n, _ in written], "writeback_s": writeback_s,
+            "score_card_s": card_s, "score_host_s": host_s,
+            "frames_scored": sum(r["frames"] for r in card_rows),
+            "rows": [{"file_path": r["file_path"], "frames": r["frames"],
+                      "max_dnda": r["max_dnda"] if r["frames"] else None}
+                     for r in card_rows],
+            "finite_metrics": metrics}
+
+
+def dnda_phase(np, torch, dev, trees, card):
+    """SUT risk scoring: the collision sweep on the card against the numpy
+    oracle (256 synthetic frames, both SAT dtypes, index for index; DA/RL
+    from finalize_frame bit for bit the host's), the pinned frame, the
+    sweep's times at 3,072 frames, and the SUT chain (``sut_chain``)."""
+    from defensive_model_vae_tpu_torch.dnda import Road, Vehicle, core, spline
+    from defensive_model_vae_tpu_torch.scripts import dnda_sweep
+
+    t0 = time.perf_counter()
+    info = {"spline_library": spline.build().name}  # g++, unless built already
+    info["spline_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    preps = dnda_sweep.synthetic_frames(DNDA_FRAMES, DNDA_SEED)
+    info["prepare_s"] = time.perf_counter() - t0
+    info.update(dnda_sweep.shapes(preps))
+    t0 = time.perf_counter()
+    host = core.sweep_frames(preps, host=True)
+    host_s = time.perf_counter() - t0
+    host_da_rl = [core.finalize_frame(p, ci) for p, ci in zip(preps, host)]
+    if any(not (0.0 <= rl <= 1.0 and da >= 0.0) for da, rl in host_da_rl):
+        fail("a frame's RL lies outside [0, 1] or its DA below 0")
+    for dt in dnda_sweep.DTYPES:
+        got = core.sweep_frames(preps, device=dev, sat_dtype=dt)
+        bad = [i for i, (g, h) in enumerate(zip(got, host)) if not np.array_equal(g, h)]
+        if len(got) != len(preps) or bad:
+            fail(f"the {dt} sweep on the card differs from the numpy oracle on frames "
+                 f"{bad[:10]}: {[(got[i].tolist(), host[i].tolist()) for i in bad[:3]]}")
+        if [core.finalize_frame(p, ci) for p, ci in zip(preps, got)] != host_da_rl:
+            fail(f"DA/RL after the {dt} card sweep differ from the host's")
+    n_paths = sum(len(ci) for ci in host)
+    hits = sum(int((ci < np.ceil(p.ego_speed * p.time_horizon
+                                 / np.asarray(p.unit_arc_paths))).sum())
+               for p, ci in zip(preps, host))
+    info.update(paths_swept=n_paths, paths_hit=hits,
+                frames_rl_positive=sum(rl > 0 for _, rl in host_da_rl))
+    prep = dnda_pinned_frame(core, Road, Vehicle, np)
+    da, rl = core.finalize_frame(prep, core.sweep_frames([prep], device=dev)[0])
+    if abs(da - DNDA_PINNED["da"]) > DNDA_PINNED["da_tol"] or \
+            abs(rl - DNDA_PINNED["rl"]) > DNDA_PINNED["rl_tol"]:
+        fail(f"the pinned frame gives DA {da}, RL {rl} after the card sweep")
+    info["pinned"] = {"da": da, "rl": rl}
+    tiled = (preps * -(-DNDA_TILE // len(preps)))[:DNDA_TILE]
+    for dt in dnda_sweep.DTYPES:
+        info[f"sweep_{dt}"] = dnda_sweep.time_sweep(tiled, dev, dt, DNDA_REPS)
+    info["host_sweep_s"] = host_s
+    info["host_sweep_s_scaled"] = host_s * len(tiled) / len(preps)
+    with tempfile.TemporaryDirectory() as work:
+        info["sut"] = sut_chain(np, dev, trees, work)
+    info["card"] = card
+    return info
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1511,10 +1682,14 @@ def main() -> int:
             fail(f"validation over {metrics['n_human']} human tracks of {len(csvs)} episodes")
         info.update(metrics=metrics, n_valid=int(ok2.sum()), card=card)
 
-    # ---- 10. K3 and K4 against their plain versions ------------------------
+    # ---- 10. dnda: SUT risk scoring, the collision sweep on the card ---------
+    with phase("dnda", 30) as info:
+        info.update(dnda_phase(np, torch, dev, trees, card))
+
+    # ---- 11. K3 and K4 against their plain versions ------------------------
     # a block takes ceil(steps / SMs) 32-row steps: one in the 4096- and
     # 1000-row cases, five (and a short last chunk) in the 20,000-row one,
-    # 32 at the bench shape (phase 11)
+    # 32 at the bench shape (phase 12)
     with phase("k3_vs_plain", 90) as info:
         rows = []
         for n, tile, cd, noise, epoch_list in ((4096, 512, None, "packed", (1, 20)),
@@ -1558,7 +1733,7 @@ def main() -> int:
                 fail(f"K4 disagrees with its plain version: {row}")
         info["cases"] = len(rows)
 
-    # ---- 11. train_scale: the production-scale path at the bench shape -----
+    # ---- 12. train_scale: the production-scale path at the bench shape -----
     ws = scale_corpus(SCALE_N)
     with phase("train_scale", 120) as info:
         fs._fused_scale_call.launches = 0
@@ -1655,7 +1830,7 @@ def main() -> int:
                     k4_plain_ms=k4_plain_ms, dp_loss_last=float(dhist["total"][-1]),
                     card=card)
 
-    # ---- 12. K2 and the seed grid against their plain versions ------------
+    # ---- 13. K2 and the seed grid against their plain versions ------------
     corpora = {k: np.load(scenarios.get(k).fixture_windows)
                for k in ("sce1", "sce2", "sce3", "sce4")}
     keys = sorted(corpora)
@@ -1709,7 +1884,7 @@ def main() -> int:
         seeds_err["max_abs_err"] = gaps["params_max_abs"]
         info["cases"] = len(rows)
 
-    # ---- 13. multi: every scenario's model in one K2 launch ---------------
+    # ---- 14. multi: every scenario's model in one K2 launch ---------------
     with phase("multi", 300) as info:
         ft._fused_multi_call.launches = 0
         t0 = time.perf_counter()
@@ -1763,7 +1938,7 @@ def main() -> int:
                     plain_epochs_timed=PLAIN_MULTI_EPOCHS, vs_fused_train_max_abs=gap,
                     tracked=tracked, card=card)
 
-    # ---- 14. track_multi: several generation seeds in one tracking batch --
+    # ---- 15. track_multi: several generation seeds in one tracking batch --
     with phase("track_multi", 120) as info:
         sce2 = scenarios.get("sce2")
         starts2, inits2 = fixture_starts(corpora["sce2"])
@@ -1795,7 +1970,7 @@ def main() -> int:
         if not close:
             fail(f"multi-seed tracker differs from per-seed tracking (pos {worst} m)")
 
-    # ---- 15. seeds: the seed sweep in one launch of K1 on 32 blocks -------
+    # ---- 16. seeds: the seed sweep in one launch of K1 on 32 blocks -------
     with phase("seeds", 300) as info:
         sweep = list(range(SWEEP_SEEDS))
         ft._fused_seeds_call.launches = 0
@@ -1835,7 +2010,7 @@ def main() -> int:
                     loss_first_max=max(v[0] for v in losses.values()),
                     loss_last_max=max(v[1] for v in losses.values()), card=card)
 
-    # ---- 16. the K3 ablation's kernels against their plain versions --------
+    # ---- 17. the K3 ablation's kernels against their plain versions --------
     abl_err = {}
     with phase("ablation_vs_plain", 150) as info:
         rows = []
@@ -1957,7 +2132,7 @@ def main() -> int:
         del eps2, shares
         info["cases"] = len(rows)
 
-    # ---- 17. ablation: the ported K3 ablation at the bench width -----------
+    # ---- 18. ablation: the ported K3 ablation at the bench width -----------
     with phase("ablation", 300) as info:
         counters = (fs._fused_scale_call, sa.p1_stream, sa.p1_sol, sa.p1_ablation,
                     sa.p2_stream_sum)
@@ -2100,7 +2275,7 @@ def main() -> int:
                     p1=p1_res, p2=p2_timing, p2_plain_ms=p2_plain_ms,
                     dwt_plain_ms=dwt_plain_ms, dwt_vs_plain=dwt_bench, card=card)
 
-    # ---- 18. train_auto: K1's autodiff instance on the main path ---------
+    # ---- 19. train_auto: K1's autodiff instance on the main path ---------
     with phase("train_auto", 120) as info:
         ft.fused_call.auto_launches = 0
         t0 = time.perf_counter()
@@ -2131,7 +2306,7 @@ def main() -> int:
                     manual_loss_last=float(hist["total"][-1]),
                     vs_manual_3000_epochs_params_max_abs=k1a_vs_manual, card=card)
 
-    # ---- 19. auto_vs_plain: the autodiff instances against their plain versions
+    # ---- 20. auto_vs_plain: the autodiff instances against their plain versions
     with phase("auto_vs_plain", 150) as info:
         rows = []
 
@@ -2296,7 +2471,7 @@ def main() -> int:
         del packed, packed1, packed3
         info["cases"] = len(rows)
 
-    # ---- 20. train_scale_auto: the CLI's --backward auto at the bench shape
+    # ---- 21. train_scale_auto: the CLI's --backward auto at the bench shape
     with phase("train_scale_auto", 180) as info:
         fs._fused_scale_call.auto_launches = dict.fromkeys(fs.AUTO_MODES, 0)
         cli_runs = {}
@@ -2390,7 +2565,7 @@ def main() -> int:
                     dp_wall_s=k4a_wall, k4_launches=k4a_launches, k4_ms=k4a_ms,
                     k4_plain_ms=k4a_plain_ms, card=card)
 
-    # ---- 21. scan_bf16: the scan trainer's bf16 chain and its siblings -----
+    # ---- 22. scan_bf16: the scan trainer's bf16 chain and its siblings -----
     with phase("scan_bf16", 180) as info:
         extra = np.linspace(0.0, 1.0, len(w4), dtype=np.float32)[:, None]
         runs = {
@@ -2421,7 +2596,7 @@ def main() -> int:
             scan_out[name] = res
         info.update(epochs=SCAN_EPOCHS, runs=scan_out, card=card)
 
-    # ---- 22. k1_digest: the K1 family bit for bit the one-block build ---------
+    # ---- 23. k1_digest: the K1 family bit for bit the one-block build ---------
     with phase("k1_digest", 120) as info:
         ref = k1d.reference(torch.cuda.get_device_properties(dev).multi_processor_count)
         runs = {"picked": k1d.digests(dev)}
@@ -2433,11 +2608,11 @@ def main() -> int:
         if any(bad.values()):
             fail(f"the K1 family differs from the one-block build's digests: {bad}")
 
-    # ---- 23. serve: the four committed models behind one HTTP endpoint -------
+    # ---- 24. serve: the four committed models behind one HTTP endpoint -------
     with phase("serve", 150) as info:
         info.update(serve_phase(np, torch, dev, w4, card))
 
-    # ---- 24. kernels --------------------------------------------------------
+    # ---- 25. kernels --------------------------------------------------------
     emit({"check_s": time.perf_counter() - t_start, "card": card})
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)

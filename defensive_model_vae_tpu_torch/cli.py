@@ -1,11 +1,11 @@
 """Command-line interface of the port: ``dataset``, ``train [--fused |
---fused-scale]``, ``generate``, ``pipeline``, ``validate``, ``thw`` and
-``serve``.
+--fused-scale]``, ``generate``, ``pipeline``, ``validate``, ``thw``,
+``serve``, ``dnda``, ``dnda-sweep``, ``metrics`` and ``writeback``.
 
 Run as ``python -m defensive_model_vae_tpu_torch.cli``; mirrors the JAX
 package's ``defvae`` commands of the same names (cli.py:692, :712-770, :775,
-:803, :846, :929) with their arguments, and writes the same checkpoint
-manifest ``recipe``:
+:803, :809-831, :846, :902-906, :923-929) with their arguments, and writes
+the same checkpoint manifest ``recipe``:
 
     python -m defensive_model_vae_tpu_torch.cli dataset --scenario sce2 \\
         --data-root DefensiveData --out windows.npy [--point-mode extend_mid]
@@ -25,6 +25,15 @@ manifest ``recipe``:
         --data-root DefensiveData
     python -m defensive_model_vae_tpu_torch.cli serve \\
         --ckpt sce4=results/checkpoints/sce4 --listen 0 --batch 16
+    python -m defensive_model_vae_tpu_torch.cli writeback \
+        --npy results/GeneratedData/tracked_trajectory_sce1_exp11_3.npy \
+        --data-root DefensiveData --out-dir sut/
+    python -m defensive_model_vae_tpu_torch.cli dnda --scenario sce1 \
+        --csv sut/DEF_StaticBlindTown05_1.csv [--host] [--out-csv f.csv]
+    python -m defensive_model_vae_tpu_torch.cli dnda-sweep --dir sut/ \
+        --out max_dnda_summary.csv [--host] [--processes 4]
+    python -m defensive_model_vae_tpu_torch.cli metrics --scenario sce1 \
+        --csv sut/DEF_StaticBlindTown05_1.csv --metric PET
 
 ``--fused-scale`` is the production-scale trainer (kernel K3; with
 ``--mesh``, the per-epoch tier through kernel K4, on one device until the
@@ -32,8 +41,9 @@ data-parallel slice); ``--backward auto`` runs its autodiff instance.
 Without ``--fused``/``--fused-scale``, ``--dtype bfloat16`` runs the scan
 trainer's bf16 chain.  A command that touches the device takes
 ``--device``, default ``cuda``; ``--device cpu`` runs on the CPU (the
-kernels' plain versions).  JSON output writes non-finite metrics as
-``null``.
+kernels' plain versions).  ``dnda`` and ``dnda-sweep`` run the collision
+sweep on the card by default; ``--host`` runs the numpy oracle path.  JSON
+output writes non-finite metrics as ``null``.
 """
 
 from __future__ import annotations
@@ -168,6 +178,62 @@ def _cmd_thw(args):
     if sce.thw_distance is not None or sce.thw_distance_by_suffix is not None:
         report["thw"] = [round(float(t), 3) for t in thw_values(sv, sce)]
     print(json.dumps(jsonable(report), indent=2))
+
+
+def _cmd_dnda(args):
+    """DNDA of one SUT episode (JAX cli.py:253): per frame, and the maximum."""
+    from .dnda import process_episode
+    from .utils import jsonable
+
+    res = process_episode(args.csv, args.scenario, max_frames=args.max_frames,
+                          device=args.device, host=args.host)
+    if args.out_csv:
+        # per-frame CSV like the reference driver's per-file output
+        # (DNDA_calculator.py:352-361)
+        import csv
+
+        with open(args.out_csv, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["frame", "dnda"])
+            w.writerows(zip(res.frames, res.dnda))
+    print(json.dumps(jsonable({"frames": res.frames, "dnda": res.dnda,
+                               "max_dnda": res.max_dnda})))
+
+
+def _cmd_dnda_sweep(args):
+    """Every SUT episode of a directory scored (JAX cli.py:276)."""
+    from .dnda import score_directory
+    from .utils import jsonable
+
+    rows = score_directory(args.dir, out_csv=args.out, processes=args.processes,
+                           device=args.device, host=args.host)
+    print(json.dumps(jsonable(rows), indent=2))
+
+
+def _cmd_metrics(args):
+    """TTC, PET or JERK over one SUT episode (JAX cli.py:504)."""
+    from .metrics import compute_metric
+    from .utils import jsonable
+
+    out = compute_metric(args.csv, args.scenario, args.metric)
+    col = args.metric.strip().upper()
+    finite = out[col][np.isfinite(out[col])]
+    print(json.dumps(jsonable({
+        "metric": col,
+        "rows": len(out),
+        "valid": int(len(finite)),
+        "mean": float(np.mean(finite)) if len(finite) else None,
+        "min": float(np.min(finite)) if len(finite) else None,
+        "max": float(np.max(finite)) if len(finite) else None,
+    })))
+
+
+def _cmd_writeback(args):
+    """A tracked trace written into its source episode (JAX cli.py:539)."""
+    from .sut import writeback_npy_to_csv
+
+    out = writeback_npy_to_csv(args.npy, args.data_root, args.out_dir)
+    print(f"saved {out}")
 
 
 def _parse_ckpt_specs(specs):
@@ -353,6 +419,39 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--host", default="127.0.0.1", help="bind address for --listen")
     sv.add_argument("--device", default="cuda")
     sv.set_defaults(fn=_cmd_serve)
+
+    dn = sub.add_parser("dnda", help="DNDA risk scoring of an episode CSV")
+    dn.add_argument("--scenario", required=True)
+    dn.add_argument("--csv", required=True)
+    dn.add_argument("--max-frames", type=int, default=None)
+    dn.add_argument("--out-csv", default=None, help="per-frame CSV path")
+    dn.add_argument("--host", action="store_true",
+                    help="the frame-by-frame numpy sweep (the oracle path) instead of "
+                         "the batched torch sweep on --device")
+    dn.add_argument("--device", default="cuda")
+    dn.set_defaults(fn=_cmd_dnda)
+
+    ds = sub.add_parser("dnda-sweep", help="score every SUT episode in a directory")
+    ds.add_argument("--dir", required=True)
+    ds.add_argument("--out", default=None, help="summary CSV path")
+    ds.add_argument("--processes", type=int, default=None)
+    ds.add_argument("--host", action="store_true",
+                    help="score end to end on the host process pool (numpy sweep, the "
+                         "oracle path) instead of one batched torch sweep on --device")
+    ds.add_argument("--device", default="cuda")
+    ds.set_defaults(fn=_cmd_dnda_sweep)
+
+    m = sub.add_parser("metrics", help="TTC/PET/JERK on an episode CSV")
+    m.add_argument("--scenario", required=True)
+    m.add_argument("--csv", required=True)
+    m.add_argument("--metric", default="TTC")
+    m.set_defaults(fn=_cmd_metrics)
+
+    wb = sub.add_parser("writeback", help="inject tracked npy into source CSV")
+    wb.add_argument("--npy", required=True)
+    wb.add_argument("--data-root", required=True)
+    wb.add_argument("--out-dir", required=True)
+    wb.set_defaults(fn=_cmd_writeback)
     return p
 
 

@@ -1,35 +1,37 @@
-"""CSV input through the native C++ loader, without pandas.
+"""CSV input through the native C++ loader, and CSV output, without pandas.
 
 Port of ``defensive_model_vae_tpu/data/csv_io.py``.  ``read_csv`` parses a
 CARLA log CSV with the mmap + ``std::from_chars`` loader in
 ``native/csvloader.cpp`` and returns a :class:`Frame`: the column names over
-one float64 matrix, with the column access, masks and row slices the
-scenario predicates and the extraction code use.
+one float64 matrix, with the column access, masks, row slices and column
+assignment the scenario predicates, the extraction code, the SUT write-back
+and the surrogate metrics use.  ``write_csv`` writes a ``Frame`` back, each
+value its shortest ``repr``.
 
 The loader is built on first use with ``g++ -O2 -std=c++17 -fPIC -shared``
 into ``defensive_model_vae_tpu_torch/build/``, named by a SHA-256 of the
-source, the flags and ``g++ --version`` (as ``ops/_build.py`` names its
-libraries), and bound with ctypes.  There is no fallback: a loader that
-does not build or load raises with the compiler's output, and a file the
-loader cannot parse raises.
+source, the flags and ``g++ --version`` (``_native.py``, as
+``ops/_build.py`` names its libraries), and bound with ctypes.  There is
+no fallback: a loader that does not build or load raises with the
+compiler's output, and a file the loader cannot parse raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import pathlib
-import subprocess
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from .. import _native
+
 _PKG_ROOT = pathlib.Path(__file__).resolve().parent.parent
 SOURCE = _PKG_ROOT.parent / "native" / "csvloader.cpp"
 BUILD_DIR = _PKG_ROOT / "build"
-CXX, CXX_FLAGS = "g++", ("-O2", "-std=c++17", "-fPIC", "-shared")
+CXX = "g++"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -99,35 +101,32 @@ class Frame:
     def row(self, i: int) -> FrameRow:
         return FrameRow(self._index, self.data[i])
 
+    def assign(self, **columns) -> "Frame":
+        """A new Frame with these columns: each replaces the column of its
+        name, or is appended after the others (pandas' ``assign``)."""
+        data, names = self.data.copy(), list(self.columns)
+        extra = []
+        for name, values in columns.items():
+            col = np.broadcast_to(np.asarray(values, np.float64), (len(self),))
+            if name in self._index:
+                data[:, self._index[name]] = col
+            else:
+                names.append(name)
+                extra.append(col)
+        if extra:
+            data = np.column_stack([data, *extra])
+        return Frame(names, data)
+
 
 def library_path() -> pathlib.Path:
     """Where the loader for this source, these flags and this compiler lives."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    try:
-        version = subprocess.run([CXX, "--version"], capture_output=True, text=True,
-                                 check=True, timeout=60).stdout
-    except (OSError, subprocess.SubprocessError) as e:
-        raise RuntimeError(f"the CSV loader needs a C++ compiler ({CXX}): {e}") from e
-    h.update(version.encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libdmvcsv_{h.hexdigest()[:16]}.so"
+    return _native.library_path(SOURCE, "libdmvcsv", BUILD_DIR, CXX, "the CSV loader")
 
 
 def build() -> pathlib.Path:
     """Build the loader for the current source unless it is built already;
     → the library's path.  Raises with the compiler's output on failure."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                          capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the CSV loader failed:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: another process never loads a half-written .so
-    return out
+    return _native.build(SOURCE, "libdmvcsv", BUILD_DIR, CXX, "the CSV loader")
 
 
 def _load_lib() -> ctypes.CDLL:
@@ -201,3 +200,25 @@ def read_csv(path: str) -> Frame:
         _parse_cache[key] = entry
     names, data = entry
     return Frame(names, data.copy())
+
+
+def csv_text(columns: Sequence[str], rows: np.ndarray) -> str:
+    """A CSV of these columns and (rows, cols) values: each value its shortest
+    ``repr``, which parses back to the same float64, and NaN an empty field,
+    as pandas writes it."""
+    def cell(v: float) -> str:
+        return "" if v != v else repr(v)
+
+    cols = []
+    for c in np.asarray(rows, np.float64).reshape(-1, len(columns)).T.tolist():
+        if c and c.count(c[0]) == len(c):  # a constant column: format it once
+            cols.append([cell(c[0])] * len(c))
+        else:
+            cols.append([cell(v) for v in c])
+    return "\n".join([",".join(columns)] + [",".join(r) for r in zip(*cols)]) + "\n"
+
+
+def write_csv(path, frame: Frame) -> None:
+    """Write a :class:`Frame` as :func:`csv_text` does (no index column)."""
+    with open(path, "w") as f:
+        f.write(csv_text(frame.columns, frame.data))

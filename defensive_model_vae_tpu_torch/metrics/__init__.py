@@ -1,6 +1,7 @@
 """Validation metrics (host numpy and scipy), ported from
-``defensive_model_vae_tpu/metrics``.  ``surrogate`` (TTC, PET, jerk over SUT
-episodes) is not here: it comes with the SUT slice.
+``defensive_model_vae_tpu/metrics``, with the same ``__all__``: the
+distribution, spatial and THW metrics, and the surrogate safety metrics
+(TTC, PET, jerk) over SUT episodes.
 """
 
 from .distribution import (
@@ -20,6 +21,13 @@ from .spatial import (
     model_stv_data,
     human_stv_data,
 )
+from .surrogate import (
+    slice_episode,
+    ttc_1d,
+    pet_rays,
+    jerk,
+    compute_metric,
+)
 from .thw import start_velocities, thw_values
 
 __all__ = [
@@ -36,6 +44,11 @@ __all__ = [
     "spatiotemporal_plane_rmse",
     "model_stv_data",
     "human_stv_data",
+    "slice_episode",
+    "ttc_1d",
+    "pet_rays",
+    "jerk",
+    "compute_metric",
     "start_velocities",
     "thw_values",
 ]

@@ -45,6 +45,7 @@ from typing import List, Sequence
 import numpy as np
 
 from .. import scenarios
+from ..data.csv_io import csv_text
 
 LEAD_IN = 10
 COLUMNS = ["frame", "id", "throttle", "steer", "brake"] + [
@@ -119,15 +120,6 @@ def episode_rows(window: np.ndarray, scenario) -> np.ndarray:
     return out
 
 
-def _csv_text(rows: np.ndarray) -> str:
-    """Header and rows; each value its shortest repr, which parses back to
-    the same float64."""
-    cols = []
-    for c in rows.T.tolist():
-        cols.append([repr(c[0])] * len(c) if c.count(c[0]) == len(c) else list(map(repr, c)))
-    return "\n".join([",".join(COLUMNS)] + [",".join(r) for r in zip(*cols)]) + "\n"
-
-
 def write_episodes(windows: np.ndarray, scenario, root: str) -> List[str]:
     """One episode CSV per window under ``root/<town>/<maneuver>/``; → the
     paths in window order."""
@@ -143,7 +135,7 @@ def write_episodes(windows: np.ndarray, scenario, root: str) -> List[str]:
             name = f"exp_{i + 1:0{width}d}_control_{sce.town}_{i % 3 + 1}.csv"
             path = os.path.join(folder, name)
             with open(path, "w") as f:
-                f.write(_csv_text(episode_rows(windows[i], sce)))
+                f.write(csv_text(COLUMNS, episode_rows(windows[i], sce)))
             paths.append(path)
     return paths
 

@@ -445,16 +445,22 @@ def test_build_conditioned_corpus_matches_jax(trees, all_windows):
 # ---------------------------------------------------------------------------
 
 def test_data_metrics_pipeline_import_neither_jax_nor_pandas(trees):
-    """A fresh process that imports the port's data, metrics, pipeline,
-    utils, the CLI and the episode writer, and reads an episode, has
-    neither jax nor pandas (nor the JAX package) in sys.modules."""
+    """A fresh process that imports the port's data, metrics (with
+    ``metrics.surrogate``), pipeline, utils, ``dnda``, ``sut``, the CLI and
+    the episode writer, reads an episode, scores it (the torch sweep on the
+    CPU) and computes a surrogate metric on it, has neither jax nor pandas
+    (nor the JAX package) in sys.modules."""
     root, paths = trees
     script = textwrap.dedent(f"""
         import sys
-        from defensive_model_vae_tpu_torch import cli, data, metrics, pipeline, utils
+        from defensive_model_vae_tpu_torch import cli, data, dnda, metrics, pipeline, sut, utils
+        from defensive_model_vae_tpu_torch.metrics import surrogate
         from defensive_model_vae_tpu_torch.scripts import episodes
         data.get_start_conditions({paths["sce2"][0]!r}, "sce2")
         assert len(data.build_dataset({root!r}, "sce2")) == 16
+        res = dnda.process_episode({paths["sce2"][0]!r}, "sce2", max_frames=2, device="cpu")
+        assert len(res.frames) == 2
+        assert len(surrogate.compute_metric({paths["sce2"][0]!r}, "sce2", "PET")) > 0
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "pandas", "matplotlib", "defensive_model_vae_tpu"))
         assert not bad, bad
