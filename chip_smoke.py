@@ -71,8 +71,9 @@ traceback and a non-zero exit:
                    in one K2 launch, each scenario converging (last <
                    first/5); K2 timed against its plain version; at 300
                    epochs each scenario held against ``fused_train`` with
-                   seed + i; each model sampled and tracked with its
-                   scenario's tracker, controls within bounds;
+                   seed + i; each model sampled at every start, its first
+                   16 starts tracked with its scenario's tracker, controls
+                   within bounds;
 15. ``track_multi`` ``generate_and_track_multi_from_starts`` with 4
                    generation seeds on the sce2 model, row by row against
                    per-seed ``generate_and_track_from_starts``;
@@ -129,11 +130,27 @@ traceback and a non-zero exit:
                    on the four fixtures and ``train_conditioned`` with one
                    extra condition column, 100 epochs each, every final
                    loss within its band of the float32 run's;
-23. ``k1_digest``  ``scripts/k1_digest.py``: K1, K1-auto, K2 and the seed
+23. ``conv``       BASELINE config 3, the temporal-conv VAE
+                   (``models/conv_cvae.py``, ``train_conv``; plain torch,
+                   no kernel of the port) at the shapes of
+                   ``bench.py::bench_conv_long``: 256 random-walk windows
+                   × 50 × 2, 500 epochs, timed (wall, CUDA events, windows
+                   a second), converging; 20 epochs on the card against the
+                   same on the CPU (same init and noise); sampling from 256
+                   starts away from the origin, each first point within 3 m;
+                   a Conv1D checkpoint back as a ``ConvCVAEConfig``;
+24. ``edges``      the committed sce1 exported to ``.pth`` and imported
+                   back bit for bit, scenario and offset mode read from the
+                   file name; the scan trainer resumed through
+                   ``opt_state.npz`` bit for bit one long run; the horizon
+                   sweep on a sce1 window; the linear MPC's sine road on
+                   the card (JAX's bounds, and against the CPU);
+                   ``cli.py doctor`` with exit code 0;
+25. ``k1_digest``  ``scripts/k1_digest.py``: K1, K1-auto, K2 and the seed
                    grid (50 and 3000 epochs) bit for bit the one-block
                    build's digests at the picked cluster size, and K1's
                    50-epoch case at each forced size 1, 2, 4, 8 and 16;
-24. ``serve``      the serving path (``serving.serve_checkpoint``): the
+26. ``serve``      the serving path (``serving.serve_checkpoint``): the
                    four committed checkpoints behind one local endpoint,
                    batch 16, 512 steps; one /serve to sce4 with 16 sce4
                    starts (every row finite or listed in 'invalid'), the
@@ -147,7 +164,7 @@ traceback and a non-zero exit:
                    CUDA-event time, its device kernels' time (torch.profiler
                    over 4 and 8 steps, extrapolated to 512) and the host
                    share.  No kernel of the port is on this path;
-25. ``kernels``    one line listing every ported kernel with its launches on
+27. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound (P2 and P3 also
                    their device times, their library call's both ways, and
                    the spread of each; the K1 family its cluster size, its
@@ -162,6 +179,7 @@ from __future__ import annotations
 
 import atexit
 import contextlib
+import dataclasses
 import faulthandler
 import json
 import os
@@ -381,6 +399,50 @@ AUTO_PROBE_EPOCHS, AUTO_DP_EPOCHS = 1, 20
 # convergence"), finite and descending; at a third of that test's 300
 # epochs to keep the check under 300 s (no kernel runs in this phase)
 SCAN_EPOCHS, SCAN_BF16_BAND = 100, 2.0
+# the multi phase samples every start of each K2 model and tracks the first
+# MULTI_TRACK_ROWS (the serve batch; all 16 of sce2, whose seed-0 traces
+# track_multi reuses): a tracker step of 38-134 rows took 9.4-11.6 ms on
+# the H100 against 4.5 ms at 16, and tracking every start was 36 s of the
+# check
+MULTI_TRACK_ROWS = 16
+# the conv phase: BASELINE config 3 at the shapes of bench.py::bench_conv_long
+# (:928): 256 random-walk windows of 50 points × 2, step 5 m, seed 0, the
+# default ConvCVAEConfig (channels 32/64/128, kernel 5, H 128, Z 8), 500
+# epochs; converged when the last loss is below a third of the first (JAX
+# tests/test_extras.py:241).  The card against the CPU over CONV_CHECK_EPOCHS
+# on the same init and noise (TF32 off; one epoch's gradients are as close
+# to float64 on the card as on the CPU, 8.8e-7 against 1.0e-6 of each
+# array's max): over the first ten epochs the loss rows to a relative 1e-5
+# of each row's largest value, summation order only (measured ≤ 3.1e-7, as
+# K1_TOL's one-epoch row); over all twenty to 1e-3, as K1_TOL's fifty-epoch
+# row, because this training passes a point (epoch 15) where summation order
+# is chaotic: there the card's gap was 1.6e-4 of the row and the CPU's own
+# against itself with the initial params one ulp apart 6.6e-5, printed
+# beside it each run (cpu_one_ulp_rel), and the card is not even run to run
+# equal (cuDNN); the params to 1e-2, ten of Adam's steps (lr 1e-3) the other
+# way: an element whose gradient sits at the rounding noise of the two
+# orders can step the other way each epoch.  Sampling as JAX's
+# test_conv_train_sample_consistency_nonorigin (:279): the windows moved to
+# 256 starts away from the origin, trained CONV_SAMPLE_EPOCHS (a third of
+# that test's 300, to keep the check under 300 s: the first points sit
+# within 0.15 m of their starts from 100 epochs on, on the CPU), one sample
+# each from its start; every first point within 3 m of its start.
+CONV_N, CONV_SEQ, CONV_STEP, CONV_EPOCHS = 256, 50, 5.0, 500
+CONV_CHECK_EPOCHS, CONV_SAMPLE_EPOCHS = 20, 100
+CONV_TOL = {"first_epochs": 10, "first_rel": 1e-5, "metrics_rel": 1e-3,
+            "params_abs": 1e-2}
+CONV_STARTS_AT, CONV_STARTS_SPREAD, CONV_START_M = (500.0, -300.0), 100.0, 3.0
+# the edges phase: the optimizer-state round trip (the scan trainer on sce4,
+# two halves of EDGE_OPT_EPOCHS through opt_state.npz against one run, bit for
+# bit); the horizon sweep on sce1's window 1 as JAX tests/test_mpc.py:169
+# (dt 0.05, mean error under 5 m); the linear MPC's sine road as :197 (after
+# 40 steps within 0.2 m of the road, the end speed over 1.5 m/s, the inputs
+# in their bounds), and its states against the CPU's to 1e-3 (float32
+# rounding of the card's sin, cos and atan2 compounded over the closed loop)
+EDGE_OPT_EPOCHS = 20
+EDGE_SWEEP = {"combos": ((10, 5), (20, 10)), "dt": 0.05, "mean_m": 5.0}
+EDGE_SINE = {"steps": 120, "settle": 40, "road_m": 0.2, "end_speed": 1.5,
+             "card_vs_cpu": 1e-3}
 # the cache probe: each round's nvccs, and the phase that waits for them
 CACHE_PROBE_ROUND_S = 85.0
 # P3 and P2 timed beside their one-call library yardsticks, each in blocks
@@ -1298,6 +1360,195 @@ def dnda_phase(np, torch, dev, trees, card):
     return info
 
 
+def conv_phase(np, torch, dev, card):
+    """BASELINE config 3 on the card (``train_conv`` at the bench shape), its
+    20 first epochs against the CPU's, sampling away from the origin, and a
+    Conv1D checkpoint's round trip."""
+    from defensive_model_vae_tpu_torch.data import generate_random_trajectories
+    from defensive_model_vae_tpu_torch.models import (ConvCVAEConfig, conv_sample,
+                                                      init_conv_params)
+    from defensive_model_vae_tpu_torch.train import (TrainConfig, load_checkpoint,
+                                                     params_to_numpy, save_checkpoint,
+                                                     train_conv)
+    from defensive_model_vae_tpu_torch.train.train import epoch_noise
+
+    w = generate_random_trajectories(CONV_N, CONV_SEQ, CONV_STEP, seed=0).astype(np.float32)
+    cfg = ConvCVAEConfig(seq_len=CONV_SEQ, dim=w.shape[2])
+    info = {"n": CONV_N, "seq_len": CONV_SEQ, "dim": cfg.dim, "epochs": CONV_EPOCHS,
+            "n_params": cfg.n_params()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms, (params, hist, _) = cuda_ms(lambda: train_conv(
+        w, cfg, TrainConfig(epochs=CONV_EPOCHS), device=dev))
+    wall = time.perf_counter() - t0
+    first, last = float(hist["total"][0]), float(hist["total"][-1])
+    info.update(wall_s=wall, cuda_ms=ms, ms_per_epoch=ms / CONV_EPOCHS,
+                windows_per_s=CONV_EPOCHS * CONV_N / wall, loss_first=first,
+                loss_last=last)
+    if not all(np.all(np.isfinite(v)) for v in hist.values()) or not last < first / 3:
+        fail(f"train_conv did not converge: loss {first} -> {last}")
+
+    # the card against the CPU on the same init and noise
+    init = init_conv_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    eps = np.stack([epoch_noise(1, e, (CONV_N, cfg.latent_dim)).numpy()
+                    for e in range(CONV_CHECK_EPOCHS)])
+    tc = TrainConfig(epochs=CONV_CHECK_EPOCHS, seed=1)
+    t0 = time.perf_counter()
+    pc, hc, _ = train_conv(w, cfg, tc, init_params=init, eps=eps, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    pg, hg, _ = train_conv(w, cfg, tc, init_params=init, eps=eps, device=dev)
+
+    def row_gaps(h):  # each epoch's largest gap of a row, relative to the row
+        return np.max([np.abs(h[k] - hc[k]) / np.abs(hc[k]).max() for k in hc], axis=0)
+
+    gaps = row_gaps(hg)
+    g = torch.Generator().manual_seed(2)  # the CPU's own sensitivity: init one ulp off
+    nudged = {k: {n: torch.nextafter(a, torch.where(torch.rand(a.shape, generator=g) < 0.5,
+                                                    -torch.inf, torch.inf))
+                  for n, a in v.items()} for k, v in init.items()}
+    ulp = row_gaps(train_conv(w, cfg, tc, init_params=nudged, eps=eps, device="cpu")[1])
+    first = float(gaps[:CONV_TOL["first_epochs"]].max())
+    a, b = params_to_numpy(pg), params_to_numpy(pc)
+    pabs = max(float(np.abs(a[k][n] - b[k][n]).max()) for k in a for n in ("w", "b"))
+    info["vs_cpu"] = {"epochs": CONV_CHECK_EPOCHS, "first_epochs_max_rel": first,
+                      "metrics_max_rel": float(gaps.max()),
+                      "worst_epoch": int(gaps.argmax()) + 1,
+                      "cpu_one_ulp_rel": float(ulp.max()), "params_max_abs": pabs,
+                      "tol": CONV_TOL, "cpu_s": cpu_s}
+    if first > CONV_TOL["first_rel"] or gaps.max() > CONV_TOL["metrics_rel"] or \
+            pabs > CONV_TOL["params_abs"]:
+        fail(f"train_conv on the card differs from the CPU's: {info['vs_cpu']}")
+
+    # sampling from starts away from the origin
+    starts = (np.asarray(CONV_STARTS_AT) + np.random.default_rng(2).uniform(
+        -CONV_STARTS_SPREAD, CONV_STARTS_SPREAD, (CONV_N, 2))).astype(np.float32)
+    t0 = time.perf_counter()
+    ps, hs, _ = train_conv(w - w[:, :1] + starts[:, None], cfg,
+                           TrainConfig(epochs=CONV_SAMPLE_EPOCHS), device=dev)
+    out = conv_sample(ps, torch.Generator().manual_seed(1),
+                      torch.as_tensor(starts, device=dev), cfg).cpu().numpy()
+    gap = np.linalg.norm(out[:, 0] - starts, axis=1)
+    info["sample"] = {"epochs": CONV_SAMPLE_EPOCHS, "seconds": time.perf_counter() - t0,
+                      "loss_first": float(hs["total"][0]),
+                      "loss_last": float(hs["total"][-1]),
+                      "first_point_max_m": float(gap.max()),
+                      "first_point_mean_m": float(gap.mean()), "limit_m": CONV_START_M}
+    if out.shape != (CONV_N, CONV_SEQ, cfg.dim) or not np.all(np.isfinite(out)) \
+            or gap.max() >= CONV_START_M:
+        fail(f"conv_sample's first points are off their starts: {info['sample']}")
+
+    # a Conv1D checkpoint comes back a ConvCVAEConfig with the same params
+    with tempfile.TemporaryDirectory() as d:
+        save_checkpoint(d, params, cfg, None, hist)
+        p2, cfg2, _ = load_checkpoint(d, dev)
+    if not isinstance(cfg2, ConvCVAEConfig) or cfg2 != cfg or set(p2) != set(params) or \
+            not all(torch.equal(p2[k][n], params[k][n]) for k in params for n in ("w", "b")):
+        fail(f"a Conv1D checkpoint did not load back as saved: {cfg2!r}")
+    info.update(checkpoint="ConvCVAEConfig, params bit for bit", card=card)
+    return info
+
+
+def edges_phase(np, torch, dev, w4, ep_root, card):
+    """The migration and control edges on the card: ``.pth`` export and
+    import, the optimizer state's round trip, the horizon sweep, the linear
+    MPC, and ``cli.py doctor``."""
+    import io
+
+    from defensive_model_vae_tpu_torch import cli, scenarios
+    from defensive_model_vae_tpu_torch.control import sine_road_demo, sweep_horizons
+    from defensive_model_vae_tpu_torch.models import CVAEConfig
+    from defensive_model_vae_tpu_torch.train import (TrainConfig, load_checkpoint,
+                                                     load_opt_state, save_checkpoint,
+                                                     save_opt_state, train)
+    from defensive_model_vae_tpu_torch.train.torch_import import (export_to_pth,
+                                                                  import_to_checkpoint)
+
+    info = {}
+    ckpts = os.path.join(HERE, "results", "checkpoints")
+    with tempfile.TemporaryDirectory() as work:
+        # .pth: export sce1, import it back from an offset-mode file name
+        t0 = time.perf_counter()
+        pth = os.path.join(work, "vae_offset_sce1_ld8_epoch3000.pth")
+        export_to_pth(os.path.join(ckpts, "sce1"), pth)
+        back = import_to_checkpoint(pth, os.path.join(work, "imported"), device=dev)
+        p0, cfg0, _ = load_checkpoint(os.path.join(ckpts, "sce1"), dev)
+        p1, cfg1, m1 = load_checkpoint(back, dev)
+        if cfg1 != cfg0 or set(p1) != set(p0) or not all(
+                torch.equal(p1[k][n], p0[k][n]) for k in p0 for n in ("w", "b")):
+            fail("sce1 exported to .pth and imported back differs from the checkpoint")
+        if m1["scenario"] != "sce1" or m1["offset_mode"] is not True:
+            fail(f"the imported manifest reads {m1['scenario']!r}, offset_mode "
+                 f"{m1['offset_mode']!r} from {os.path.basename(pth)}")
+        info["pth"] = {"seconds": time.perf_counter() - t0, "scenario": m1["scenario"],
+                       "offset_mode": m1["offset_mode"], "params": "bit for bit"}
+
+        # the optimizer state: two halves through opt_state.npz, one long run
+        t0 = time.perf_counter()
+        half = TrainConfig(epochs=EDGE_OPT_EPOCHS)
+        pa, ha, sa = train(w4, train_cfg=half, return_state=True, device=dev)
+        d = os.path.join(work, "resume")
+        save_checkpoint(d, pa, CVAEConfig(), "sce4", ha)
+        save_opt_state(d, sa)
+        pb, _, _ = load_checkpoint(d, dev)
+        pc, hc = train(w4, train_cfg=half, init_state=(pb, load_opt_state(d, pb)),
+                       start_epoch=EDGE_OPT_EPOCHS, device=dev)
+        pf, hf = train(w4, train_cfg=TrainConfig(epochs=2 * EDGE_OPT_EPOCHS), device=dev)
+        same = all(np.array_equal(np.concatenate([ha[k], hc[k]]), hf[k]) for k in hf) \
+            and all(torch.equal(pc[k][n], pf[k][n]) for k in pf for n in ("w", "b"))
+        info["opt_state"] = {"seconds": time.perf_counter() - t0,
+                             "epochs": [EDGE_OPT_EPOCHS, EDGE_OPT_EPOCHS], "bit_for_bit": same}
+        if not same:
+            fail("training resumed through opt_state.npz differs from one run")
+
+    # the horizon sweep on sce1's window 1
+    w1 = np.load(scenarios.get("sce1").fixture_windows)
+    wp = w1[1][:, [1, 2, 0]].astype(float)
+    wp[0, 2] = 0.0
+    v0 = (wp[1, :2] - wp[0, :2]) / (wp[1, 2] - wp[0, 2])
+    init = np.array([wp[0, 0], wp[0, 1], np.arctan2(v0[1], v0[0]), v0[0], v0[1]])
+    t0 = time.perf_counter()
+    res = sweep_horizons(wp, init, combos=EDGE_SWEEP["combos"], dt=EDGE_SWEEP["dt"],
+                         device=dev)
+    info["sweep"] = {"seconds": time.perf_counter() - t0,
+                     "rows": [dataclasses.asdict(r) for r in res]}
+    if len(res) != len(EDGE_SWEEP["combos"]) or not all(
+            np.isfinite(r.max_error) and r.mean_error < EDGE_SWEEP["mean_m"] for r in res):
+        fail(f"the horizon sweep is off the path: {info['sweep']}")
+
+    # the linear MPC's sine road, on the card and on the CPU
+    t0 = time.perf_counter()
+    ref, st, ctl = sine_road_demo(EDGE_SINE["steps"], device=dev)
+    card_s = time.perf_counter() - t0
+    _, st_cpu, _ = sine_road_demo(EDGE_SINE["steps"], device="cpu")
+    road = max(float(np.hypot(ref[:, 0] - p[0], ref[:, 1] - p[1]).min())
+               for p in st[EDGE_SINE["settle"]:])
+    vs_cpu = float(np.abs(st - st_cpu).max())
+    info["linear_mpc"] = {"seconds": card_s, "steps": EDGE_SINE["steps"],
+                          "road_max_m": road, "end_speed": float(st[-1, 2]),
+                          "states_vs_cpu": vs_cpu, "limits": EDGE_SINE}
+    if not (np.all(np.abs(ctl[:, 0]) <= 1.0 + 1e-6)
+            and np.all(np.abs(ctl[:, 1]) <= np.deg2rad(45) + 1e-6)
+            and road < EDGE_SINE["road_m"] and st[-1, 2] > EDGE_SINE["end_speed"]
+            and vs_cpu <= EDGE_SINE["card_vs_cpu"]):
+        fail(f"the linear MPC misses the sine road: {info['linear_mpc']}")
+
+    # cli.py doctor, in this process
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            cli.main(["doctor", "--ckpt-root", ckpts, "--data-root", ep_root])
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+    rows = buf.getvalue().splitlines()
+    info["doctor"] = {"seconds": time.perf_counter() - t0, "rc": rc, "rows": rows}
+    if rc != 0:
+        fail(f"cli.py doctor exited {rc}: {rows}")
+    info["card"] = card
+    return info
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1915,18 +2166,24 @@ def main() -> int:
                                        "params_tol": K1_TOL[50]["params_abs"]}})
         if gap > K1_TOL[50]["params_abs"]:
             fail(f"K2's runs differ from fused_train per scenario by {gap}")
-        # each scenario's model sampled and tracked with its own tracker
+        # each scenario's model sampled at every start, its first
+        # MULTI_TRACK_ROWS starts tracked with its own tracker
         tracked, seed0_traces = {}, {}
         for k in keys:
             sce = scenarios.get(k)
             starts_k, inits_k = fixture_starts(corpora[k])
             mpc_k = default_mpc_cfg(sce)
+            gen_k, ok_k = _draw_valid_samples(mparams[k], cfg, starts_k, seed=0)
+            if not np.all(np.isfinite(gen_k)) or not ok_k.any():
+                fail(f"the {k} model drew non-finite samples or no valid one")
             t0 = time.perf_counter()
-            traces_k, idx_k = generate_and_track_from_starts(mparams[k], cfg, starts_k, inits_k,
-                                                             seed=0, mpc_cfg=mpc_k)
+            traces_k, idx_k = generate_and_track_from_starts(
+                mparams[k], cfg, starts_k[:MULTI_TRACK_ROWS], inits_k[:MULTI_TRACK_ROWS],
+                seed=0, mpc_cfg=mpc_k)
             if not len(traces_k):
                 fail(f"no valid sample of the {k} model")
-            tracked[k] = {"n_starts": len(starts_k), "n_tracked": len(traces_k),
+            tracked[k] = {"n_starts": len(starts_k), "n_valid": int(ok_k.sum()),
+                          "n_tracked": len(traces_k),
                           "tracked_steps": check_tracked(traces_k, mpc_k, k),
                           "seconds": time.perf_counter() - t0}
             seed0_traces[k] = (traces_k, idx_k)
@@ -2596,7 +2853,15 @@ def main() -> int:
             scan_out[name] = res
         info.update(epochs=SCAN_EPOCHS, runs=scan_out, card=card)
 
-    # ---- 23. k1_digest: the K1 family bit for bit the one-block build ---------
+    # ---- 23. conv: BASELINE config 3, the Conv1D VAE, on the card ------------
+    with phase("conv", 120) as info:
+        info.update(conv_phase(np, torch, dev, card))
+
+    # ---- 24. edges: .pth, optimizer state, horizon sweep, linear MPC, doctor --
+    with phase("edges", 120) as info:
+        info.update(edges_phase(np, torch, dev, w4, ep_root, card))
+
+    # ---- 25. k1_digest: the K1 family bit for bit the one-block build ---------
     with phase("k1_digest", 120) as info:
         ref = k1d.reference(torch.cuda.get_device_properties(dev).multi_processor_count)
         runs = {"picked": k1d.digests(dev)}
@@ -2608,11 +2873,11 @@ def main() -> int:
         if any(bad.values()):
             fail(f"the K1 family differs from the one-block build's digests: {bad}")
 
-    # ---- 24. serve: the four committed models behind one HTTP endpoint -------
+    # ---- 26. serve: the four committed models behind one HTTP endpoint -------
     with phase("serve", 150) as info:
         info.update(serve_phase(np, torch, dev, w4, card))
 
-    # ---- 25. kernels --------------------------------------------------------
+    # ---- 27. kernels --------------------------------------------------------
     emit({"check_s": time.perf_counter() - t_start, "card": card})
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)

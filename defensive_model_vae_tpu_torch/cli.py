@@ -1,10 +1,11 @@
 """Command-line interface of the port: ``dataset``, ``train [--fused |
 --fused-scale]``, ``generate``, ``pipeline``, ``validate``, ``thw``,
-``serve``, ``dnda``, ``dnda-sweep``, ``metrics`` and ``writeback``.
+``serve``, ``dnda``, ``dnda-sweep``, ``metrics``, ``writeback``,
+``mpc-sweep``, ``import``, ``export`` and ``doctor``.
 
 Run as ``python -m defensive_model_vae_tpu_torch.cli``; mirrors the JAX
 package's ``defvae`` commands of the same names (cli.py:692, :712-770, :775,
-:803, :809-831, :846, :902-906, :923-929) with their arguments, and writes
+:803, :809-831, :846, :864-871, :902-936) with their arguments, and writes
 the same checkpoint manifest ``recipe``:
 
     python -m defensive_model_vae_tpu_torch.cli dataset --scenario sce2 \\
@@ -34,6 +35,12 @@ the same checkpoint manifest ``recipe``:
         --out max_dnda_summary.csv [--host] [--processes 4]
     python -m defensive_model_vae_tpu_torch.cli metrics --scenario sce1 \
         --csv sut/DEF_StaticBlindTown05_1.csv --metric PET
+    python -m defensive_model_vae_tpu_torch.cli mpc-sweep --waypoints wps.npy \
+        --initial-state "[-190.0, 20.0, 1.5708, 0.0, 10.0]" --combos 10:5,20:10
+    python -m defensive_model_vae_tpu_torch.cli import \
+        --pth vae_offset_sce1_ld8_epoch3000.pth --ckpt ckpt/
+    python -m defensive_model_vae_tpu_torch.cli export --ckpt ckpt/ --pth model.pth
+    python -m defensive_model_vae_tpu_torch.cli doctor [--no-device]
 
 ``--fused-scale`` is the production-scale trainer (kernel K3; with
 ``--mesh``, the per-epoch tier through kernel K4, on one device until the
@@ -41,7 +48,9 @@ data-parallel slice); ``--backward auto`` runs its autodiff instance.
 Without ``--fused``/``--fused-scale``, ``--dtype bfloat16`` runs the scan
 trainer's bf16 chain.  A command that touches the device takes
 ``--device``, default ``cuda``; ``--device cpu`` runs on the CPU (the
-kernels' plain versions).  ``dnda`` and ``dnda-sweep`` run the collision
+kernels' plain versions).  ``doctor`` checks the environment: the card, the
+kernel build cache and nvcc, the g++-built native libraries, the data and
+the checkpoints; it exits 1 on any FAIL.  ``dnda`` and ``dnda-sweep`` run the collision
 sweep on the card by default; ``--host`` runs the numpy oracle path.  JSON
 output writes non-finite metrics as ``null``.
 """
@@ -234,6 +243,157 @@ def _cmd_writeback(args):
 
     out = writeback_npy_to_csv(args.npy, args.data_root, args.out_dir)
     print(f"saved {out}")
+
+
+def _cmd_mpc_sweep(args):
+    """Prediction/control-horizon study (JAX cli.py:382)."""
+    from .control.sweep import sweep_horizons
+
+    wps = np.load(args.waypoints)
+    init = np.asarray(json.loads(args.initial_state), float)
+    combos = [tuple(map(int, c.split(":"))) for c in args.combos.split(",")]
+    results = sweep_horizons(wps, init, combos=combos, dt=args.dt, device=args.device)
+    print(json.dumps([{"P": r.prediction_horizon, "M": r.control_horizon,
+                       "max_error_m": round(r.max_error, 4),
+                       "mean_error_m": round(r.mean_error, 4),
+                       "final_error_m": round(r.final_error, 4)} for r in results],
+                     indent=2))
+
+
+def _cmd_import(args):
+    """A reference ``.pth`` into a checkpoint directory (JAX cli.py:525)."""
+    from .train.torch_import import import_to_checkpoint
+
+    d = import_to_checkpoint(args.pth, args.ckpt, dim=args.dim, device=args.device)
+    print(f"imported {args.pth} -> {d}")
+
+
+def _cmd_export(args):
+    """A checkpoint directory into a reference ``.pth`` (JAX cli.py:532)."""
+    from .train.torch_import import export_to_pth
+
+    out = export_to_pth(args.ckpt, args.pth)
+    print(f"exported {args.ckpt} -> {out}")
+
+
+def _cmd_doctor(args):
+    """Environment check (JAX cli.py:546): the card, the kernel build
+    cache, the native libraries, the data and the checkpoints.  Exit 1 on
+    any FAIL; a WARN is a state the port works in (no CARLA corpus, say).
+
+    JAX's rows map to the port's: its backend to ``torch.cuda``'s device
+    name and count; its jit probe to a small sum on the card; its
+    compilation cache to ``ops/_build.py``'s ``build/`` (writable, ``nvcc``
+    found, the libraries of the current sources built); its native loader
+    and DNDA kernels to their g++ builds (``_native.py``), which have no
+    fallback here.  JAX's hash-seed row has no counterpart: the port's build
+    key is a digest of file contents, the same in every process.  With
+    ``--no-device`` (a host-only check) a missing card or ``nvcc`` is a
+    WARN, else a FAIL."""
+    import torch
+
+    rows = []  # (status, name, detail)
+
+    def check(name, fn, warn_only=False):
+        try:
+            rows.append(("ok", name, fn() or ""))
+        except Exception as e:  # a row reports its failure; the exit code carries it
+            rows.append(("WARN" if warn_only else "FAIL", name, f"{type(e).__name__}: {e}"))
+
+    def _backend():
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device (torch.cuda.is_available() is False)")
+        return f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}"
+
+    check("cuda backend", _backend, warn_only=args.no_device)
+
+    def _probe():
+        if args.no_device:
+            return "skipped (--no-device)"
+        v = float(torch.arange(8.0, device="cuda").sum())
+        if v != 28.0:
+            raise RuntimeError(f"sum of 0..7 on the card is {v}")
+        return "launch + copy back ok"
+
+    check("device probe", _probe)
+
+    def _build_dir():
+        from .ops import _build
+
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        if not os.access(_build.BUILD_DIR, os.W_OK):
+            raise RuntimeError(f"{_build.BUILD_DIR} not writable")
+        return str(_build.BUILD_DIR)
+
+    check("kernel build cache", _build_dir)
+
+    def _kernel_libs():
+        from .ops import _build
+
+        version = _build.nvcc_version().strip().splitlines()[-1]
+        built = [n for n in _build.KERNELS if _build._lib_path(n).exists()]
+        return f"{version}; {len(built)}/{len(_build.KERNELS)} libraries built"
+
+    check("nvcc and kernel libraries", _kernel_libs, warn_only=args.no_device)
+
+    def _csvloader():
+        from .data import csv_io
+
+        return f"native C++ loader ({csv_io.build().name})"
+
+    check("csv loader", _csvloader)
+
+    def _spline():
+        from .dnda import spline
+
+        return f"native C++ spline/Frenet/curvature ({spline.build().name})"
+
+    check("dnda native kernels", _spline)
+
+    def _data():
+        from . import scenarios
+        from .data import collect_csv_files
+
+        if not os.path.isdir(args.data_root):
+            raise RuntimeError(f"{args.data_root} absent (fixtures still work)")
+        n = sum(len(collect_csv_files(os.path.join(args.data_root, s.town)))
+                for s in (scenarios.get(k) for k in scenarios.REGISTRY))
+        return f"{args.data_root} ({n} episode CSVs)"
+
+    check("raw CARLA corpus", _data, warn_only=True)
+
+    def _fixtures():
+        from . import scenarios
+
+        missing = [k for k in scenarios.REGISTRY
+                   if not os.path.exists(scenarios.get(k).fixture_windows)]
+        if missing:
+            raise RuntimeError(f"missing fixtures: {missing}")
+        return f"{len(scenarios.REGISTRY)} scenario corpora"
+
+    check("fixture corpora", _fixtures, warn_only=True)
+
+    def _ckpts():
+        from . import scenarios
+
+        found = []
+        for k in scenarios.REGISTRY:
+            mf = os.path.join(args.ckpt_root, k, "manifest.json")
+            if os.path.exists(mf):
+                with open(mf) as f:
+                    json.load(f)
+                found.append(k)
+        if not found:
+            raise RuntimeError(f"no checkpoints under {args.ckpt_root}")
+        return f"{len(found)}/{len(scenarios.REGISTRY)} manifests readable"
+
+    check("checkpoints", _ckpts, warn_only=True)
+
+    width = max(len(n) for _, n, _ in rows)
+    for status, name, detail in rows:
+        print(f"{status:>4}  {name:<{width}}  {detail}")
+    if any(status == "FAIL" for status, _, _ in rows):
+        raise SystemExit(1)
 
 
 def _parse_ckpt_specs(specs):
@@ -452,6 +612,38 @@ def build_parser() -> argparse.ArgumentParser:
     wb.add_argument("--data-root", required=True)
     wb.add_argument("--out-dir", required=True)
     wb.set_defaults(fn=_cmd_writeback)
+
+    ms_ = sub.add_parser("mpc-sweep", help="prediction/control-horizon study")
+    ms_.add_argument("--waypoints", required=True, help="(N,3) [x,y,t] npy")
+    ms_.add_argument("--initial-state", required=True,
+                     help='JSON "[x, y, theta, vx, vy]"')
+    ms_.add_argument("--combos", default="10:5,20:10,30:20,40:30",
+                     help="comma-separated P:M pairs")
+    ms_.add_argument("--dt", type=float, default=0.02)
+    ms_.add_argument("--device", default="cuda")
+    ms_.set_defaults(fn=_cmd_mpc_sweep)
+
+    im = sub.add_parser("import", help="convert a reference .pth checkpoint")
+    im.add_argument("--pth", required=True)
+    im.add_argument("--ckpt", required=True)
+    im.add_argument("--dim", type=int, default=None,
+                    help="trajectory dim when ambiguous (a dim=2 model whose "
+                         "2*seq_len divides by 3 defaults to dim=3)")
+    im.add_argument("--device", default="cuda")
+    im.set_defaults(fn=_cmd_import)
+
+    ex = sub.add_parser("export", help="convert a native checkpoint to a reference .pth")
+    ex.add_argument("--ckpt", required=True, help="checkpoint directory")
+    ex.add_argument("--pth", required=True, help="output .pth path")
+    ex.set_defaults(fn=_cmd_export)
+
+    dr = sub.add_parser("doctor", help="environment health check (card, kernel build "
+                                       "cache, native libs, data, checkpoints)")
+    dr.add_argument("--data-root", default="DefensiveData")
+    dr.add_argument("--ckpt-root", default="results/checkpoints")
+    dr.add_argument("--no-device", action="store_true",
+                    help="skip the card probe (host-only check)")
+    dr.set_defaults(fn=_cmd_doctor)
     return p
 
 

@@ -9,6 +9,14 @@ from .cvae import (
     sample,
     to_relative,
 )
+from .conv_cvae import (
+    ConvCVAEConfig,
+    conv_decode,
+    conv_encode,
+    conv_forward,
+    conv_sample,
+    init_conv_params,
+)
 from .losses import LossWeights, cvae_loss
 
 __all__ = [
@@ -23,4 +31,10 @@ __all__ = [
     "to_relative",
     "LossWeights",
     "cvae_loss",
+    "ConvCVAEConfig",
+    "conv_decode",
+    "conv_encode",
+    "conv_forward",
+    "conv_sample",
+    "init_conv_params",
 ]

@@ -8,7 +8,10 @@
   of K3's and K4's results on fixed cases, against their earlier build;
 - ``python -m defensive_model_vae_tpu_torch.scripts.cache_probe`` — whether
   an nvcc build of the kernels' objects is deterministic and independent of
-  what was built before it (P3 launched between the rounds).
+  what was built before it (P3 launched between the rounds);
+- ``python -m defensive_model_vae_tpu_torch.scripts.conv_profile`` — where
+  an epoch of the Conv1D VAE trainer (BASELINE config 3) goes on the card:
+  its kernels, device busy time and host share.
 
 Each runs on the card; those that take ``--device`` also on the CPU with
 ``--device cpu``.

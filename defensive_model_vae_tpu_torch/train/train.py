@@ -18,7 +18,9 @@ Adam stay float32.  These trainers are plain torch in real bf16 tensors;
 on the card cuBLAS may not reduce bf16 products in reduced precision
 (``allow_bf16_reduced_precision_reduction`` is held False while they run).
 
-The mesh and the Conv1D trainer come with later slices.
+``train_conv`` (:297) trains the temporal-conv VAE (``models/conv_cvae.py``,
+BASELINE config 3) the same way: full batch, one autograd pass and one Adam
+step an epoch.  The mesh comes with a later slice.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 
 from .._device import resolve_device
 from ..models import CVAEConfig, LossWeights, cvae_loss, init_params, to_relative
+from ..models.conv_cvae import (ConvCVAEConfig, conv_forward, init_conv_params,
+                                pad_condition)
 from ..models.cvae import decode, encode
 
 _METRIC_KEYS = ("total", "recon", "kld", "start", "time")
@@ -279,3 +283,74 @@ def train_multi_scenario(windows_by_scenario: Dict[str, np.ndarray],
     history_by = {k: {name: metrics[:, i, j] for j, name in enumerate(_METRIC_KEYS)}
                   for i, k in enumerate(keys)}
     return params_by, history_by
+
+
+# ---- the temporal-conv VAE (BASELINE config 3) -----------------------------
+
+def _as_port_params(params, dev):
+    """Port params (torch leaves, cloned onto ``dev``) or the JAX package's
+    params as numpy (carried across by ``params_from_numpy``)."""
+    from .checkpoint import params_from_numpy
+
+    leaf = next(iter(next(iter(params.values())).values()))
+    if isinstance(leaf, torch.Tensor):
+        return {k: {n: a.detach().clone().to(dev) for n, a in v.items()}
+                for k, v in params.items()}
+    return params_from_numpy(params, dev)
+
+
+def train_conv(windows: np.ndarray, model_cfg: Optional[ConvCVAEConfig] = None,
+               train_cfg: TrainConfig = TrainConfig(epochs=500),
+               kld_weight: float = 0.05, init_params=None, eps=None,
+               device="cuda") -> Tuple[Dict, Dict[str, np.ndarray], ConvCVAEConfig]:
+    """Train the temporal-conv VAE on long windows (JAX train.py:297).
+
+    ``windows``: (N, T, D) trajectories, relative targets with the
+    absolute-start condition: dim ≥ 3 windows are [t, x, y] and go through
+    ``to_relative``; dim 2 windows are [x, y] minus their first point.  The
+    condition is zero-padded to ``cond_dim``.  Loss: mean squared
+    reconstruction error + ``kld_weight`` · the mean KL term; Adam with
+    optax's defaults.
+
+    ``init_params``: the initial params (the port's, or the JAX package's
+    as numpy), else ``init_conv_params`` of a generator seeded with
+    ``train_cfg.seed``.  ``eps``: the noise, (epochs, N, Z) or (N, Z) held
+    over the epochs, else the per-epoch stream ``epoch_noise(seed, e)``.
+
+    Returns (params, history {"total", "recon", "kld"}, model config)."""
+    dev = resolve_device(device)
+    if model_cfg is None:
+        model_cfg = ConvCVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
+    x_abs = torch.as_tensor(np.asarray(windows, np.float32)).to(dev)
+    if x_abs.shape[2] >= 3:
+        x, start = to_relative(x_abs)
+    else:
+        start = x_abs[:, 0, :2]
+        x = x_abs - start[:, None, :]
+    cond = pad_condition(start, model_cfg)
+    if init_params is None:
+        params = init_conv_params(torch.Generator().manual_seed(train_cfg.seed),
+                                  model_cfg, dev)
+    else:
+        params = _as_port_params(init_params, dev)
+
+    E, N = train_cfg.epochs, x.shape[0]
+    noise = _noise(eps, train_cfg.seed, 0, E, (N, model_cfg.latent_dim), dev) if E else None
+    leaves = [(k, n) for k in params for n in ("w", "b")]
+    m = [torch.zeros_like(params[k][n]) for k, n in leaves]
+    v = [torch.zeros_like(params[k][n]) for k, n in leaves]
+    metrics = torch.zeros((E, 3), dtype=torch.float32, device=dev)
+    for e in range(E):
+        plist = [params[k][n].requires_grad_(True) for k, n in leaves]
+        recon, mu, lv, _ = conv_forward(params, None, x, cond, model_cfg, eps=noise[e])
+        recon_l = torch.mean((recon - x) ** 2)
+        kld = -0.5 * torch.mean(1 + lv - mu ** 2 - torch.exp(lv))
+        total = recon_l + kld_weight * kld
+        grads = torch.autograd.grad(total, plist)
+        new_p, m, v = _adam(plist, grads, m, v, e + 1, train_cfg.lr)
+        for (k, n), p in zip(leaves, new_p):
+            params[k][n] = p
+        metrics[e] = torch.stack([total, recon_l, kld]).detach()
+    metrics = metrics.cpu().numpy()
+    history = {"total": metrics[:, 0], "recon": metrics[:, 1], "kld": metrics[:, 2]}
+    return params, history, model_cfg

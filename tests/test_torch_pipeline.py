@@ -26,7 +26,8 @@ from defensive_model_vae_tpu_torch.pipeline import (
     generate_and_track_from_starts)
 from defensive_model_vae_tpu_torch.train import load_checkpoint, save_checkpoint
 
-BANNED = ("jax", "jaxlib", "optax", "pandas", "matplotlib", "defensive_model_vae_tpu")
+BANNED = ("jax", "jaxlib", "optax", "orbax", "pandas", "matplotlib",
+          "defensive_model_vae_tpu")
 PORT = REPO_ROOT / "defensive_model_vae_tpu_torch"
 SCE2_CKPT = REPO_ROOT / "results" / "checkpoints" / "sce2"
 
@@ -214,6 +215,32 @@ def test_slice_runs_with_banned_modules_blocked(tmp_path):
         server.server_close()
         assert np.asarray(got["states"]).shape == (1, 4, 4)
         assert np.isfinite(np.asarray(got["states"])).all()
+        # the Conv1D family, the migration edges and the control edges
+        from defensive_model_vae_tpu_torch.control import (
+            LinearMPCConfig, simulate_tracking, sweep_horizons)
+        from defensive_model_vae_tpu_torch.models import ConvCVAEConfig, conv_sample
+        from defensive_model_vae_tpu_torch.train import (
+            load_opt_state, save_opt_state, train_conv)
+        from defensive_model_vae_tpu_torch.train.torch_import import (
+            export_to_pth, import_to_checkpoint)
+        import tempfile, torch
+        ccfg = ConvCVAEConfig(seq_len=16, dim=2, channels=(8, 16), hidden_dim=32)
+        cw = np.random.default_rng(0).normal(size=(4, 16, 2)).cumsum(1).astype(np.float32)
+        cp, chist, _ = train_conv(cw, ccfg, TrainConfig(epochs=2), device="cpu")
+        assert conv_sample(cp, torch.Generator(), torch.zeros(2, 2), ccfg).shape == (2, 16, 2)
+        lcfg = LinearMPCConfig(pg_iters=3)
+        ref = np.column_stack([np.arange(20.0), np.zeros(20), np.full(20, 3.0), np.zeros(20)])
+        st, _ = simulate_tracking(lcfg, ref, np.zeros(4), 2, device="cpu")
+        assert np.isfinite(st).all()
+        with tempfile.TemporaryDirectory() as d:
+            pth = d + "/vae_offset_sce2.pth"
+            export_to_pth({str(SCE2_CKPT)!r}, pth)
+            import_to_checkpoint(pth, d + "/ck", device="cpu")
+            pr, hr, sr = train(w, train_cfg=TrainConfig(epochs=1), return_state=True,
+                               device="cpu")
+            save_opt_state(d, sr)
+            assert load_opt_state(d, pr)["count"] == 1
+        cli.main(["doctor", "--no-device", "--ckpt-root", {str(SCE2_CKPT.parent)!r}])
         banned = [m for m in sys.modules if m.split(".")[0] in {BANNED!r}
                   and sys.modules[m] is not None]
         assert not banned, banned
