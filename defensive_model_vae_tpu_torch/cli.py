@@ -1,7 +1,9 @@
 """Command-line interface of the port: ``dataset``, ``train [--fused |
 --fused-scale]``, ``generate``, ``pipeline``, ``validate``, ``thw``,
 ``serve``, ``dnda``, ``dnda-sweep``, ``metrics``, ``writeback``,
-``mpc-sweep``, ``import``, ``export`` and ``doctor``.
+``mpc-sweep``, ``import``, ``export``, ``doctor``, and the figures ``gif``,
+``case``, ``speed-plots`` and ``loss-plot`` (``viz/``, matplotlib, host
+only).
 
 Run as ``python -m defensive_model_vae_tpu_torch.cli``; mirrors the JAX
 package's ``defvae`` commands of the same names (cli.py:692, :712-770, :775,
@@ -43,8 +45,21 @@ the same checkpoint manifest ``recipe``:
     python -m defensive_model_vae_tpu_torch.cli doctor [--no-device]
 
 ``--fused-scale`` is the production-scale trainer (kernel K3; with
-``--mesh``, the per-epoch tier through kernel K4, on one device until the
-data-parallel slice); ``--backward auto`` runs its autodiff instance.
+``--mesh``, the per-epoch data-parallel tier through kernel K4, one
+all-reduce of the gradients an epoch); ``--backward auto`` runs its
+autodiff instance.  ``train --mesh`` (scan trainer or ``--fused-scale``)
+and ``serve --data-parallel`` run over a ``torch.distributed`` world, one
+process a device, NCCL on the card and gloo with ``--device cpu``:
+
+    torchrun --nproc-per-node 4 -m defensive_model_vae_tpu_torch.cli train \
+        --scenario big --windows corpus.npy --ckpt ckpt/ --fused-scale --mesh
+    torchrun --nproc-per-node 4 -m defensive_model_vae_tpu_torch.cli serve \
+        --data-parallel --ckpt sce4=results/checkpoints/sce4 --listen 8000 --batch 16
+
+Only rank 0 writes checkpoints, prints and (with ``--listen``) binds the
+port; the other ranks run their block of every request.  Without
+``torchrun`` these run as a world of one.  ``reproduce`` waits for the
+CARLA episode CSVs and exits.
 Without ``--fused``/``--fused-scale``, ``--dtype bfloat16`` runs the scan
 trainer's bf16 chain.  A command that touches the device takes
 ``--device``, default ``cuda``; ``--device cpu`` runs on the CPU (the
@@ -73,6 +88,13 @@ def _cmd_dataset(args):
     print(f"saved {arr.shape} windows to {args.out}")
 
 
+def _rank0() -> bool:
+    """True outside a process group and on its rank 0."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _cmd_train(args):
     from .models import CVAEConfig, LossWeights
     from .train import TrainConfig, save_checkpoint, train
@@ -91,10 +113,12 @@ def _cmd_train(args):
     if args.fused and args.dtype:
         raise SystemExit("--dtype applies to --fused-scale (the --fused kernel is "
                          "float32); drop one")
-    if not (args.fused or args.fused_scale) and args.mesh:
-        raise SystemExit("--mesh of the scan trainer is not ported yet; use "
-                         "--fused-scale")
     noise = (args.noise or "hbm") if args.fused_scale else None
+    mesh = None
+    if args.mesh:
+        from .parallel import create_mesh
+
+        mesh = create_mesh(device=args.device)
     recipe = {}
     if args.fused:
         from .ops import fused_train
@@ -109,16 +133,18 @@ def _cmd_train(args):
                   "noise": noise}
         if noise == "hbm":
             recipe["noise_impl"] = hbm_noise_impl(args.device)
-        trainer = fused_train_scale_dp if args.mesh else fused_train_scale
         # --dtype None keeps the CLI's pure float32 over the library's bf16
-        params, hist = trainer(windows, epochs=args.epochs, lr=args.lr,
-                               weights=weights, seed=args.seed, tile=args.tile,
-                               compute_dtype=args.dtype, noise=noise,
-                               backward=args.backward, device=args.device)
+        kw = dict(epochs=args.epochs, lr=args.lr, weights=weights, seed=args.seed,
+                  tile=args.tile, compute_dtype=args.dtype, noise=noise,
+                  backward=args.backward, device=args.device)
+        params, hist = (fused_train_scale_dp(windows, mesh=mesh, **kw) if args.mesh
+                        else fused_train_scale(windows, **kw))
     else:
         tc = TrainConfig(epochs=args.epochs, lr=args.lr, seed=args.seed, weights=weights,
                          compute_dtype=args.dtype)
-        params, hist = train(windows, train_cfg=tc, device=args.device)
+        params, hist = train(windows, train_cfg=tc, device=args.device, mesh=mesh)
+    if not _rank0():
+        return
     cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2])
     save_checkpoint(
         args.ckpt, params, cfg, args.scenario, hist,
@@ -129,6 +155,7 @@ def _cmd_train(args):
                         else "fused-scale-dp" if args.fused_scale and args.mesh
                         else "fused-scale" if args.fused_scale else "scan"),
             **({"compute_dtype": args.dtype} if args.dtype else {}),
+            **({"mesh": mesh.shape} if mesh is not None else {}),
             **recipe,
         }},
     )
@@ -172,21 +199,106 @@ def _cmd_validate(args):
 
 def _cmd_thw(args):
     """Start speeds and THWs of a scenario's episodes (reference
-    ``Get_THW.py``).  The histogram PNGs wait for the port's ``viz/``."""
+    ``Get_THW.py``), with their histogram PNGs on request."""
     from . import scenarios
     from .data import collect_csv_files
     from .metrics.thw import start_velocities, thw_values
     from .utils import jsonable
 
-    if args.out_velocity or args.out_thw:
-        raise SystemExit("--out-velocity/--out-thw need viz/, which is not ported yet "
-                         "(the card has no matplotlib)")
     sce = scenarios.get(args.scenario)
     sv = start_velocities(collect_csv_files(os.path.join(args.data_root, sce.town)), sce)
     report = {"start_speeds": {n: round(v, 3) for n, v in sv}}
+    if args.out_velocity:
+        from .viz.plots import plot_histogram
+
+        plot_histogram([v for _, v in sv], args.out_velocity,
+                       f"Start velocity — {sce.town}", "Speed (m/s)")
     if sce.thw_distance is not None or sce.thw_distance_by_suffix is not None:
-        report["thw"] = [round(float(t), 3) for t in thw_values(sv, sce)]
+        thws = thw_values(sv, sce)
+        report["thw"] = [round(float(t), 3) for t in thws]
+        if args.out_thw:
+            from .viz.plots import plot_histogram
+
+            plot_histogram(thws, args.out_thw, f"THW — {sce.town}", "THW (s)")
     print(json.dumps(jsonable(report), indent=2))
+
+
+def _load_model_xyt(trace_path: str, scenario):
+    """A tracked npy (N, 4) → [x, y, t] rows on the scenario's clock (JAX
+    cli.py:288)."""
+    from . import scenarios
+
+    states = np.load(trace_path)
+    t = np.arange(len(states)) * scenarios.get(scenario).dt
+    return np.column_stack([states[:, 0], states[:, 1], t])
+
+
+def _cmd_gif(args):
+    """Human-vs-model animation (JAX cli.py:297; reference ``Plot_Gif.py``)."""
+    from .data import get_human_and_bv_trajectories
+    from .viz.gif import animate_human_vs_model
+
+    human, bv1, bv2 = get_human_and_bv_trajectories(args.csv, args.scenario)
+    animate_human_vs_model(human, bv1, bv2, _load_model_xyt(args.trace, args.scenario),
+                           args.scenario, args.out)
+    print(f"wrote {args.out}")
+
+
+def _cmd_case(args):
+    """Static case figure (JAX cli.py:308; reference ``Plot_case.py``)."""
+    from .data import get_human_and_bv_trajectories
+    from .viz.plots import plot_static_case
+
+    humans, bvs = [], []
+    for c in args.csv:
+        h, b1, b2 = get_human_and_bv_trajectories(c, args.scenario)
+        if h is not None:
+            humans.append(h)
+        bvs.extend([b for b in (b1, b2) if b is not None])
+    plot_static_case(_load_model_xyt(args.trace, args.scenario), humans, bvs,
+                     args.scenario, args.out)
+    print(f"wrote {args.out}")
+
+
+def _cmd_speed_plots(args):
+    """SUT ego speed-vs-time curves (JAX cli.py:348; reference
+    ``Data_Plot.py``): one curve per ``<MODEL>_<town>[_<trial>].csv``."""
+    import re
+
+    from . import scenarios
+    from .data.csv_io import read_csv
+    from .viz.plots import plot_speed_time_curves
+
+    sce = scenarios.get(args.scenario)
+    pat = re.compile(rf"^(?P<model>[A-Za-z]+)_{re.escape(sce.town)}(?:_(?P<trial>\d+))?\.csv$")
+    episodes = {}
+    for f in sorted(os.listdir(args.dir)):
+        m = pat.match(f)
+        if m is None:
+            continue
+        label = m.group("model") + (f" #{m.group('trial')}" if m.group("trial") else "")
+        episodes[label] = read_csv(os.path.join(args.dir, f))
+    if not episodes:
+        raise SystemExit(f"no {sce.town} episodes in {args.dir}")
+    plot_speed_time_curves(episodes, sce, args.out)
+    print(f"wrote {args.out} ({len(episodes)} SUT episodes)")
+
+
+def _cmd_loss_plot(args):
+    """Loss curves again from a saved CSV (JAX cli.py:374; reference
+    ``Loss_Re-plot.py``)."""
+    from .viz.losses import load_loss_csv, plot_losses
+
+    plot_losses(load_loss_csv(args.csv), args.out)
+    print(f"wrote {args.out}")
+
+
+def _cmd_reproduce(args):
+    """JAX's ``reproduce`` (cli.py:198) regenerates the published scoreboard
+    from the CARLA episode CSVs, which are not in this repository."""
+    raise SystemExit("reproduce needs the CARLA episode CSVs of the published runs "
+                     f"(looked for them under {args.data_root}); they are not in this "
+                     "repository, so the scoreboard cannot be regenerated yet")
 
 
 def _cmd_dnda(args):
@@ -424,15 +536,23 @@ def _cmd_serve(args):
     """condition → sample → reference → MPC on the device (JAX cli.py:436):
     one-shot, or with ``--listen PORT`` the warm program behind a local
     HTTP endpoint (``serving.py``)."""
+    mesh = None
     if args.data_parallel:
-        raise SystemExit("--data-parallel is not ported yet (ROADMAP Queue 1's "
-                         "data-parallel item); serve on one device")
+        from .parallel import create_mesh
+
+        mesh = create_mesh(device=args.device)
+        if args.batch % mesh.shape["data"]:
+            raise SystemExit(f"--batch {args.batch} must be a multiple of the "
+                             f"{mesh.shape['data']}-rank data axis")
     if args.listen is not None:
         from .serving import serve_checkpoint
 
         ckpts = _parse_ckpt_specs(args.ckpt)
         server = serve_checkpoint(ckpts, args.batch, args.steps, dt=args.dt,
-                                  host=args.host, port=args.listen, device=args.device)
+                                  host=args.host, port=args.listen, device=args.device,
+                                  mesh=mesh)
+        if server is None:  # a rank other than 0: the server has closed
+            return
         h, p = server.server_address[:2]
         print(f"serving {sorted(ckpts)} on http://{h}:{p} "
               f"(batch {args.batch}, steps {args.steps}); "
@@ -452,11 +572,13 @@ def _cmd_serve(args):
     from .serving import build_serve_fn
 
     (ckpt_dir,) = _parse_ckpt_specs(args.ckpt).values()
-    serve = build_serve_fn(ckpt_dir, args.steps, args.dt, device=args.device)
+    serve = build_serve_fn(ckpt_dir, args.steps, args.dt, device=args.device, mesh=mesh)
     starts = np.tile([[args.start_x, args.start_y]], (args.batch, 1)).astype(np.float32)
     inits = np.tile([[args.start_x, args.start_y, args.heading, args.vx, args.vy]],
                     (args.batch, 1)).astype(np.float32)
     states, _ = serve(args.seed, starts, inits)
+    if not _rank0():
+        return
     states = states.cpu().numpy()
     if args.out:
         np.save(args.out, states)
@@ -504,8 +626,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "float32 masters, or the scan trainer's bf16 chain; "
                         "default pure float32")
     t.add_argument("--mesh", action="store_true",
-                   help="--fused-scale: the per-epoch data-parallel tier (one "
-                        "device in this port so far)")
+                   help="data parallel over the torch.distributed world (torchrun; "
+                        "a world of one without it): the scan trainer, or with "
+                        "--fused-scale the per-epoch tier")
     t.add_argument("--tile", type=int, default=2048,
                    help="--fused-scale rows per tile")
     t.add_argument("--backward", choices=("auto", "manual"), default=None,
@@ -548,17 +671,48 @@ def build_parser() -> argparse.ArgumentParser:
     th = sub.add_parser("thw", help="THW / start-velocity analysis")
     th.add_argument("--scenario", required=True)
     th.add_argument("--data-root", required=True)
-    th.add_argument("--out-velocity", default=None,
-                    help="histogram PNG: waits for the port's viz/ (not ported yet)")
-    th.add_argument("--out-thw", default=None,
-                    help="histogram PNG: waits for the port's viz/ (not ported yet)")
+    th.add_argument("--out-velocity", default=None, help="histogram PNG")
+    th.add_argument("--out-thw", default=None, help="histogram PNG")
     th.set_defaults(fn=_cmd_thw)
+
+    rp = sub.add_parser("reproduce", help="regenerate the validation scoreboard "
+                                          "(needs the CARLA episode CSVs)")
+    rp.add_argument("--ckpt-root", default="results/checkpoints")
+    rp.add_argument("--data-root", default="DefensiveData")
+    rp.add_argument("--out", default="results")
+    rp.set_defaults(fn=_cmd_reproduce)
+
+    gf = sub.add_parser("gif", help="human-vs-model GIF animation")
+    gf.add_argument("--scenario", required=True)
+    gf.add_argument("--csv", required=True, help="source human CSV")
+    gf.add_argument("--trace", required=True, help="tracked trajectory npy")
+    gf.add_argument("--out", required=True)
+    gf.set_defaults(fn=_cmd_gif)
+
+    cs = sub.add_parser("case", help="static case figure (model vs humans)")
+    cs.add_argument("--scenario", required=True)
+    cs.add_argument("--csv", required=True, nargs="+", help="human CSV(s)")
+    cs.add_argument("--trace", required=True, help="tracked trajectory npy")
+    cs.add_argument("--out", required=True)
+    cs.set_defaults(fn=_cmd_case)
+
+    sp = sub.add_parser("speed-plots", help="SUT ego speed-vs-time curves")
+    sp.add_argument("--scenario", required=True)
+    sp.add_argument("--dir", required=True, help="collected_data directory")
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=_cmd_speed_plots)
+
+    lp = sub.add_parser("loss-plot", help="re-plot loss curves from CSV")
+    lp.add_argument("--csv", required=True)
+    lp.add_argument("--out", required=True)
+    lp.set_defaults(fn=_cmd_loss_plot)
 
     from .serving import _DEFAULTS
 
     sv = sub.add_parser("serve", help="sample → reference → MPC, one device program")
     sv.add_argument("--data-parallel", action="store_true",
-                    help="shard the request batch over devices (not ported yet)")
+                    help="split the request batch over the torch.distributed world "
+                         "(torchrun; rank 0 serves, the others run their blocks)")
     sv.add_argument("--ckpt", required=True, action="append",
                     help="checkpoint directory; repeatable with --listen as NAME=DIR "
                          "to host several models")

@@ -242,11 +242,19 @@ def make_serve_fn(params, model_cfg, mpc_cfg, num_steps: int,
 
     ``offset_mode=False`` serves legacy non-offset checkpoints, whose
     decoder emits absolute [t, x, y] that must not be shifted by the start
-    point (as ``generate.load_and_generate`` reads the manifest)."""
+    point (as ``generate.load_and_generate`` reads the manifest).
+
+    ``mesh`` (``parallel.create_mesh``, the params on its device) splits the
+    request batch over the data axis (JAX :278-289): every rank draws the
+    whole batch's z, runs its block of rows, and the blocks are gathered to
+    every rank, so the result is the one-device program's.  B must be a
+    multiple of the data-axis size.  A block that fails on any rank fails
+    the call on every rank before the gather (``parallel.mesh.run_block``),
+    so the group stays in step for the next call."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_serve_fn(mesh=...) is not ported yet: the data-parallel "
-            "serve program is ROADMAP Queue 1's data-parallel item")
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     if getattr(mpc_cfg, "raw_jump_guard", False):
         # the device reference implements only the wrapped jump guard; a
         # raw-guard config would serve other trajectories than track()
@@ -261,6 +269,16 @@ def make_serve_fn(params, model_cfg, mpc_cfg, num_steps: int,
     P = mpc_cfg.prediction_horizon
 
     def serve(seed, start_xy, initial_states, z: Optional[torch.Tensor] = None):
+        if mesh is None:
+            return _serve_batch(seed, start_xy, initial_states, z)
+        from ..parallel.mesh import gather_rows, run_block
+
+        states, controls = run_block(
+            lambda: _serve_batch(seed, start_xy, initial_states, z), mesh)
+        return gather_rows(states, mesh), gather_rows(controls, mesh)
+
+    def _serve_batch(seed, start_xy, initial_states, z):
+        """The batch's rows (with a mesh, this rank's block of them)."""
         starts = _as_f32(start_xy, dev)
         inits = _as_f32(initial_states, dev)
         B = starts.shape[0]
@@ -270,6 +288,18 @@ def make_serve_fn(params, model_cfg, mpc_cfg, num_steps: int,
         if tuple(z.shape) != (B, _N_DRAWS, model_cfg.latent_dim):
             raise ValueError(f"z has shape {tuple(z.shape)}; expected "
                              f"({B}, {_N_DRAWS}, {model_cfg.latent_dim})")
+        if mesh is None:
+            return _serve_rows(starts, inits, z)
+        from ..parallel.mesh import block
+
+        if B % mesh.shape["data"]:
+            raise ValueError(f"batch {B} is not a multiple of the "
+                             f"{mesh.shape['data']}-rank data axis")
+        rows = block(B, mesh)
+        return _serve_rows(starts[rows], inits[rows], z[rows])
+
+    def _serve_rows(starts, inits, z):
+        B = starts.shape[0]
         with torch.inference_mode():
             trajs = sample(params, None, starts.repeat_interleave(_N_DRAWS, dim=0),
                            model_cfg, z=z.reshape(B * _N_DRAWS, -1),

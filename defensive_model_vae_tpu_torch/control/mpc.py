@@ -256,23 +256,40 @@ def track(waypoints: np.ndarray, initial_state: np.ndarray,
 
 
 def track_batch(waypoints_batch: np.ndarray, initial_states: np.ndarray,
-                cfg: MPCConfig = MPCConfig(), device="cuda"):
-    """Track B waypoint paths at once (mpc.py:274).
+                cfg: MPCConfig = MPCConfig(), device="cuda", mesh=None):
+    """Track B waypoint paths at once (mpc.py:258).
+
+    ``mesh`` (``parallel.create_mesh``; the run is on its device) splits the
+    paths over its data axis: each rank tracks its block of rows (padded
+    with copies of row 0) and the blocks are gathered to every rank.
 
     Returns (times (S+1,), states (B, S+1, 4), controls (B, S, 2), steps
     (B,)) with S the longest path's step count rounded up to a multiple of
     64; rows past ``steps[b]`` extrapolate beyond path b's end."""
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     B = waypoints_batch.shape[0]
-    path_refs = [PathReference(np.asarray(waypoints_batch[b], float),
-                               np.asarray(initial_states[b], float),
-                               raw_jump_guard=cfg.raw_jump_guard) for b in range(B)]
     steps = np.array([int(float(w[-1, 2]) / cfg.dt) for w in waypoints_batch],
                      dtype=np.int64)
     S = -(-int(steps.max()) // 64) * 64
-    refs = np.stack([r.build(S, cfg.prediction_horizon, cfg.dt) for r in path_refs])
-    states0 = np.stack([_initial_tracker_state(s) for s in initial_states])
+    rows = np.arange(B)
+    if mesh is not None:
+        from ..parallel.mesh import shard_batch
+
+        rows = shard_batch(rows, mesh)
+    refs = np.stack([PathReference(np.asarray(waypoints_batch[b], float),
+                                   np.asarray(initial_states[b], float),
+                                   raw_jump_guard=cfg.raw_jump_guard)
+                     .build(S, cfg.prediction_horizon, cfg.dt) for b in rows])
+    states0 = np.stack([_initial_tracker_state(initial_states[b]) for b in rows])
     states, controls = _simulate(cfg, _f32(states0, dev), _f32(refs, dev),
-                                 torch.zeros((B, 2), device=dev))
+                                 torch.zeros((len(rows), 2), device=dev))
+    if mesh is not None:
+        from ..parallel.mesh import gather_rows
+
+        states, controls = gather_rows(states, mesh)[:B], gather_rows(controls, mesh)[:B]
     times = np.arange(S + 1) * cfg.dt
     return times, states.cpu().numpy(), controls.cpu().numpy(), steps

@@ -214,13 +214,19 @@ def sweep_frames(
 
     ``sat_dtype`` applies to the torch sweep's SAT geometry only (the window
     bookkeeping stays float64); both float32 and float64 are held
-    index-identical to the numpy oracle.  ``mesh`` (the frame axis over
-    several devices) is not ported: it raises."""
+    index-identical to the numpy oracle.  ``mesh`` (``parallel.create_mesh``;
+    the sweep on its device) cuts the frame axis into contiguous blocks over
+    its data axis (JAX's ``NamedSharding`` of the frames): each rank sweeps
+    its block and the blocks' indices are gathered to every rank in frame
+    order, so the result is index for index the one-device sweep's."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sweep_frames(mesh=...) is not ported yet (ROADMAP Queue 1 item 4, "
-            "data parallel); sweep on one device"
-        )
+        from ..parallel.mesh import check_mesh, gather_objects
+
+        check_mesh(mesh)
+        dp, d = mesh.shape["data"], mesh.data_index
+        bounds = np.linspace(0, len(preps), dp + 1).round().astype(int)
+        mine = list(preps[bounds[d]:bounds[d + 1]])
+        return gather_objects(sweep_frames(mine, mesh.device, sat_dtype, host), mesh)
     if host:
         return [sweep_frame_host(p) for p in preps]
     from .._device import resolve_device

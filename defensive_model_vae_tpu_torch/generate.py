@@ -51,7 +51,7 @@ def generate_trajectories(params, cfg: CVAEConfig, start_xy: np.ndarray,
     return out
 
 
-def make_generate_fn(params, cfg: CVAEConfig, offset_mode: bool = True):
+def make_generate_fn(params, cfg: CVAEConfig, offset_mode: bool = True, mesh=None):
     """The batched device sampler behind the server's ``/generate`` (JAX
     ``generate._sample_jit`` as ``serving._generate_fn_from`` uses it), on
     the device the params live on.
@@ -61,18 +61,41 @@ def make_generate_fn(params, cfg: CVAEConfig, offset_mode: bool = True):
     Philox stream (``control.device_reference.request_draws``, one draw a
     row), so a row's draw depends only on (seed, b); ``z`` (B, Z) feeds
     explicit draws.  ``offset_mode=False`` is the legacy non-offset
-    decoder."""
+    decoder.  ``mesh`` splits the batch over the data axis as the serve
+    program does (``control.device_reference.make_serve_fn``): the whole
+    batch's draws on every rank, a block of rows each, gathered to every
+    rank, a failed block failing the call on every rank."""
     from .control.device_reference import _as_f32, request_draws
 
+    if mesh is not None:
+        from .parallel.mesh import check_mesh
+
+        check_mesh(mesh)
     dev = params["dec_3"]["w"].device
 
     def gen(seed, start_xy, z: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mesh is None:
+            return _gen_batch(seed, start_xy, z)
+        from .parallel.mesh import gather_rows, run_block
+
+        return gather_rows(run_block(lambda: _gen_batch(seed, start_xy, z), mesh), mesh)
+
+    def _gen_batch(seed, start_xy, z):
+        """The batch's rows (with a mesh, this rank's block of them)."""
         starts = _as_f32(start_xy, dev)
         if z is None:
             z = request_draws(seed, starts.shape[0], 1, cfg.latent_dim, dev)[:, 0]
+        z = _as_f32(z, dev)
+        if mesh is not None:
+            from .parallel.mesh import block
+
+            if starts.shape[0] % mesh.shape["data"]:
+                raise ValueError(f"batch {starts.shape[0]} is not a multiple of the "
+                                 f"{mesh.shape['data']}-rank data axis")
+            rows = block(starts.shape[0], mesh)
+            starts, z = starts[rows], z[rows]
         with torch.inference_mode():
-            return sample(params, None, starts, cfg, z=_as_f32(z, dev),
-                          shift_start=offset_mode)
+            return sample(params, None, starts, cfg, z=z, shift_start=offset_mode)
 
     return gen
 

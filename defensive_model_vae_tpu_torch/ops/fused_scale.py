@@ -20,8 +20,9 @@ design note in that file gives the bound and the layout.
 Plain parts ported as they are: ``_resolve_backward`` (:147),
 ``_pack_corpus`` (:169), ``_check_scale_tile`` (:797) and
 ``_check_eps_hbm_budget`` (:823) with their limits restated for the port,
-``fused_train_scale`` (:394), ``fused_train_scale_dp`` (:625) on one
-device, and the oracle ``fused_scale_reference`` (:847).
+``fused_train_scale`` (:394), ``fused_train_scale_dp`` (:625) over a
+``parallel.create_mesh`` world (K4 on each rank's block, one all-reduce an
+epoch), and the oracle ``fused_scale_reference`` (:847).
 
 Noise (``noise=``), as in JAX:
 
@@ -605,12 +606,13 @@ _fused_scale_call.knob_launches = dict.fromkeys(ABLATE_BITS, 0)
 _fused_scale_call.auto_launches = dict.fromkeys(AUTO_MODES, 0)
 
 
-def _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev):
-    """Windows → (n, packed corpus padded to a multiple of ``tile`` with
-    masked zero rows, in the compute dtype)."""
+def _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev, chunk=None):
+    """Windows → (n, packed corpus padded to a multiple of ``chunk`` (default
+    ``tile``) with masked zero rows, in the compute dtype)."""
     x_flat, start = fused_inputs(windows, dev)
     n = x_flat.shape[0]
-    n_pad = -(-n // tile) * tile
+    chunk = tile if chunk is None else chunk
+    n_pad = -(-n // chunk) * chunk
     eps_t = (None if eps is None
              else torch.as_tensor(np.asarray(eps, np.float32)).to(dev))
     packed = _pack_corpus(x_flat, start, torch.ones(n, device=dev), eps_t,
@@ -701,41 +703,87 @@ def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
                          compute_dtype: Optional[str] = "bfloat16",
                          mixed_style: str = "f32_acts", eps: np.ndarray = None,
                          noise: str = "hbm", backward: Optional[str] = None,
-                         device="cuda") -> Tuple[Params, Dict[str, np.ndarray]]:
-    """The per-epoch tier of :func:`fused_train_scale` (fused_scale.py:625):
-    one K4 call per epoch for the tile-summed gradients, then Adam in torch.
-    Same objective and optimizer as the whole-run trainer.
+                         device="cuda", _init_params: Optional[Params] = None
+                         ) -> Tuple[Params, Dict[str, np.ndarray]]:
+    """The per-epoch, data-parallel tier of :func:`fused_train_scale`
+    (fused_scale.py:625): one K4 call per epoch for this rank's tile-summed
+    gradients and loss row, one all-reduce of them over the mesh's data
+    group, then the replicated Adam step.  Same objective and optimizer as
+    the whole-run trainer: every tile's loss is scaled by the GLOBAL valid
+    row count, so the tile sums and the all-reduce give the full-batch
+    means whatever the layout.
 
-    ``mesh=None`` runs on one device (JAX's ``mesh=None``): the prng stream
-    base of epoch e is seed + e·n_tiles and the hbm ε of epoch e is stream e
-    of ``seed``.  The multi-device form (an all-reduce of the gradients over
-    ``torch.distributed``) is not ported yet and raises."""
-    if mesh is not None:
-        raise NotImplementedError("fused_train_scale_dp over several devices (the "
-                                  "gradient all-reduce) is not ported yet; pass "
-                                  "mesh=None")
+    ``mesh`` (``parallel.create_mesh``; the run is on its device) splits
+    the corpus, padded to a multiple of dp·tile with masked zero rows, into
+    dp contiguous blocks, rank r's block r.  The noise streams are per rank
+    as in JAX (:722-735): with d the rank's data index, the prng stream base
+    of epoch e is seed + (d·epochs + e)·local_tiles and the hbm ε of epoch e
+    is stream d·epochs + e of ``seed``; an explicit ``eps`` (N, Z) rides in
+    the corpus rows, so it is split with them.  ``mesh=None`` is d = 0 on
+    one device, with no collective.
+
+    The run starts from ``init_params`` of a generator seeded with
+    ``seed``.  ``_init_params`` (port params) replaces that start for the
+    tests alone: JAX's entry draws its start from its own PRNG, so a test
+    that holds the two entries to each other starts the port's from the
+    JAX package's params, and a spawned rank's program reaches the run only
+    through this entry's arguments.
+
+    With ``fused_train_scale_dp.epoch_events`` set to a list on a CUDA
+    device, each epoch appends its CUDA events (before K4, after K4, after
+    the all-reduce) to it; None (the default) records none."""
     cfg, noise, backward = _check_scale_args(windows, tile, compute_dtype, mixed_style,
                                              eps, noise, backward)
-    dev = resolve_device(device)
-    n, packed = _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev)
-    plist = _flatten_params(init_params(torch.Generator().manual_seed(seed), cfg, dev))
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    dp = 1 if mesh is None else mesh.shape["data"]
+    d = 0 if mesh is None else mesh.data_index
+    n, packed = _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev, dp * tile)
+    if mesh is not None:
+        from ..parallel.mesh import block
+
+        packed = packed[block(packed.shape[0], mesh)]
+    start = (init_params(torch.Generator().manual_seed(seed), cfg, dev)
+             if _init_params is None else _init_params)
+    plist = [a.detach().clone().to(dev) for a in _flatten_params(start)]
     local_tiles = packed.shape[0] // tile
     m = [torch.zeros_like(a) for a in plist]
     v = [torch.zeros_like(a) for a in plist]
     metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=dev)
+    events = fused_train_scale_dp.epoch_events if dev.type == "cuda" else None
     for e in range(epochs):
+        stream = d * epochs + e
         eps_epoch = None
         if noise == "hbm":
-            g = _noise_generator(seed, e, dev)
+            g = _noise_generator(seed, stream, dev)
             eps_epoch = torch.randn((packed.shape[0], cfg.latent_dim), generator=g,
                                     device=dev).to(packed.dtype)
-        grads, mrow = _grad_epoch_call(plist, packed, seed + e * local_tiles, cfg,
+        marks = None if events is None else [torch.cuda.Event(enable_timing=True)
+                                             for _ in range(3)]
+        if marks:
+            marks[0].record()
+        grads, mrow = _grad_epoch_call(plist, packed, seed + stream * local_tiles, cfg,
                                        weights, tile, float(n), compute_dtype, noise,
                                        eps_epoch, backward, mixed_style)
+        if marks:
+            marks[1].record()
+        if mesh is not None:
+            from ..parallel.mesh import all_reduce_sum
+
+            *grads, mrow = all_reduce_sum(list(grads) + [mrow], mesh.data_group)
+        if marks:
+            marks[2].record()
+            events.append(marks)
         tf = torch.tensor(float(e + 1), dtype=torch.float32, device=dev)
         plist, m, v = _adam_step(plist, grads, m, v, tf, lr)
         metrics[e] = mrow[0]
     return _unflatten_params(plist), _history(metrics)
+
+
+fused_train_scale_dp.epoch_events = None
 
 
 # ---- the oracle ----------------------------------------------------------------

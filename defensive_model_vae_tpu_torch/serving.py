@@ -39,6 +39,15 @@ and the route's outputs, raw float32, diverged rows as they are).
 
 The server is single-threaded: requests serialize through the one device
 anyway, and one dispatch queue keeps latency honest.
+
+Data parallel (``mesh=``, ``cli.py serve --data-parallel``): every rank of
+a ``parallel.create_mesh`` world calls :func:`serve_checkpoint`.  Rank 0
+builds and returns the server; each request it takes goes to the other
+ranks by ``torch.distributed.broadcast_object_list``, every rank runs its
+block of the batch, and the blocks are gathered.  The other ranks wait in
+:func:`serve_worker_loop` until the server closes (``server_close``
+broadcasts the stop message), and :func:`serve_checkpoint` returns None
+there.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ from __future__ import annotations
 import io
 import json
 import secrets
+import sys
 import time
 from http.server import BaseHTTPRequestHandler, HTTPServer
 from typing import Optional
@@ -256,39 +266,82 @@ def _load_for_serving(ckpt_dir: str, device="cuda"):
     return params, cfg, manifest
 
 
-def _serve_fn_from(params, cfg, manifest, num_steps: int, dt: float):
+def _serve_fn_from(params, cfg, manifest, num_steps: int, dt: float, mesh=None):
     from .control import MPCConfig
     from .control.device_reference import make_serve_fn
 
     P, M = SERVE_HORIZONS
     mpc = MPCConfig(prediction_horizon=P, control_horizon=M, dt=dt)
     return make_serve_fn(params, cfg, mpc, num_steps=num_steps,
-                         offset_mode=manifest.get("offset_mode", True))
+                         offset_mode=manifest.get("offset_mode", True), mesh=mesh)
 
 
-def _generate_fn_from(params, cfg, manifest):
+def _generate_fn_from(params, cfg, manifest, mesh=None):
     from .generate import make_generate_fn
 
-    return make_generate_fn(params, cfg, manifest.get("offset_mode", True))
+    return make_generate_fn(params, cfg, manifest.get("offset_mode", True), mesh=mesh)
 
 
-def build_serve_fn(ckpt_dir: str, num_steps: int, dt: float, device="cuda"):
+def build_serve_fn(ckpt_dir: str, num_steps: int, dt: float, device="cuda", mesh=None):
     """Checkpoint → serve program on ``device`` (the one construction the
-    one-shot CLI and the HTTP server share).  One device: the data-parallel
-    serve program is not ported yet (ROADMAP Queue 1)."""
-    return _serve_fn_from(*_load_for_serving(ckpt_dir, device), num_steps, dt)
+    one-shot CLI and the HTTP server share); ``mesh`` splits its batch over
+    the data axis (on the mesh's device)."""
+    dev = mesh.device if mesh is not None else device
+    return _serve_fn_from(*_load_for_serving(ckpt_dir, dev), num_steps, dt, mesh=mesh)
 
 
-def build_generate_fn(ckpt_dir: str, device="cuda"):
+def build_generate_fn(ckpt_dir: str, device="cuda", mesh=None):
     """Checkpoint → batched sampler ``gen(seed, starts) → (B, T, D)``
     global [t, x, y] trajectories on ``device``, honouring the manifest's
-    ``offset_mode``."""
-    return _generate_fn_from(*_load_for_serving(ckpt_dir, device))
+    ``offset_mode``; ``mesh`` splits the batch as the serve program's."""
+    dev = mesh.device if mesh is not None else device
+    return _generate_fn_from(*_load_for_serving(ckpt_dir, dev), mesh=mesh)
+
+
+def _dispatching(fns, route: str):
+    """Rank 0's programs: each call first sends (route, name, args) to the
+    other ranks, then runs its own block."""
+    import torch.distributed as dist
+
+    def wrap(name, fn):
+        def call(seed, *args):
+            dist.broadcast_object_list([(route, name, seed, *args)], src=0)
+            return fn(seed, *args)
+        return call
+
+    return {name: wrap(name, fn) for name, fn in fns.items()}
+
+
+def serve_worker_loop(serve_fns, generate_fns) -> int:
+    """A rank other than 0 of a data-parallel server: run each request rank
+    0 broadcasts, on this rank's block, until the stop message (None).
+    → the number of requests run.
+
+    A request that fails is logged and the loop goes on: the programs fail
+    a call on every rank at once (``parallel.mesh.run_block``), so rank 0
+    answers it with a 500 and every rank meets at the next broadcast."""
+    import torch.distributed as dist
+
+    fns = {"serve": serve_fns, "generate": generate_fns}
+    done = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return done
+        route, name, seed, *args = box[0]
+        try:
+            fns[route][name](seed, *args)
+        except Exception as e:  # rank 0 answers it; the group stays in step
+            print(f"serve rank {dist.get_rank()}: /{route} {name!r} failed: "
+                  f"{type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        done += 1
 
 
 def serve_checkpoint(ckpt, batch: int, num_steps: int, dt: float = 0.02,
                      host: str = "127.0.0.1", port: int = 0,
-                     warm_seed: Optional[int] = None, device="cuda") -> HTTPServer:
+                     warm_seed: Optional[int] = None, device="cuda",
+                     mesh=None) -> Optional[HTTPServer]:
     """Build and warm the serve program(s) of checkpoint(s) on ``device``,
     and return the server (JAX :385).
 
@@ -298,22 +351,63 @@ def serve_checkpoint(ckpt, batch: int, num_steps: int, dt: float = 0.02,
     here each model's program and sampler run once at the full batch and
     ``_WARM_STEPS`` steps (entropy-seeded unless ``warm_seed`` pins it),
     which loads the device libraries (cuBLAS, the batched solve) and
-    primes the caching allocator before the first request."""
+    primes the caching allocator before the first request.
+
+    ``mesh`` (``parallel.create_mesh`` over the whole world; the batch a
+    multiple of its data axis): every rank calls this.  In a world over one
+    rank, rank 0 gets the server, whose ``server_close`` stops the others,
+    and the others run :func:`serve_worker_loop` until then and return
+    None."""
     if not isinstance(ckpt, dict):
         ckpt = {"default": str(ckpt)}
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from .parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+        device = mesh.device
+        if mesh.size != dist.get_world_size():
+            raise ValueError(f"a data-parallel server's mesh covers the world: "
+                             f"{mesh.size} of {dist.get_world_size()} ranks")
+        if batch % mesh.shape["data"]:
+            raise ValueError(f"batch {batch} is not a multiple of the "
+                             f"{mesh.shape['data']}-rank data axis")
     starts = np.zeros((batch, 2), np.float32)
     inits = np.tile(np.array([[0.0, 0.0, _DEFAULTS["heading"], 0.0, _DEFAULTS["vy"]]],
                              np.float32), (batch, 1))
     if warm_seed is None:
         warm_seed = secrets.randbelow(1 << 31)
+    if mesh is not None:  # one warm seed, so every rank runs the same warm-up
+        box = [warm_seed]
+        dist.broadcast_object_list(box, src=0)
+        warm_seed = box[0]
     serve_fns, generate_fns = {}, {}
     for name, d in ckpt.items():
         loaded = _load_for_serving(str(d), device)  # one disk load a model
-        _numpy(_serve_fn_from(*loaded, min(num_steps, _WARM_STEPS), dt)(
+        _numpy(_serve_fn_from(*loaded, min(num_steps, _WARM_STEPS), dt, mesh)(
             warm_seed, starts, inits)[0][-1])
-        serve_fns[name] = _serve_fn_from(*loaded, num_steps, dt)
-        gen = _generate_fn_from(*loaded)
+        serve_fns[name] = _serve_fn_from(*loaded, num_steps, dt, mesh)
+        gen = _generate_fn_from(*loaded, mesh)
         _numpy(gen(warm_seed, starts)[-1])
         generate_fns[name] = gen
-    return make_http_server(serve_fns, batch, num_steps, host=host, port=port,
-                            generate_fns=generate_fns)
+    if mesh is None or mesh.size == 1:
+        return make_http_server(serve_fns, batch, num_steps, host=host, port=port,
+                                generate_fns=generate_fns)
+    if dist.get_rank() != 0:
+        serve_worker_loop(serve_fns, generate_fns)
+        return None
+    server = make_http_server(_dispatching(serve_fns, "serve"), batch, num_steps,
+                              host=host, port=port,
+                              generate_fns=_dispatching(generate_fns, "generate"))
+    close = server.server_close
+    stopped = []
+
+    def server_close():
+        if not stopped:
+            stopped.append(True)
+            dist.broadcast_object_list([None], src=0)
+        close()
+
+    server.server_close = server_close
+    return server

@@ -8,10 +8,13 @@ from .checkpoint import (
     save_checkpoint,
     save_opt_state,
 )
-from .train import TrainConfig, train, train_conditioned, train_conv, train_multi_scenario
+from .train import (TrainConfig, init_opt_state, make_train_step, train, train_conditioned,
+                    train_conv, train_multi_scenario)
 
 __all__ = [
     "TrainConfig",
+    "init_opt_state",
+    "make_train_step",
     "train",
     "train_conditioned",
     "train_conv",

@@ -18,9 +18,20 @@ Adam stay float32.  These trainers are plain torch in real bf16 tensors;
 on the card cuBLAS may not reduce bf16 products in reduced precision
 (``allow_bf16_reduced_precision_reduction`` is held False while they run).
 
+``make_train_step`` (:52) is one such epoch as a function, the step that
+``parallel.make_parallel_train_step`` wraps.  ``train(mesh=...)`` and
+``train_conditioned(mesh=...)`` (:125-227) train data-parallel over a
+``parallel.create_mesh`` world: every rank draws the same init and the
+global batch's noise, takes its block of the rows (padded with copies of
+row 0, masked out), scales its loss by the global row count, and
+all-reduces its gradients and loss components over the data group before
+the replicated Adam step, so the run trains the unpadded full-batch
+objective up to summation order.
+
 ``train_conv`` (:297) trains the temporal-conv VAE (``models/conv_cvae.py``,
 BASELINE config 3) the same way: full batch, one autograd pass and one Adam
-step an epoch.  The mesh comes with a later slice.
+step an epoch.  On the card it runs with cuDNN's deterministic algorithms
+and no autotuning, so a run gives the same bits every time.
 """
 
 from __future__ import annotations
@@ -74,6 +85,18 @@ def _torch_dtype(compute_dtype):
 
 
 @contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms and no autotuning while this runs
+    (the convolutions then give the same bits run after run)."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+
+
+@contextlib.contextmanager
 def _exact_bf16_reductions():
     """bf16 products accumulate in float32 (as XLA's do) while this runs."""
     flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
@@ -85,7 +108,7 @@ def _exact_bf16_reductions():
 
 
 def _model_loss(params, x_rel, cond, eps, cfg: CVAEConfig, train_cfg: TrainConfig,
-                mask=None):
+                mask=None, n_valid=None):
     """JAX ``make_train_step``'s loss_fn (train.py:61-86) with explicit
     noise: (total, components).  Under a compute dtype the params, inputs
     and noise are cast down and recon, mu and logvar back up; the loss's
@@ -100,7 +123,7 @@ def _model_loss(params, x_rel, cond, eps, cfg: CVAEConfig, train_cfg: TrainConfi
     recon = decode(p, z, hc, cfg)
     if dt is not None:
         recon, mu, logvar = recon.float(), mu.float(), logvar.float()
-    return cvae_loss(recon, x_rel, mu, logvar, train_cfg.weights, mask)
+    return cvae_loss(recon, x_rel, mu, logvar, train_cfg.weights, mask, n_valid)
 
 
 def _adam(leaves, grads, m, v, count, lr):
@@ -129,12 +152,80 @@ def _noise(eps, seed: int, start_epoch: int, E: int, shape, dev) -> torch.Tensor
                         for e in range(E)]).to(dev)
 
 
+def _leaf_names(params):
+    return [(k, n) for k in params for n in ("w", "b")]
+
+
+def _nest(leaves, tensors):
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for (k, n), t in zip(leaves, tensors):
+        out.setdefault(k, {})[n] = t
+    return out
+
+
+def init_opt_state(params) -> Dict:
+    """Adam's state before the first step: ``{"count": 0, "m": zeros,
+    "v": zeros}`` in the params' layout."""
+    zeros = {k: {n: torch.zeros_like(a) for n, a in v.items()} for k, v in params.items()}
+    return {"count": 0, "m": zeros,
+            "v": {k: {n: a.clone() for n, a in v.items()} for k, v in zeros.items()}}
+
+
+def _epoch(params, opt_state, x_rel, cond, eps, cfg: CVAEConfig, train_cfg: TrainConfig,
+           mask=None, n_valid=None, group=None):
+    """One epoch: the loss and its gradient, their sum over ``group`` (one
+    all-reduce, when given), one Adam step → (params, opt_state, (5,)
+    metrics row)."""
+    leaves = _leaf_names(params)
+    plist = [params[k][n].detach().requires_grad_(True) for k, n in leaves]
+    total, comps = _model_loss(_nest(leaves, plist), x_rel, cond, eps, cfg, train_cfg,
+                               mask, n_valid)
+    grads = list(torch.autograd.grad(total, plist))
+    row = torch.stack([comps[key].detach() for key in _METRIC_KEYS])
+    if group is not None:
+        from ..parallel.mesh import all_reduce_sum
+
+        *grads, row = all_reduce_sum(grads + [row], group)
+    count = int(opt_state["count"]) + 1
+    new_p, new_m, new_v = _adam(plist, grads, [opt_state["m"][k][n] for k, n in leaves],
+                                [opt_state["v"][k][n] for k, n in leaves], count,
+                                train_cfg.lr)
+    return (_nest(leaves, new_p),
+            {"count": count, "m": _nest(leaves, new_m), "v": _nest(leaves, new_v)}, row)
+
+
+def make_train_step(model_cfg: CVAEConfig, train_cfg: TrainConfig):
+    """One epoch as a function (JAX train.py:52): ``step(params, opt_state,
+    eps, batch, mask=None, extra=None, group=None, n_valid=None) →
+    (params, opt_state, metrics)``.
+
+    ``batch`` is (N, T, D) absolute windows, ``eps`` the (N, Z) noise (JAX
+    draws it from the step's key), ``extra`` (N, k) extra condition
+    features, ``mask`` (N,) excludes padded rows from every loss mean;
+    ``opt_state`` is :func:`init_opt_state`'s layout and ``metrics`` the
+    five loss components.  ``group``/``n_valid`` are the data-parallel
+    form (``parallel.make_parallel_train_step`` sets them): the means
+    divide by the global valid-row count and the gradients and components
+    are summed over the group."""
+
+    def step(params, opt_state, eps, batch, mask=None, extra=None, group=None,
+             n_valid=None):
+        x_rel, cond = to_relative(batch)
+        if extra is not None:
+            cond = torch.cat([cond, extra.to(cond.device, torch.float32)], dim=1)
+        params, opt_state, row = _epoch(params, opt_state, x_rel, cond, eps, model_cfg,
+                                        train_cfg, mask, n_valid, group)
+        return params, opt_state, dict(zip(_METRIC_KEYS, row))
+
+    return step
+
+
 def train(windows: np.ndarray, model_cfg: Optional[CVAEConfig] = None,
           train_cfg: TrainConfig = TrainConfig(),
           extra_cond: Optional[np.ndarray] = None,
           init_state: Optional[Tuple[Dict, Dict]] = None,
           return_state: bool = False, start_epoch: int = 0,
-          eps=None, device="cuda"):
+          eps=None, device="cuda", mesh=None):
     """Train one scenario model on its full window corpus.
 
     Args:
@@ -148,9 +239,16 @@ def train(windows: np.ndarray, model_cfg: Optional[CVAEConfig] = None,
             noise of the global epoch index).
         eps: optional explicit noise, (epochs, N, Z) or (N, Z) held over the
             epochs, in place of the generator stream.
+        mesh: optional ``parallel.create_mesh`` mesh: the rows are split
+            over its data axis (module docstring) and the run is on the
+            mesh's device; every rank returns the same params and history.
 
     Returns (params, history) — plus opt_state when ``return_state``."""
-    dev = resolve_device(device)
+    if mesh is not None:
+        from ..parallel.mesh import check_mesh
+
+        check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if model_cfg is None:
         cond_dim = 2 + (0 if extra_cond is None else np.asarray(extra_cond).shape[1])
         model_cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2],
@@ -164,48 +262,57 @@ def train(windows: np.ndarray, model_cfg: Optional[CVAEConfig] = None,
         params, opt_state = init_state
         params = {k: {n: a.detach().clone().to(dev) for n, a in v.items()}
                   for k, v in params.items()}
-        count = int(opt_state["count"])
-        m = {k: {n: a.clone().to(dev) for n, a in v.items()} for k, v in opt_state["m"].items()}
-        v_ = {k: {n: a.clone().to(dev) for n, a in v.items()} for k, v in opt_state["v"].items()}
+        opt_state = {"count": int(opt_state["count"]),
+                     **{s_: {k: {n: a.clone().to(dev) for n, a in v.items()}
+                             for k, v in opt_state[s_].items()} for s_ in ("m", "v")}}
     else:
         params = init_params(torch.Generator().manual_seed(train_cfg.seed), model_cfg, dev)
-        count = 0
-        m = {k: {n: torch.zeros_like(a) for n, a in v.items()} for k, v in params.items()}
-        v_ = {k: {n: torch.zeros_like(a) for n, a in v.items()} for k, v in params.items()}
+        opt_state = init_opt_state(params)
 
     E, B, Z = train_cfg.epochs, batch.shape[0], model_cfg.latent_dim
     noise = _noise(eps, train_cfg.seed, start_epoch, E, (B, Z), dev) if E else None
-    leaves = [(k, n) for k in params for n in ("w", "b")]
+    mask = n_valid = group = None
+    if mesh is not None:
+        from ..parallel.mesh import block, padded_rows, shard_batch
+
+        n_pad = padded_rows(B, mesh)
+        x_rel, cond = shard_batch(x_rel, mesh), shard_batch(cond, mesh)
+        if n_pad != B:
+            # the pad rows (copies of row 0) are masked out of every mean
+            mask = shard_batch(torch.cat([torch.ones(B, device=dev),
+                                          torch.zeros(n_pad - B, device=dev)]), mesh)
+            if noise is not None:
+                noise = torch.cat([noise, noise.new_zeros((E, n_pad - B, Z))], dim=1)
+        if noise is not None:
+            noise = noise[:, block(n_pad, mesh)]
+        # one data rank holds the whole batch: its means are the plain ones
+        n_valid = float(B) if mesh.shape["data"] > 1 else None
+        group = mesh.data_group
     metrics = torch.zeros((E, 5), dtype=torch.float32, device=dev)
     with _exact_bf16_reductions():
         for e in range(E):
-            plist = [params[k][n].requires_grad_(True) for k, n in leaves]
-            total, comps = _model_loss(params, x_rel, cond, noise[e], model_cfg, train_cfg)
-            grads = torch.autograd.grad(total, plist)
-            count += 1
-            new_p, new_m, new_v = _adam(plist, grads, [m[k][n] for k, n in leaves],
-                                        [v_[k][n] for k, n in leaves], count,
-                                        train_cfg.lr)
-            for (k, n), p, mi, vi in zip(leaves, new_p, new_m, new_v):
-                params[k][n], m[k][n], v_[k][n] = p, mi, vi
-            metrics[e] = torch.stack([comps[key].detach() for key in _METRIC_KEYS])
+            params, opt_state, metrics[e] = _epoch(params, opt_state, x_rel, cond,
+                                                   noise[e], model_cfg, train_cfg, mask,
+                                                   n_valid, group)
     metrics = metrics.cpu().numpy()
     history = {k: metrics[:, i] for i, k in enumerate(_METRIC_KEYS)}
     if return_state:
-        return params, history, {"count": count, "m": m, "v": v_}
+        return params, history, opt_state
     return params, history
 
 
 def train_conditioned(windows: np.ndarray, extra_cond: np.ndarray,
                       train_cfg: TrainConfig = TrainConfig(), eps=None,
-                      device="cuda") -> Tuple[Dict, Dict[str, np.ndarray], CVAEConfig]:
+                      device="cuda", mesh=None
+                      ) -> Tuple[Dict, Dict[str, np.ndarray], CVAEConfig]:
     """Train the scenario-class/THW-conditioned variant: the condition is
     [start_x, start_y, extra...] (cond_dim = 2 + k).  A thin wrapper over
-    :func:`train`, as JAX's (train.py:206).  → (params, history, config)."""
+    :func:`train`, mesh included, as JAX's (train.py:206).  → (params,
+    history, config)."""
     model_cfg = CVAEConfig(seq_len=windows.shape[1], dim=windows.shape[2],
                            cond_dim=2 + np.asarray(extra_cond).shape[1])
     params, history = train(windows, model_cfg, train_cfg, extra_cond=extra_cond,
-                            eps=eps, device=device)
+                            eps=eps, device=device, mesh=mesh)
     return params, history, model_cfg
 
 
@@ -316,6 +423,9 @@ def train_conv(windows: np.ndarray, model_cfg: Optional[ConvCVAEConfig] = None,
     as numpy), else ``init_conv_params`` of a generator seeded with
     ``train_cfg.seed``.  ``eps``: the noise, (epochs, N, Z) or (N, Z) held
     over the epochs, else the per-epoch stream ``epoch_noise(seed, e)``.
+    cuDNN runs its deterministic algorithms with autotuning off for the run
+    (no cost measured on the card), so a run on the card is bit for bit
+    the same every time.
 
     Returns (params, history {"total", "recon", "kld"}, model config)."""
     dev = resolve_device(device)
@@ -340,17 +450,18 @@ def train_conv(windows: np.ndarray, model_cfg: Optional[ConvCVAEConfig] = None,
     m = [torch.zeros_like(params[k][n]) for k, n in leaves]
     v = [torch.zeros_like(params[k][n]) for k, n in leaves]
     metrics = torch.zeros((E, 3), dtype=torch.float32, device=dev)
-    for e in range(E):
-        plist = [params[k][n].requires_grad_(True) for k, n in leaves]
-        recon, mu, lv, _ = conv_forward(params, None, x, cond, model_cfg, eps=noise[e])
-        recon_l = torch.mean((recon - x) ** 2)
-        kld = -0.5 * torch.mean(1 + lv - mu ** 2 - torch.exp(lv))
-        total = recon_l + kld_weight * kld
-        grads = torch.autograd.grad(total, plist)
-        new_p, m, v = _adam(plist, grads, m, v, e + 1, train_cfg.lr)
-        for (k, n), p in zip(leaves, new_p):
-            params[k][n] = p
-        metrics[e] = torch.stack([total, recon_l, kld]).detach()
+    with _deterministic_cudnn():
+        for e in range(E):
+            plist = [params[k][n].requires_grad_(True) for k, n in leaves]
+            recon, mu, lv, _ = conv_forward(params, None, x, cond, model_cfg, eps=noise[e])
+            recon_l = torch.mean((recon - x) ** 2)
+            kld = -0.5 * torch.mean(1 + lv - mu ** 2 - torch.exp(lv))
+            total = recon_l + kld_weight * kld
+            grads = torch.autograd.grad(total, plist)
+            new_p, m, v = _adam(plist, grads, m, v, e + 1, train_cfg.lr)
+            for (k, n), p in zip(leaves, new_p):
+                params[k][n] = p
+            metrics[e] = torch.stack([total, recon_l, kld]).detach()
     metrics = metrics.cpu().numpy()
     history = {"total": metrics[:, 0], "recon": metrics[:, 1], "kld": metrics[:, 2]}
     return params, history, model_cfg

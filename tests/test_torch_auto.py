@@ -528,12 +528,20 @@ def test_cli_backward_auto_and_scan_bf16_recipes(tmp_path, capsys, extra, recipe
 
 
 def test_cli_mesh_needs_fused_scale(tmp_path):
+    """--mesh runs the scan trainer over the world (here a world of one) as
+    well as --fused-scale's per-epoch tier; only the --fused kernel, one
+    device by construction, refuses it."""
     from defensive_model_vae_tpu_torch.cli import main
 
     np.save(tmp_path / "w.npy", _tiny_corpus(8))
     with pytest.raises(SystemExit, match="--mesh"):
         main(["train", "--scenario", "sce2", "--windows", str(tmp_path / "w.npy"),
-              "--ckpt", str(tmp_path / "c"), "--epochs", "1", "--mesh", "--device", "cpu"])
+              "--ckpt", str(tmp_path / "c"), "--epochs", "1", "--mesh", "--fused",
+              "--device", "cpu"])
+    main(["train", "--scenario", "sce2", "--windows", str(tmp_path / "w.npy"),
+          "--ckpt", str(tmp_path / "c"), "--epochs", "1", "--mesh", "--device", "cpu"])
+    got = json.loads((tmp_path / "c" / "manifest.json").read_text())["recipe"]
+    assert got["trainer"] == "scan" and got["mesh"] == {"data": 1, "model": 1}
 
 
 def test_train_config_defaults_are_float32():

@@ -303,7 +303,7 @@ def test_serve_fn_refusals(sce1_both):
     _, _, tp, tcfg = sce1_both
     with pytest.raises(ValueError, match="wrapped jump-guard only"):
         dr.make_serve_fn(tp, tcfg, MPCConfig(raw_jump_guard=True), 4)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+    with pytest.raises(TypeError, match="create_mesh"):
         dr.make_serve_fn(tp, tcfg, MPCConfig(), 4, mesh=object())
     serve = dr.make_serve_fn(tp, tcfg, MPCConfig(prediction_horizon=5, control_horizon=3,
                                                  dt=0.1), 4)

@@ -564,7 +564,7 @@ def test_torch_sweep_padding_and_refusals():
     mixed = [preps[0], dataclasses.replace(preps[1], time_horizon=2.0)]
     with pytest.raises(ValueError, match="mixed-horizon"):
         tcore.sweep_frames(mixed, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(TypeError, match="create_mesh"):
         tcore.sweep_frames(preps, device="cpu", mesh=object())
     if not torch.cuda.is_available():
         for call in (lambda: tcore.sweep_frames(preps), lambda: tcore.sweep_frames([])):

@@ -417,7 +417,7 @@ def test_scale_backward_guards():
                                     backward="auto", device="cpu")
     assert np.all(np.isfinite(hist["total"]))
     assert tfs._resolve_backward(None, "bfloat16", "f32_acts") == "manual"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="create_mesh"):
         tfs.fused_train_scale_dp(w, mesh=object(), epochs=1, tile=16, device="cpu")
 
 

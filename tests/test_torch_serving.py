@@ -290,10 +290,13 @@ def test_cli_serve_one_shot(tmp_path, capsys):
     assert line["batch"] == 2 and line["steps"] == 8 and len(line["final_xy"]) == 2
 
 
-def test_cli_serve_refusals():
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["serve", "--data-parallel", "--batch", "16", "--ckpt", str(CKPTS / "sce2"),
-              "--start-x", "-150.0", "--start-y", "-0.7", "--device", "cpu"])
+def test_cli_serve_refusals(capsys):
+    # --data-parallel is no longer refused: here it serves over a world of one
+    # (its refusal of a batch that does not split over the world is held in a
+    # world of two, tests/test_torch_parallel_serve.py)
+    main(["serve", "--data-parallel", "--batch", "2", "--steps", "2", "--ckpt",
+          str(CKPTS / "sce2"), "--start-x", "-150.0", "--start-y", "-0.7", "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out)["batch"] == 2
     with pytest.raises(SystemExit, match="required without --listen"):
         main(["serve", "--ckpt", str(CKPTS / "sce2"), "--device", "cpu"])
     with pytest.raises(SystemExit, match="exactly one --ckpt"):
