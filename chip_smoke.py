@@ -8,7 +8,8 @@ a watchdog (``faulthandler.dump_traceback_later``) that turns a hang into a
 traceback and a non-zero exit:
 
 1. ``device``      torch, CUDA, the card, ``nvidia-smi``, ``nvcc``, triton;
-2. ``build``       ``nvcc`` builds every kernel of the port, all at once,
+2. ``build``       ``nvcc`` builds every kernel of the port, all at once
+                   (each object's nvcc seconds printed),
                    beside the cache probe's rounds A and A2, P3 (built,
                    launched, held against x * 2 + 1 bit for bit) and round
                    B (``scripts/cache_probe.py``); the tensor-core
@@ -180,12 +181,29 @@ traceback and a non-zero exit:
                    CUDA tensors; the dp wall time, K4's ms a launch a rank
                    and the all-reduce's ms an epoch (the run's own CUDA
                    events);
-28. ``kernels``    one line listing every ported kernel with its launches on
+28. ``drivers``    the port's research drivers (``scripts/``) at full width
+                   and cut depth (DRV_*): first K2's two options on the
+                   card, ``use_mask=False`` on the four corpora padded to 134
+                   rows against the plain version (1 and 50 epochs) and
+                   ``_metrics="static"`` bit for bit the full store; then
+                   ``grid_probe`` (32 seeds of sce1, its five variants and
+                   checks), ``run_baseline_configs`` (configs 1-4 finite and
+                   descending, 5 skipped without the episode CSVs),
+                   ``serve_latency`` (batch 1, the tail under concurrent
+                   clients with no error, a batch-16 throughput),
+                   ``hot_probe`` (K3 at the bench width: the hbm stream's
+                   generation against its streaming), ``robustness_row``,
+                   and ``mint_provenance_probe`` (the build cache's keys
+                   from copies of the package; P3 built at two paths, in a
+                   thread beside the others); each driver's launches counted;
+29. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound (P2 and P3 also
                    their device times, their library call's both ways, and
                    the spread of each; the K1 family its cluster size, its
                    bound over the cluster's SMs and its phase split; K4 its
-                   launches on the parallel phase's dp tier).
+                   launches on the parallel phase's dp tier; K1, K2, K3 and
+                   dwT their launches in the drivers phase, K2 those under
+                   each option and grid_probe's µs an epoch and seed).
 
 Before the ``kernels`` line, the check's own seconds (``check_s``).  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -200,6 +218,7 @@ import dataclasses
 import faulthandler
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -502,6 +521,31 @@ PAR_FIRST_START = 1
 PAR_WORLD_S = 60.0
 PAR_BUDGET_S = 20
 PAR_GLOO_LABEL = "two gloo ranks sharing one card (not a multi-card figure)"
+# the drivers phase: the research drivers of the port's scripts/ at full
+# width (CVAEConfig(), the bench width), each at a cut depth (ROADMAP Queue 3's
+# table of cuts): grid_probe's 32 seeds of sce1 at DRV_GRID_EPOCHS (the
+# script's 3000) and one timed rep (4); run_baseline_configs at
+# DRV_BASE_EPOCHS (3000) and config 3 at DRV_CONV_EPOCHS (500); serve_latency
+# at batch 1 and DRV_SERVE_STEPS steps (512), DRV_SERVE_REPS reps (7), a
+# throughput batch of SERVE_BATCH and DRV_CONCURRENCY clients of
+# DRV_LOAD_REQUESTS requests (8 of 25); hot_probe at 131,072 rows, tile 2048,
+# DRV_HOT_EPOCHS epochs (200), one timed rep (4).  Before them, K2's two
+# options held on the card: use_mask=False on the four corpora padded to 134
+# rows as fused_train_multi pads them (explicit ε, which the padded rows draw
+# too), against the plain version at GRID_TOL's 1 and 50 epochs; and
+# _metrics="static" at 50 epochs bit for bit "full" in the params, its row 0
+# "full"'s last row.  grid_probe holds the same at 32 seeds.  At 50 epochs
+# the padded sce2 run (16 windows and 118 copies of its first, every one
+# counted) is chaotic in the plain version alone: one float32 ulp on the
+# initial params moves its total by 2.6e-2 of itself at epoch 46 (CPU),
+# against GRID_TOL[50]'s 1e-3 (the ragged corpora of k2_vs_plain move by
+# 2.3e-5 there).  So at 50 epochs the params are held to GRID_TOL[50] and
+# the metrics' gap to the plain version's own one-ulp spread on the same
+# corpus, measured beside it ("plain_one_ulp"); after one epoch, where no
+# chaos has set in, the whole of GRID_TOL[1] holds.
+DRV_GRID_EPOCHS, DRV_BASE_EPOCHS, DRV_CONV_EPOCHS, DRV_HOT_EPOCHS = 300, 100, 50, 20
+DRV_SERVE_STEPS, DRV_SERVE_REPS, DRV_CONCURRENCY, DRV_LOAD_REQUESTS = 32, 2, 4, 2
+DRV_BUDGET_S = 30
 # the cache probe: each round's nvccs, and the phase that waits for them
 CACHE_PROBE_ROUND_S = 85.0
 # P3 and P2 timed beside their one-call library yardsticks, each in blocks
@@ -1677,6 +1721,171 @@ def parallel_phase(np, torch, dev, ws, w4, card, world=None):
     return info
 
 
+def k2_option_checks(np, torch, dev, corpora, cfg, lw):
+    """K2's use_mask=False and _metrics="static" on the card against the
+    plain version and the full store (DRV_* above) → (rows, the largest
+    params gap of the unmasked runs)."""
+    from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
+    from defensive_model_vae_tpu_torch.models import init_params
+
+    keys = sorted(corpora)
+    n_max = max(len(w) for w in corpora.values())
+    ins = [ft.fused_inputs(np.concatenate([w, np.repeat(w[:1], n_max - len(w), 0)]), dev)
+           for w in (corpora[k] for k in keys)]
+    x = torch.stack([a for a, _ in ins])
+    c = torch.stack([b for _, b in ins])
+    mask = torch.zeros((len(keys), n_max, 1))
+    for i, k in enumerate(keys):
+        mask[i, :len(corpora[k])] = 1.0
+    eps = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (len(keys), n_max, cfg.latent_dim)).astype(np.float32)).to(dev)
+    seeds = list(range(len(keys)))
+    st = ft.stack_flat_params([init_params(torch.Generator().manual_seed(q), cfg, dev)
+                               for q in seeds])
+    xr, cr, off, er = ft.padded_rows(x, c, mask, eps, use_mask=False)
+    rows, worst = [], 0.0
+    for ep in (1, 50):
+        plain = ft._fused_multi_call_plain(st, xr, cr, off, seeds, cfg, lw, ep, 1e-3, er)
+        full = ft._fused_multi_call_padded(st, x, c, mask, seeds, cfg, lw, ep, 1e-3, eps,
+                                           use_mask=False)
+        gaps, ok = grid_gaps(full, plain, GRID_TOL[ep])
+        row = {"kernel": "K2 use_mask=False", "rows": off, "epochs": ep, **gaps}
+        worst = max(worst, gaps["params_max_abs"])
+        if ep == 50:
+            spread = grid_gaps(ft._fused_multi_call_plain(one_ulp(st), xr, cr, off, seeds,
+                                                          cfg, lw, ep, 1e-3, er),
+                               plain, GRID_TOL[ep])[0]
+            row["plain_one_ulp"] = spread
+            row["metrics_held_vs"] = "plain_one_ulp metrics_max_rel_to_total"
+            ok = (gaps["params_max_abs"] <= GRID_TOL[ep]["params_abs"]
+                  and gaps["metrics_max_rel_to_total"] <= spread["metrics_max_rel_to_total"])
+            static = ft._fused_multi_call_padded(st, x, c, mask, seeds, cfg, lw, ep, 1e-3,
+                                                 eps, use_mask=False, _metrics="static")
+            row["static_params_bit_for_bit_full"] = all(
+                torch.equal(a, b) for a, b in zip(static[0], full[0]))
+            row["static_row0_is_full_last_row"] = torch.equal(static[1][:, 0], full[1][:, -1])
+            row["static_rows_after_0_zero"] = bool((static[1][:, 1:] == 0).all())
+            ok = ok and row["static_params_bit_for_bit_full"] and \
+                row["static_row0_is_full_last_row"] and row["static_rows_after_0_zero"]
+        rows.append(row)
+        emit({"k2_options_vs_plain": row})
+        if not ok:
+            fail(f"K2's options disagree with the plain version or the full store: {row}")
+    return rows, worst
+
+
+def drivers_phase(np, torch, dev, corpora, cfg, lw, card):
+    """The port's research drivers at full width and cut depth (DRV_* above):
+    grid_probe, run_baseline_configs, serve_latency, hot_probe and
+    mint_provenance_probe (its P3 builds in a thread beside the others),
+    robustness_row; each driver's kernel launches counted from 0 just before
+    it and read just after → (the phase's record, K2's options' largest
+    params gap).  With ``dev`` the CPU (a rehearsal, at sizes set by the
+    caller) the launch counts, which count CUDA launches, are not held."""
+    import threading
+
+    from defensive_model_vae_tpu_torch.ops import fused_scale as fs
+    from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
+    from defensive_model_vae_tpu_torch.scripts import (grid_probe, hot_probe,
+                                                       mint_provenance_probe, robustness_row,
+                                                       run_baseline_configs, serve_latency)
+
+    info, launches, times = {}, {}, {}
+    mint = {}
+
+    def mint_run():
+        with tempfile.TemporaryDirectory() as work:
+            t0 = time.perf_counter()
+            try:
+                mint["out"] = mint_provenance_probe.probe(pathlib.Path(work), build=True)
+            except Exception as e:  # noqa: BLE001 (reported and failed below)
+                mint["error"] = repr(e)
+            mint["seconds"] = time.perf_counter() - t0
+
+    mint_thread = threading.Thread(target=mint_run, daemon=True)
+    mint_thread.start()
+
+    t0 = time.perf_counter()
+    info["k2_options"], k2_opt_err = k2_option_checks(np, torch, dev, corpora, cfg, lw)
+    times["k2_options"] = time.perf_counter() - t0
+
+    def counted(name, fn):
+        ft.fused_call.launches = ft._fused_multi_call.launches = 0
+        ft._fused_multi_call.static_launches = ft._fused_multi_call.unmasked_launches = 0
+        fs._fused_scale_call.launches = 0
+        fs._fused_scale_call.knob_launches["dwT"] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        times[name] = time.perf_counter() - t0
+        launches[name] = {"k1": ft.fused_call.launches, "k2": ft._fused_multi_call.launches,
+                          "k2_static": ft._fused_multi_call.static_launches,
+                          "k2_unmasked": ft._fused_multi_call.unmasked_launches,
+                          "k3": fs._fused_scale_call.launches,
+                          "k3_dwT": fs._fused_scale_call.knob_launches["dwT"]}
+        return out
+
+    grid = counted("grid_probe", lambda: grid_probe.run_probe(
+        grid_probe.SEEDS, DRV_GRID_EPOCHS, 1, dev))
+    if any(not all(np.isfinite(v["all_s"])) for v in grid["variants"].values()):
+        fail(f"grid_probe timed a variant as non-finite: {grid['variants']}")
+    base = counted("run_baseline_configs", lambda: run_baseline_configs.run(
+        DRV_BASE_EPOCHS, DRV_CONV_EPOCHS, os.path.join(HERE, "DefensiveData"), dev))
+    pairs = [(k, base[k]["loss_first"], base[k]["final_loss"])
+             for k in ("config1_dense_sce1", "config4_conditioned")]
+    pairs.append(("config3_conv_long_windows", base["config3_conv_long_windows"]["loss_first"],
+                  base["config3_conv_long_windows"]["loss_final"]))
+    c2 = base["config2_four_scenarios"]
+    pairs += [(f"config2 {k}", c2["first_losses"][k], c2["final_losses"][k])
+              for k in c2["final_losses"]]
+    bad = [p for p in pairs if not (np.isfinite(p[2]) and p[2] < p[1])]
+    no_kernel = dev.type == "cuda" and "kernel launch" not in c2["mode"]
+    if bad or not c2["generated_finite"] or no_kernel:
+        fail(f"run_baseline_configs: losses not finite and descending ({bad}), samples "
+             f"not finite, or no kernel launched: {c2}")
+    serve = counted("serve_latency", lambda: serve_latency.measure(
+        serve_latency.CKPT, DRV_SERVE_STEPS, DRV_SERVE_REPS, SERVE_BATCH, DRV_CONCURRENCY,
+        DRV_LOAD_REQUESTS, dev))
+    tail = serve["serve_tail_under_load"]
+    if tail["errors"] or tail["requests"] != DRV_CONCURRENCY * DRV_LOAD_REQUESTS:
+        fail(f"serve_latency: {tail['errors']} errors under load: {tail}")
+    hot = counted("hot_probe", lambda: hot_probe.run_probe(
+        SCALE_N, DRV_HOT_EPOCHS, SCALE_TILE, 1, dev))
+    t0 = time.perf_counter()
+    row = robustness_row.build()
+    times["robustness_row"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mint_thread.join(timeout=120)
+    times["mint_wait"] = time.perf_counter() - t0
+    if mint_thread.is_alive() or "error" in mint:
+        fail(f"mint_provenance_probe did not finish: {mint.get('error', 'timed out')}")
+    m = mint["out"]
+    if m["comment_line_in_cu_rekeys"] != ["fused_scale"] or m["checkout_path_rekeys"] \
+            or not m["a_deterministic_across_loads"]:
+        fail(f"mint_provenance_probe: unexpected keys: {m}")
+    times["mint_provenance_probe"] = mint["seconds"]
+    want = {"grid_probe": {"k1": 2 * grid_probe.SEEDS, "k2": 8, "k2_static": 2,
+                           "k2_unmasked": 6},
+            "run_baseline_configs": {"k1": 2, "k2": 1}, "hot_probe": {"k3": 10, "k3_dwT": 4}}
+    for name, counts in want.items():
+        got = {k: launches[name][k] for k in counts}
+        if dev.type == "cuda" and got != counts:
+            fail(f"{name} launched {got}, expected {counts}")
+    info.update(
+        depth={"grid_epochs": DRV_GRID_EPOCHS, "grid_reps": 1, "baseline_epochs": DRV_BASE_EPOCHS,
+               "conv_epochs": DRV_CONV_EPOCHS, "serve_steps": DRV_SERVE_STEPS,
+               "serve_reps": DRV_SERVE_REPS, "concurrency": DRV_CONCURRENCY,
+               "load_requests": DRV_LOAD_REQUESTS, "hot_epochs": DRV_HOT_EPOCHS, "hot_reps": 1},
+        grid_probe=grid, baseline_configs=base,
+        serve_latency={k: serve[k] for k in ("serve", "generate", "serve_tail_under_load",
+                                             "serve_throughput", "startup_s", "diverged_rows",
+                                             "total_request_rows")},
+        hot_probe=hot, mint_provenance_probe=m,
+        robustness_row_cells_beating=sum(c["median_beats"] for sc in row["scenarios"].values()
+                                         for c in sc["cells"].values()),
+        launches=launches, driver_s=times, budget_s=DRV_BUDGET_S, card=card)
+    return info, k2_opt_err
+
+
 def edges_phase(np, torch, dev, w4, ep_root, card):
     """The migration and control edges on the card: ``.pth`` export and
     import, the optimizer state's round trip, the horizon sweep, the linear
@@ -1862,7 +2071,8 @@ def main() -> int:
         for name, b in built.items():
             ptxas = [ln.strip() for ln in b["log"].splitlines()
                      if "registers" in ln or "spill" in ln or "entry function" in ln]
-            info[name] = {"seconds": b["seconds"], "cached": b["cached"], "ptxas": ptxas}
+            info[name] = {"seconds": b["seconds"], "nvcc_s": b["nvcc_s"],
+                          "cached": b["cached"], "ptxas": ptxas}
             _build.load(name)
         # K3's and K4's bf16 weight gradients on the tensor cores: their
         # library's SASS holds mma instructions (HMMA; HGMMA for wgmma);
@@ -3118,7 +3328,15 @@ def main() -> int:
         info.update(parallel_phase(np, torch, dev, ws, w4, card, gloo_world))
     k4_dp_launches = info["dp_launches"]
 
-    # ---- 28. kernels --------------------------------------------------------
+    # ---- 28. drivers: the research drivers at full width, cut depth ---------
+    with phase("drivers", DRV_BUDGET_S) as info:
+        drv, k2_opt_err = drivers_phase(np, torch, dev, corpora, cfg, lw, card)
+        info.update(drv)
+    drv_launches = drv["launches"]
+    grid_us = {v: {"us_per_epoch_seed": r["us_per_epoch_seed"], "cluster": r["cluster"]}
+               for v, r in drv["grid_probe"]["variants"].items()}
+
+    # ---- 29. kernels --------------------------------------------------------
     emit({"check_s": time.perf_counter() - t_start, "card": card})
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
     bound_ms = 1e3 * max(flops / FP32_FLOPS, nbytes / HBM_BYTES_S)
@@ -3204,7 +3422,8 @@ def main() -> int:
             ("k3_dwT", "fused_scale_knob.cu", "ops/fused_scale.py:256", abl_launches["k3_dwT"],
              dwt_bench["params_max_abs"], dwt_ms, dwt_plain_ms,
              (dwt_flops, dwt_bytes, BF16_FLOPS),
-             {"epochs": ABL_EPOCHS, "max_abs_err_epochs": ABL_PLAIN_EPOCHS}),
+             {"epochs": ABL_EPOCHS, "max_abs_err_epochs": ABL_PLAIN_EPOCHS,
+              "drivers_launches": drv_launches["hot_probe"]["k3_dwT"]}),
             ("p3", "cache_decoy.cu", "scripts/cache_probe.py:102", p3_launches,
              p3_check["max_abs_err"], p3_ms, p3_plain_ms, (p3_flops, p3_bytes, FP32_FLOPS),
              {"library_call": "torch.add(ones, x, alpha=2.0)", "bytes": p3_bytes,
@@ -3224,6 +3443,9 @@ def main() -> int:
         "source": f"{PKG}/csrc/fused_trainer.cu",
         "replaces": "defensive_model_vae_tpu/ops/fused_trainer.py:326",
         "launches": launches,
+        # the drivers phase: grid_probe's single_x32 and run_baseline_configs
+        "drivers_launches": (drv_launches["grid_probe"]["k1"]
+                             + drv_launches["run_baseline_configs"]["k1"]),
         "max_abs_err": k1_err["max_abs_err"],
         "ms": kernel_ms,
         "ms_of": ENTRY_MS_OF,
@@ -3266,6 +3488,16 @@ def main() -> int:
         "source": f"{PKG}/csrc/fused_trainer.cu",
         "replaces": "defensive_model_vae_tpu/ops/fused_trainer.py:454",
         "launches": k2_launches,
+        # the drivers phase (grid_probe, run_baseline_configs): every K2
+        # launch, those under _metrics="static" and those of use_mask=False
+        "drivers_launches": (drv_launches["grid_probe"]["k2"]
+                             + drv_launches["run_baseline_configs"]["k2"]),
+        "static_launches": drv_launches["grid_probe"]["k2_static"],
+        "unmasked_launches": drv_launches["grid_probe"]["k2_unmasked"],
+        # use_mask=False on the four corpora padded to 134 rows, 50 epochs
+        "options_max_abs_err": k2_opt_err,
+        "grid_probe": grid_us,
+        "grid_probe_epochs": DRV_GRID_EPOCHS,
         "clusters": len(keys),
         # the four corpora against the plain version, 50 epochs, explicit ε
         "max_abs_err": k2_err["max_abs_err"],
@@ -3288,6 +3520,8 @@ def main() -> int:
         "source": scale_src,
         "replaces": "defensive_model_vae_tpu/ops/fused_scale.py:191",
         "launches": k3_launches,
+        # hot_probe in the drivers phase (its dwT launches among them)
+        "drivers_launches": drv_launches["hot_probe"]["k3"],
         # at the bench shape, over its first PROBE_EPOCHS epochs
         "max_abs_err": k3_bench["params_max_abs"],
         "max_abs_err_epochs": PROBE_EPOCHS,

@@ -58,8 +58,11 @@
 // row-offset array, and its means over B_s rows are JAX's masked means with
 // max(sum mask, 1) = B_s as the denominator: padded rows cost no work.  Its
 // Philox counter is (epoch, row within its own corpus, group), so cluster s
-// draws exactly what K1 draws for that corpus and seed.  The seed grid has
-// no offsets: every cluster reads the one shared corpus.
+// draws exactly what K1 draws for that corpus and seed.  JAX's
+// use_mask=False (padded rows counted as rows, each drawing its noise) is
+// the padded blocks passed whole as ragged rows (ops/fused_trainer.py::
+// padded_rows), so it needs no code here.  The seed grid has no offsets:
+// every cluster reads the one shared corpus.
 //
 // Bound.  One epoch is 758,272 B + 10 x 128,942 FLOP (the forward, dW and
 // the activation gradients, then Adam): 103 MFLOP at B = 134, 309 GFLOP for
@@ -608,7 +611,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
           float* work, float* __restrict__ metrics, int B,
           int epochs, float lr, float w_recon, float w_kld, float w_start,
           float w_time, unsigned long long seed, unsigned long long* timer, int cs,
-          int rank) {
+          int rank, int metrics_step) {
   float* const red = smem_base() + RED_OFF;  // [5][NT]
   const int tid = threadIdx.x;
   // the elementwise passes: the cluster's threads in turn
@@ -777,7 +780,7 @@ train_run(const float* __restrict__ x, const float* __restrict__ cond,
         const float start_l = red[2 * NT] / (fB * 2.f);
         const float time_l = red[3 * NT] / fB + red[4 * NT] / (fB * (T - 1));
         const float total = w_recon * recon_l + w_kld * kld + w_start * start_l + w_time * time_l;
-        float* row = metrics + (long long)e * 8;
+        float* row = metrics + (long long)e * metrics_step;
         row[0] = total; row[1] = recon_l; row[2] = kld; row[3] = start_l; row[4] = time_l;
         row[5] = 0.f; row[6] = 0.f; row[7] = 0.f;
       }
@@ -869,7 +872,7 @@ train_kernel(const float* __restrict__ x, const float* __restrict__ cond,
              int B, const unsigned long long* __restrict__ seeds, unsigned long long seed,
              float* P, float* work, float* __restrict__ metrics, int epochs, float lr,
              float w_recon, float w_kld, float w_start, float w_time,
-             unsigned long long* timer) {
+             unsigned long long* timer, int metrics_step) {
   const int s = (int)cluster_index(), cs = (int)cluster_size(), rank = (int)cluster_rank();
   long long x0 = 0, e0 = (long long)s * B;
   int n = B;
@@ -882,7 +885,8 @@ train_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   train_run<K1_AUTO_BIT>(x + x0 * F, cond + x0 * C, eps_in ? eps_in + e0 * Z : nullptr,
             P + (long long)s * N_PARAMS, work + s * run_floats + e0 * row_floats,
             metrics + (long long)s * epochs * 8, n, epochs, lr, w_recon, w_kld,
-            w_start, w_time, seeds ? seeds[s] : seed, s == 0 ? timer : nullptr, cs, rank);
+            w_start, w_time, seeds ? seeds[s] : seed, s == 0 ? timer : nullptr, cs, rank,
+            metrics_step);
 }
 
 // Launch S runs as S clusters: `cluster` 0 picks the largest size (16, 8,
@@ -893,7 +897,7 @@ int launch(int S, int cluster, int* taken, cudaStream_t stream,
            const float* x, const float* cond, const float* eps, const int* row_off, int B,
            const unsigned long long* seeds, unsigned long long seed, float* params,
            float* work, float* metrics, int epochs, float lr, float w_recon, float w_kld,
-           float w_start, float w_time, unsigned long long* timer) {
+           float w_start, float w_time, unsigned long long* timer, int metrics_step = 8) {
   if (cluster < 0 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)))
     return (int)cudaErrorInvalidValue;
   int err = (int)cudaFuncSetAttribute(train_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -929,7 +933,7 @@ int launch(int S, int cluster, int* taken, cudaStream_t stream,
   *taken = cs;
   err = (int)cudaLaunchKernelEx(&cfg, train_kernel, x, cond, eps, row_off, B, seeds, seed,
                                 params, work, metrics, epochs, lr, w_recon, w_kld, w_start,
-                                w_time, timer);
+                                w_time, timer, metrics_step);
   return err ? err : (int)cudaGetLastError();
 }
 
@@ -960,16 +964,20 @@ int K1_ENTRY(k1_fused_train)(const float* x, const float* cond, const float* eps
 // K2: S runs, run s on rows row_off[s]..row_off[s+1] (device int32, S+1) of
 // x, cond and eps, keyed by seeds[s] (device uint64, S).  work holds
 // S k1_work_floats(0) + row_off[S] (k1_work_floats(1) - k1_work_floats(0))
-// floats.
+// floats.  metrics_static (JAX's _metrics="static", a diagnostic of the
+// metrics store's cost): every epoch's row goes to row 0 of its run, so the
+// history is invalid and the parameters are those of the full store, bit
+// for bit (a runtime argument: no other instance is built).
 int K1_ENTRY(k2_fused_train_multi)(const float* x, const float* cond, const float* eps,
                          const int* row_off, const unsigned long long* seeds,
                          int S, float* params, float* work, float* metrics,
                          int epochs, float lr, float w_recon, float w_kld,
-                         float w_start, float w_time, int cluster,
+                         float w_start, float w_time, int metrics_static, int cluster,
                          unsigned long long* timer, int* taken, void* stream) {
   if (S <= 0 || epochs <= 0 || !row_off) return (int)cudaErrorInvalidValue;
   return launch(S, cluster, taken, (cudaStream_t)stream, x, cond, eps, row_off, 0, seeds, 0,
-                params, work, metrics, epochs, lr, w_recon, w_kld, w_start, w_time, timer);
+                params, work, metrics, epochs, lr, w_recon, w_kld, w_start, w_time, timer,
+                metrics_static ? 0 : 8);
 }
 
 // K1 on a grid: S runs on the same B rows of x and cond, run s keyed by

@@ -28,6 +28,7 @@ import pathlib
 import shutil
 import subprocess
 import sysconfig
+import threading
 import time
 from typing import Dict
 
@@ -61,6 +62,7 @@ _K2_ARGS = [
     ctypes.c_int, ctypes.c_float,      # epochs, lr
     ctypes.c_float, ctypes.c_float,    # loss weights: recon, kld
     ctypes.c_float, ctypes.c_float,    # start, time
+    ctypes.c_int,                      # metrics store: 0 full, 1 static (row 0)
     ctypes.c_int, _P, _P, _P,          # cluster size (0: pick), timer, size taken, stream
 ]
 _SEEDS_ARGS = [
@@ -201,10 +203,36 @@ def _lib_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+class _Nvcc:
+    """One object's ``nvcc``, started at once; a thread reads its output and
+    notes the seconds from the start to its exit."""
+
+    def __init__(self, cmd, obj: pathlib.Path):
+        self.obj, self.log, self.seconds = obj, "", None
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        self.log, _ = self.proc.communicate()
+        self.seconds = time.perf_counter() - self._t0
+
+    def wait(self, timeout: float) -> bool:
+        """Whether it ended within ``timeout`` seconds."""
+        self._reader.join(timeout)
+        return not self._reader.is_alive()
+
+    def kill(self):
+        self.proc.kill()
+        self._reader.join()
+
+
 def _start_build(name: str):
-    """Start one ``nvcc`` per object of kernel ``name``; → (the processes
-    with their object paths, final path) or None when the library for
-    these sources is already built."""
+    """Start one ``nvcc`` per object of kernel ``name``; → (the objects'
+    :class:`_Nvcc`, final path) or None when the library for these sources
+    is already built."""
     out = _lib_path(name)
     if out.exists():
         return None
@@ -217,28 +245,22 @@ def _start_build(name: str):
     for i, (src, defines) in enumerate(KERNELS[name][0]):
         obj = out.with_suffix(f".{i}.{os.getpid()}.o")
         cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(CSRC / src)]
-        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True), obj))
+        procs.append(_Nvcc(cmd, obj))
     return procs, out
 
 
-def _finish_build(name: str, started, timeout: float) -> str:
-    """Wait for the objects, link them into the library → nvcc's output."""
+def _finish_build(name: str, started, timeout: float):
+    """Wait for the objects, link them into the library → (nvcc's output,
+    each object's nvcc seconds)."""
     procs, out = started
     deadline = time.monotonic() + timeout
-    logs, failed = [], None
-    for proc, obj in procs:
-        try:
-            log, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            for p, _ in procs:
-                p.kill()
-                p.communicate()
+    for p in procs:
+        if not p.wait(max(1.0, deadline - time.monotonic())):
+            for q in procs:
+                q.kill()
             raise RuntimeError(f"nvcc for {name} did not finish in {timeout} s")
-        logs.append(log)
-        if proc.returncode != 0 and failed is None:
-            failed = log
-    objs = [obj for _, obj in procs]
+    failed = next((p.log for p in procs if p.proc.returncode != 0), None)
+    objs = [p.obj for p in procs]
     try:
         if failed is not None:
             raise RuntimeError(f"nvcc failed for {name}:\n{failed}")
@@ -252,19 +274,25 @@ def _finish_build(name: str, started, timeout: float) -> str:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return "".join(logs)
+    return "".join(p.log for p in procs), [p.seconds for p in procs]
+
+
+def object_names(name: str):
+    """Kernel ``name``'s objects as ``source [defines]`` strings."""
+    return [" ".join((src,) + tuple(defines)) for src, defines in KERNELS[name][0]]
 
 
 def build_all(timeout: float = 300.0) -> Dict[str, dict]:
     """Build every kernel, one ``nvcc`` per object, all started together.
-    → {name: {"seconds": wall time, "log": nvcc's output (ptxas -v)}}."""
+    → {name: {"seconds": wall time to its link, "log": nvcc's output
+    (ptxas -v), "nvcc_s": {object: its nvcc's seconds}, "cached"}}."""
     t0 = time.perf_counter()
     started = {n: _start_build(n) for n in KERNELS}
     out = {}
     for n, s in started.items():
-        log = "" if s is None else _finish_build(n, s, timeout)
+        log, secs = ("", []) if s is None else _finish_build(n, s, timeout)
         out[n] = {"seconds": time.perf_counter() - t0, "log": log,
-                  "cached": s is None}
+                  "nvcc_s": dict(zip(object_names(n), secs)), "cached": s is None}
     return out
 
 

@@ -323,13 +323,14 @@ def unpack_kernel_params(flat: torch.Tensor, plist_like) -> List[torch.Tensor]:
 # ---- K1: the wrapper, its kernel and its plain version ----------------------
 
 def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
-                      mask=None, backward="manual"):
+                      mask=None, backward="manual", static_metrics=False):
     """K1's plain version: per epoch ε (explicit, or Philox), the gradients
     (the ported manual backward, or autograd of :func:`_forward_loss` for
     ``backward="auto"``, JAX's ``_epoch_body`` :287-323), Adam; one metrics
     row [total, recon, kld, start, time, 0, 0, 0] per epoch.  ``mask``
     (B, 1) makes the means masked ones over max(Σ mask, 1) rows (K2's padded
-    rows)."""
+    rows).  ``static_metrics`` writes every epoch's row to row 0 (K2's
+    ``_metrics="static"``; the other rows stay 0)."""
     from .manual_grad import manual_value_and_grad
 
     _check_backward_arg(backward)
@@ -346,7 +347,7 @@ def _fused_call_plain(plist, x_flat, cond, seed, cfg, weights, epochs, lr, eps,
         comps, grads = value_and_grad(params, x_flat, cond, e, cfg, weights, mask=mask)
         tf = torch.tensor(float(t + 1), dtype=torch.float32, device=dev)
         params, m, v = _adam_step(params, grads, m, v, tf, lr)
-        metrics[t, :5] = comps
+        metrics[0 if static_metrics else t, :5] = comps
     return params, metrics
 
 
@@ -512,10 +513,13 @@ def _stack_runs(outs):
 
 
 def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
-                      weights, epochs, lr, rows, row_off=None, cluster=0, timer=None):
+                      weights, epochs, lr, rows, row_off=None, cluster=0, timer=None,
+                      static_metrics=False):
     """Launch S K1 runs in one grid of S clusters through the library
     function ``entry``, with ``rows`` rows of ε and of work in all; →
-    ((stacked params, (S, E, 8)), the cluster size taken)."""
+    ((stacked params, (S, E, 8)), the cluster size taken).  With
+    ``row_off`` (K2), ``static_metrics`` is the entry's runtime choice of
+    the metrics store (row 0 of each run; the other rows are zeros)."""
     from ._build import load
 
     dev = x_flat.device
@@ -527,7 +531,8 @@ def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
         raise ValueError(f"{kernel}: parameter list does not match the compiled model")
     w0, w1 = int(lib.k1_work_floats(0)), int(lib.k1_work_floats(1))
     work = torch.empty(S * w0 + rows * (w1 - w0), dtype=torch.float32, device=dev)
-    metrics = torch.empty((S, epochs, 8), dtype=torch.float32, device=dev)
+    metrics = (torch.zeros if static_metrics else torch.empty)(
+        (S, epochs, 8), dtype=torch.float32, device=dev)
     # the seeds' 64 bits as int64, which the kernel reads as uint64 (as
     # ``fused_call`` passes one seed through ``c_ulonglong``)
     seeds_t = torch.tensor([(int(s) + 2 ** 63) % 2 ** 64 - 2 ** 63 for s in seeds],
@@ -537,15 +542,15 @@ def _grid_call_kernel(entry, kernel, stacked, x_flat, cond, eps, seeds, cfg,
     taken, launch = _launch_tail(cluster, timer, stream)
     tail = [ctypes.c_float(lr), ctypes.c_float(weights.recon),
             ctypes.c_float(weights.kld), ctypes.c_float(weights.start),
-            ctypes.c_float(weights.time), *launch]
+            ctypes.c_float(weights.time)]
     body = [params.data_ptr(), work.data_ptr(), metrics.data_ptr()]
     if row_off is None:
         err = getattr(lib, entry)(*head, seeds_t.data_ptr(), S, *body, x_flat.shape[0],
-                                  epochs, *tail)
+                                  epochs, *tail, *launch)
     else:
         off_t = torch.tensor(row_off, dtype=torch.int32).to(dev)
         err = getattr(lib, entry)(*head, off_t.data_ptr(), seeds_t.data_ptr(), S, *body,
-                                  epochs, *tail)
+                                  epochs, *tail, int(static_metrics), *launch)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed (cluster {cluster}): CUDA error {err}")
     outs = [unpack_kernel_params(params[s], plists[s]) for s in range(S)]
@@ -565,11 +570,12 @@ def _check_grid(kernel, stacked, x_flat, seeds, epochs):
 
 
 def _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg, weights,
-                            epochs, lr, eps=None, backward="manual"):
+                            epochs, lr, eps=None, backward="manual", _metrics="full"):
     """K2's plain version in JAX's padded-and-masked form
     (fused_trainer.py:596-641): each run's rows padded to n_max with copies
     of its first row (ε rows zero), a (n_max, 1) row mask, masked means over
-    max(Σ mask, 1) rows, Philox noise keyed by ``seeds[s]`` over n_max rows."""
+    max(Σ mask, 1) rows, Philox noise keyed by ``seeds[s]`` over n_max rows;
+    ``_metrics="static"`` as :func:`_fused_multi_call`'s."""
     n = [row_off[s + 1] - row_off[s] for s in range(len(seeds))]
     n_max = max(n)
     outs = []
@@ -584,14 +590,18 @@ def _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg, weights,
         outs.append(_fused_call_plain(
             _run_params(stacked, s), padded(x_flat, x_flat[lo:lo + 1]),
             padded(cond, cond[lo:lo + 1]), int(seeds[s]), cfg, weights, epochs, lr,
-            e, mask=mask, backward=backward))
+            e, mask=mask, backward=backward, static_metrics=_metrics == "static"))
     return _stack_runs(outs)
+
+
+METRICS_STORES = ("full", "static")
 
 
 def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
                       cfg: CVAEConfig, weights: LossWeights, epochs: int, lr: float,
                       eps: Optional[torch.Tensor] = None, backward: str = "manual",
-                      cluster: int = 0, timer: Optional[torch.Tensor] = None):
+                      cluster: int = 0, timer: Optional[torch.Tensor] = None,
+                      _metrics: str = "full"):
     """S whole training runs on ragged corpora: (stacked params, (S, E, 8)).
 
     Run s trains ``stacked[:, s]`` on rows ``row_off[s]:row_off[s + 1]`` of
@@ -602,9 +612,20 @@ def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
     ``_fused_multi_call.launches``, or ``.auto_launches`` for the autodiff
     instance; ``cluster`` and ``timer`` as :func:`fused_call`'s, the size
     taken in ``_fused_multi_call.cluster``) or raises; on CPU tensors it
-    runs K2's plain version."""
+    runs K2's plain version.
+
+    ``_metrics`` (JAX :454-518, a diagnostic for ``scripts/grid_probe.py``):
+    ``"full"`` writes epoch t's metrics to row t; ``"static"`` writes every
+    epoch's to row 0, so the history is invalid (row 0 holds the last
+    epoch's row, the others are zeros) and the params are ``"full"``'s bit
+    for bit.  On the card it is a runtime argument of K2's entry, and its
+    launches are also counted in ``_fused_multi_call.static_launches``.
+    JAX's padded form and its ``use_mask`` go through
+    :func:`_fused_multi_call_padded`."""
     _check_backward_arg(backward)
     _check_cluster("K2", cluster)
+    if _metrics not in METRICS_STORES:
+        raise ValueError(f"K2: _metrics must be one of {METRICS_STORES}, got {_metrics!r}")
     dev = _check_grid("K2", stacked, x_flat, seeds, epochs)
     row_off = [int(r) for r in row_off]
     if (len(row_off) != len(seeds) + 1 or row_off[0] != 0
@@ -614,21 +635,80 @@ def _fused_multi_call(stacked, x_flat, cond, row_off: Sequence[int], seeds,
                          f"{x_flat.shape[0]} by at least one row a run")
     if dev.type == "cpu":
         return _fused_multi_call_plain(stacked, x_flat, cond, row_off, seeds, cfg,
-                                       weights, epochs, lr, eps, backward)
+                                       weights, epochs, lr, eps, backward, _metrics)
     R = x_flat.shape[0]
     F, C, Z = cfg.seq_len * cfg.dim, cfg.cond_dim, cfg.latent_dim
     _check_kernel_inputs("K2", cfg, dev, ("x_flat", x_flat, (R, F)),
                          ("cond", cond, (R, C)), ("eps", eps, (R, Z)))
     out, _fused_multi_call.cluster = _grid_call_kernel(
         _K1_ENTRIES[backward][1], "K2", stacked, x_flat, cond, eps, seeds, cfg, weights,
-        epochs, lr, R, row_off, cluster, timer)
+        epochs, lr, R, row_off, cluster, timer, _metrics == "static")
     _count_launch(_fused_multi_call, backward)
+    if _metrics == "static":
+        _fused_multi_call.static_launches += 1
     return out
 
 
 _fused_multi_call.launches = 0
 _fused_multi_call.auto_launches = 0
+_fused_multi_call.static_launches = 0
+_fused_multi_call.unmasked_launches = 0
 _fused_multi_call.cluster = None
+
+
+def padded_rows(x, cond, mask=None, eps=None, use_mask: bool = True):
+    """JAX's padded form of K2's corpora → the ragged rows K2 takes:
+    ``(x_flat, cond, row_off, eps)``.
+
+    ``x`` (S, B, T·D), ``cond`` (S, B, C), ``mask`` (S, B, 1) and ``eps``
+    (S, B, Z) are what JAX's ``_fused_multi_call`` (:528) takes.  With
+    ``use_mask=False`` (JAX's unmasked body) every row counts: the blocks
+    go whole, run s on rows s·B..(s+1)·B, its means and its Adam over all
+    B rows, padded ones included, each drawing its own ε row.  With
+    ``use_mask=True`` run s keeps the rows its mask marks, which must be
+    its first n_s ≥ 1 (mask ones, then zeros: the padding
+    ``fused_train_multi`` makes); JAX's masked means over Σ mask rows are
+    the ragged means over n_s."""
+    S, B = x.shape[:2]
+    if cond.shape[:2] != (S, B) or (eps is not None and eps.shape[:2] != (S, B)):
+        raise ValueError(f"K2: x, cond and eps need the same (S, B) = {(S, B)}")
+    if use_mask:
+        if mask is None or tuple(mask.shape) != (S, B, 1):
+            raise ValueError(f"K2: use_mask needs a mask of shape {(S, B, 1)}")
+        m = mask[..., 0].cpu()
+        n = (m > 0).sum(dim=1)
+        prefix = torch.arange(B)[None, :] < n[:, None]
+        if not torch.equal(m, prefix.to(m.dtype)) or int(n.min()) < 1:
+            raise ValueError("K2: each run's mask must be ones over its first rows "
+                             "(at least one), then zeros")
+    else:
+        n = torch.full((S,), B)
+    n = n.tolist()
+    row_off = np.concatenate([[0], np.cumsum(n)]).tolist()
+
+    def rows(a):
+        return (None if a is None
+                else torch.cat([a[s, :n[s]] for s in range(S)]).contiguous())
+
+    return rows(x), rows(cond), row_off, rows(eps)
+
+
+def _fused_multi_call_padded(stacked, x, cond, mask, seeds, cfg: CVAEConfig,
+                             weights: LossWeights, epochs: int, lr: float,
+                             eps: Optional[torch.Tensor] = None, backward: str = "manual",
+                             use_mask: bool = True, _metrics: str = "full",
+                             cluster: int = 0, timer: Optional[torch.Tensor] = None):
+    """K2 in JAX's padded form and with its options (``_fused_multi_call``
+    :528): :func:`padded_rows`, then :func:`_fused_multi_call`.  No kernel
+    change serves ``use_mask``: both settings are ragged rows, the blocks
+    whole or their marked rows.  A launch with ``use_mask=False`` is also
+    counted in ``_fused_multi_call.unmasked_launches``."""
+    x_flat, c, row_off, e = padded_rows(x, cond, mask, eps, use_mask)
+    out = _fused_multi_call(stacked, x_flat, c, row_off, seeds, cfg, weights, epochs, lr,
+                            e, backward, cluster, timer, _metrics)
+    if x_flat.device.type == "cuda" and not use_mask:
+        _fused_multi_call.unmasked_launches += 1
+    return out
 
 
 def _fused_seeds_call_plain(stacked, x_flat, cond, seeds, cfg, weights, epochs, lr,

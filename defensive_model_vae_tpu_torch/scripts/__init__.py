@@ -11,8 +11,24 @@
   what was built before it (P3 launched between the rounds);
 - ``python -m defensive_model_vae_tpu_torch.scripts.conv_profile`` — where
   an epoch of the Conv1D VAE trainer (BASELINE config 3) goes on the card:
-  its kernels, device busy time and host share.
+  its kernels, device busy time and host share;
+- ``python -m defensive_model_vae_tpu_torch.scripts.grid_probe`` — the seed
+  grid on K2 (unmasked, masked, static metrics, fewer seeds) against K1
+  launched once a seed;
+- ``python -m defensive_model_vae_tpu_torch.scripts.run_baseline_configs``
+  — BASELINE.json's configurations on the fixtures, as one report;
+- ``python -m defensive_model_vae_tpu_torch.scripts.serve_latency`` — the
+  HTTP endpoint's latency at batch 1, its tail under concurrent clients and
+  a full-batch throughput;
+- ``python -m defensive_model_vae_tpu_torch.scripts.hot_probe`` — K3's hbm ε
+  stream: its generation against its streaming, and the dwT knob;
+- ``python -m defensive_model_vae_tpu_torch.scripts.robustness_row`` — the
+  scoreboard's selection-free row from the committed train-seed sweeps;
+- ``python -m defensive_model_vae_tpu_torch.scripts.mint_provenance_probe``
+  — which edits and moves of the checkout re-key the kernel build cache.
 
 Each runs on the card; those that take ``--device`` also on the CPU with
-``--device cpu``.
+``--device cpu``.  The research drivers (``grid_probe`` to
+``mint_provenance_probe``) each print one JSON line and write a file only
+under ``--out``.
 """

@@ -78,8 +78,7 @@ def objects(specs=SPECS):
 
 
 def object_name(obj) -> str:
-    src, defines = _build.KERNELS[obj[0]][0][obj[1]]
-    return " ".join((src,) + tuple(defines))
+    return _build.object_names(obj[0])[obj[1]]
 
 
 def _cubin_cmd(obj, out: pathlib.Path):

@@ -27,7 +27,7 @@ from defensive_model_vae_tpu_torch.pipeline import (
 from defensive_model_vae_tpu_torch.train import load_checkpoint, save_checkpoint
 
 BANNED = ("jax", "jaxlib", "optax", "orbax", "pandas", "matplotlib",
-          "defensive_model_vae_tpu")
+          "defensive_model_vae_tpu", "bench")
 PORT = REPO_ROOT / "defensive_model_vae_tpu_torch"
 SCE2_CKPT = REPO_ROOT / "results" / "checkpoints" / "sce2"
 
@@ -176,7 +176,7 @@ def test_card_path_reaches_neither_viz_nor_matplotlib():
     they run), and importing them all, chip_smoke.py included, loads
     neither."""
     card = ([REPO_ROOT / "chip_smoke.py", PORT / "serving.py"]
-            + [f for d in ("ops", "control", "train", "dnda", "parallel")
+            + [f for d in ("ops", "control", "train", "dnda", "parallel", "scripts")
                for f in sorted((PORT / d).rglob("*.py"))])
     bad = [(str(f.relative_to(REPO_ROOT)), m) for f in card for m in _all_import_names(f)
            if "viz" in m.split(".") or m.split(".")[0] == "matplotlib"]
@@ -189,7 +189,7 @@ def test_card_path_reaches_neither_viz_nor_matplotlib():
         import chip_smoke
         import defensive_model_vae_tpu_torch as pkg
         from defensive_model_vae_tpu_torch import cli, serving
-        for sub in ("ops", "control", "train", "dnda", "parallel"):
+        for sub in ("ops", "control", "train", "dnda", "parallel", "scripts"):
             mod = importlib.import_module(f"{pkg.__name__}.{sub}")
             for info in pkgutil.iter_modules(mod.__path__):
                 importlib.import_module(f"{mod.__name__}.{info.name}")
