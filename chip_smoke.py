@@ -9,15 +9,20 @@ traceback and a non-zero exit:
 
 1. ``device``      torch, CUDA, the card, ``nvidia-smi``, ``nvcc``, triton;
 2. ``build``       ``nvcc`` builds every kernel of the port, all at once
-                   (each object's nvcc seconds printed),
-                   beside the cache probe's rounds A and A2, P3 (built,
-                   launched, held against x * 2 + 1 bit for bit) and round
-                   B (``scripts/cache_probe.py``); the tensor-core
+                   (each object's nvcc seconds printed); the tensor-core
                    instructions of K3/K4's library counted (``cuobjdump``);
-3. ``cache_probe`` the probe's verdicts for each object; P3 timed in
-                   turns with ``torch.add`` through its wrapper and on the
-                   device alone (calls replayed from a CUDA graph, every
-                   output bit for bit x * 2 + 1); the host split of a call;
+                   then the cache probe's decoy: P3 compiled in round B's
+                   directory, launched and held against x * 2 + 1 bit for
+                   bit; and its rounds A, A2 and B start, two nvccs at a
+                   time (``scripts/cache_probe.py``);
+3. ``cache_probe`` (printed after ``scoreboard``: the rounds finish beside
+                   the phases in between, two at a time, and P3's
+                   host timing wants a quiet host) the probe's verdicts for
+                   each object; P3
+                   timed in turns with ``torch.add`` through its wrapper and
+                   on the device alone (calls replayed from a CUDA graph,
+                   every output bit for bit x * 2 + 1); the host split of a
+                   call;
 4. ``k1_vs_plain`` kernel K1 against its plain torch version on the card
                    (explicit ε, sce2 B=16 and sce4 B=134, 1 and 50 epochs);
 5. ``train``       the main path: ``fused_train`` on sce4 at full width
@@ -196,6 +201,25 @@ traceback and a non-zero exit:
                    and ``mint_provenance_probe`` (the build cache's keys
                    from copies of the package; P3 built at two paths, in a
                    thread beside the others); each driver's launches counted;
+30. ``scoreboard`` (before ``cache_probe`` and ``kernels``) the scoreboard
+                   and the last four research drivers at full width and cut
+                   depth (SB_*), on the data phase's episode trees and the
+                   dnda phase's SUT episodes, every output in a temporary
+                   directory: ``pipeline.reproduce_scoreboard`` over the four
+                   scenarios at the seeds their committed artifacts record
+                   (reports finite or null, boards of the published-best
+                   cells); again through ``cli.py reproduce --check`` in
+                   process (exit 0: the card path is deterministic at a
+                   fixed seed), and on a copy with one sce2 metric moved by
+                   1e-3 (exit 1, that metric alone failed); the boards'
+                   beats printed as the written trees', not the human data's;
+                   ``seed_sweep`` (its ranking ``rank_candidates`` on its own
+                   rows); ``multiseed_validate`` chunked, stopped after its
+                   first chunk and resumed (bit for bit the uninterrupted
+                   run), and its gap to one tracking call; ``stage_timings``
+                   (K2's warm and timed 4 x 300 launches counted);
+                   ``dnda_drift_probe`` with ``staged_sweep``'s maxima equal
+                   to ``score_directory``'s rows;
 29. ``kernels``    one line listing every ported kernel with its launches on
                    its main path, its error, times and bound (P2 and P3 also
                    their device times, their library call's both ways, and
@@ -203,7 +227,8 @@ traceback and a non-zero exit:
                    bound over the cluster's SMs and its phase split; K4 its
                    launches on the parallel phase's dp tier; K1, K2, K3 and
                    dwT their launches in the drivers phase, K2 those under
-                   each option and grid_probe's µs an epoch and seed).
+                   each option and grid_probe's µs an epoch and seed, and
+                   its launches in the scoreboard phase).
 
 Before the ``kernels`` line, the check's own seconds (``check_s``).  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
@@ -546,7 +571,38 @@ PAR_GLOO_LABEL = "two gloo ranks sharing one card (not a multi-card figure)"
 DRV_GRID_EPOCHS, DRV_BASE_EPOCHS, DRV_CONV_EPOCHS, DRV_HOT_EPOCHS = 300, 100, 50, 20
 DRV_SERVE_STEPS, DRV_SERVE_REPS, DRV_CONCURRENCY, DRV_LOAD_REQUESTS = 32, 2, 4, 2
 DRV_BUDGET_S = 30
-# the cache probe: each round's nvccs, and the phase that waits for them
+# the scoreboard phase: pipeline.reproduce_scoreboard over the four
+# scenarios (never cut), then cli reproduce --check at the same seeds (the
+# four again, never cut) and on sce2 with a metric moved, and the
+# last four research drivers at full width (CVAEConfig()) and cut depth
+# (ROADMAP Queue 3's table of cuts; JAX's script's value in brackets):
+# seed_sweep on sce2 at SB_SWEEP_SEEDS train seeds (0:70) x SB_SWEEP_EPOCHS
+# epochs (3000), selection seeds SB_SELECT_SEEDS (5,6,8), the top 1 on the
+# band seeds SB_BAND_SEEDS (70 seeds); multiseed_validate on sce2 at
+# SB_BAND_GENS (70 seeds, all four scenarios) in chunks of SB_CHUNK;
+# stage_timings on sce2 alone (all four), K2 whole at 4 x 300 epochs, the
+# DNDA stage over the dnda phase's SUT episodes with host preparation
+# inline (a pool of one a core); dnda_drift_probe at SB_DRIFT_REPS reps (4),
+# inline.  Every output goes to a temporary directory, never results/.
+SB_SWEEP_SEEDS, SB_SWEEP_EPOCHS, SB_SELECT_SEEDS, SB_BAND_SEEDS = "0:2", 300, "5", "0,1"
+SB_BAND_GENS, SB_CHUNK, SB_K2_EPOCHS, SB_DRIFT_REPS = "0,1", 1, 300, 1
+# the committed artifact's metric that the check must catch when moved
+SB_PERTURB = ("sce2", "velocity_js_divergence", 1e-3)
+# The phase is tracking-bound: 19 tracker runs of 1-10 s each (the four
+# scenarios twice, sce2 once more, and ten in the drivers).  Reckoned at
+# 60 s from sce2's one run_scenario, it took 114.3 s alone and 146.4-184.6 s
+# in the whole check (NVIDIA H100 80GB HBM3, 700 W), the reproduction and
+# its check 39-61 s each; the watchdog is the worst of those runs times the
+# spread of host speed seen between calls (1.5x)
+SB_BUDGET_S = 280
+# the cache probe: each round's nvccs, and the phase that waits for them.
+# Its three rounds (nine objects, three of them K1's, the build's longest)
+# start once the build is done: beside it they held it up (the build 134.3 s
+# with them, 64.5-87.8 s alone, on the card machine's 8 cores).
+# They run beside the phases that follow, cache_probe.SLOTS at a time, so
+# that the phases' host-clock times (the plain versions', the walls) keep
+# the other cores to themselves (one object's nvcc is one process of one
+# thread at a time).
 CACHE_PROBE_ROUND_S = 85.0
 # P3 and P2 timed beside their one-call library yardsticks, each in blocks
 # taken in turns (kernel, library, library, kernel) TURN_ROUNDS times, so
@@ -1411,11 +1467,12 @@ def sut_chain(np, dev, trees, work):
             "finite_metrics": metrics}
 
 
-def dnda_phase(np, torch, dev, trees, card):
+def dnda_phase(np, torch, dev, trees, card, work=None):
     """SUT risk scoring: the collision sweep on the card against the numpy
     oracle (256 synthetic frames, both SAT dtypes, index for index; DA/RL
     from finalize_frame bit for bit the host's), the pinned frame, the
-    sweep's times at 3,072 frames, and the SUT chain (``sut_chain``)."""
+    sweep's times at 3,072 frames, and the SUT chain (``sut_chain``), which
+    writes its episodes under ``work`` (a temporary directory if None)."""
     from defensive_model_vae_tpu_torch.dnda import Road, Vehicle, core, spline
     from defensive_model_vae_tpu_torch.scripts import dnda_sweep
 
@@ -1457,7 +1514,10 @@ def dnda_phase(np, torch, dev, trees, card):
         info[f"sweep_{dt}"] = dnda_sweep.time_sweep(tiled, dev, dt, DNDA_REPS)
     info["host_sweep_s"] = host_s
     info["host_sweep_s_scaled"] = host_s * len(tiled) / len(preps)
-    with tempfile.TemporaryDirectory() as work:
+    if work is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            info["sut"] = sut_chain(np, dev, trees, tmp)
+    else:
         info["sut"] = sut_chain(np, dev, trees, work)
     info["card"] = card
     return info
@@ -1886,6 +1946,225 @@ def drivers_phase(np, torch, dev, corpora, cfg, lw, card):
     return info, k2_opt_err
 
 
+def driver_line(main_fn, argv, key):
+    """A research driver's ``main(argv)`` in process → the payload of its one
+    JSON line on stdout (fails on another exit code or more lines)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    if rc != 0 or len(lines) != 1:
+        fail(f"{key} exited {rc} with {len(lines)} lines on stdout: {buf.getvalue()[-2000:]}")
+    return json.loads(lines[0])[key]
+
+
+def scoreboard_phase(np, torch, dev, ep_root, sut_dir, card):
+    """The scoreboard and the last four research drivers (SB_* above) on the
+    data phase's episode trees (``ep_root``) and the dnda phase's SUT
+    episodes (``sut_dir``), with the committed checkpoints at full width →
+    (the phase's record, K2's launches in ``stage_timings``).  Every number
+    of the scoreboard describes the written trees, not the human data."""
+    import io
+
+    from defensive_model_vae_tpu_torch import cli, scenarios
+    from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
+    from defensive_model_vae_tpu_torch.pipeline import reproduce_scoreboard
+    from defensive_model_vae_tpu_torch.scripts import (dnda_drift_probe, multiseed_validate,
+                                                       seed_sweep, stage_timings)
+    from defensive_model_vae_tpu_torch.utils import jsonable
+
+    info, times = {}, {}
+    keys = list(scenarios.keys())
+    ckpt_root = os.path.join(HERE, "results", "checkpoints")
+    with tempfile.TemporaryDirectory() as work:
+        # ---- reproduce_scoreboard: the four scenarios at the recorded seeds
+        out = os.path.join(work, "out")
+        os.makedirs(out)
+        recorded = {}
+        for k in keys:
+            shutil.copy(os.path.join(HERE, "results", f"validation_{k}.json"), out)
+            with open(os.path.join(out, f"validation_{k}.json")) as f:
+                recorded[k] = json.load(f)["provenance"]["seed"]
+        t0 = time.perf_counter()
+        first = reproduce_scoreboard(ckpt_root, ep_root, out, device=dev)
+        times["reproduce"] = time.perf_counter() - t0
+        for k in keys:
+            with open(os.path.join(out, f"validation_{k}.json")) as f:
+                art = json.load(f)
+            report = first[k]["report"]
+            metrics = {m: v for m, v in art.items() if m != "provenance"}
+            # each metric finite, or null exactly where the report's is not
+            bad = [m for m, v in metrics.items()
+                   if not (v == report[m] and np.isfinite(v) if v is not None
+                           else not np.isfinite(report[m]))]
+            pub = scenarios.get(k).published_best
+            if art["provenance"]["seed"] != recorded[k] or bad or \
+                    set(first[k]["board"]) != set(pub) or \
+                    any(c["published_best"] != pub[m] for m, c in first[k]["board"].items()):
+                fail(f"reproduce_scoreboard on {k}: seed {art['provenance']['seed']} "
+                     f"(recorded {recorded[k]}), metrics {bad} not finite or not the "
+                     f"report's, board {first[k]['board']}")
+        with open(os.path.join(out, "scoreboard.json")) as f:
+            if json.load(f) != jsonable({k: first[k]["board"] for k in keys}):
+                fail("scoreboard.json is not the returned board")
+        def cli_reproduce(out_dir, scenario_keys):
+            """``cli.py reproduce --check`` in process → (exit code, stdout)."""
+            buf, code = io.StringIO(), 0
+            try:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(["reproduce", "--ckpt-root", ckpt_root, "--data-root", ep_root,
+                              "--out", out_dir, "--scenarios", ",".join(scenario_keys),
+                              "--check", "--device", str(dev)])
+            except SystemExit as e:
+                code = e.code
+            return code, buf.getvalue()
+
+        # the check rerun, through the CLI: every scenario at its recorded
+        # seed against the artifacts the first run wrote, no failure
+        t0 = time.perf_counter()
+        code, text = cli_reproduce(out, keys)
+        times["reproduce_check"] = time.perf_counter() - t0
+        if code != 0 or "CHECK OK" not in text:
+            fail(f"the check rerun at the same seeds exited {code}: {text[-3000:]}")
+        # one committed metric moved: the CLI's check must fail on it alone
+        key, metric, delta = SB_PERTURB
+        moved = os.path.join(work, "moved")
+        shutil.copytree(out, moved)
+        path = os.path.join(moved, f"validation_{key}.json")
+        with open(path) as f:
+            art = json.load(f)
+        art[metric] += delta
+        with open(path, "w") as f:
+            json.dump(art, f)
+        t0 = time.perf_counter()
+        code, text = cli_reproduce(moved, [key])
+        times["reproduce_moved"] = time.perf_counter() - t0
+        head, _, failed = text.partition("CHECK FAILED")
+        caught = json.loads(failed[failed.index("\n"):]) if failed else {}
+        if code != 1 or set(caught) != {key} or set(caught[key]) != {metric}:
+            fail(f"a {metric} moved by {delta} gave exit {code} and failures {caught}")
+        beats = {k: sum(c["beats"] for c in first[k]["board"].values()) for k in keys}
+        print(f"scoreboard beats (written trees, not the human data): {beats}", flush=True)
+        info["reproduce"] = {
+            "data": "written trees, not the human data", "seeds": recorded, "beats": beats,
+            "cells": {k: len(first[k]["board"]) for k in keys},
+            "metrics": {k: {m: v for m, v in first[k]["report"].items() if m != "provenance"}
+                        for k in keys},
+            "check": "CHECK OK", "moved_caught": caught[key]}
+
+        # ---- seed_sweep on sce2
+        t0 = time.perf_counter()
+        sweep_file = os.path.join(work, "seed_sweep.json")
+        doc = driver_line(seed_sweep.main, [
+            "--scenario", "sce2", "--train-seeds", SB_SWEEP_SEEDS, "--epochs",
+            str(SB_SWEEP_EPOCHS), "--select-gen-seeds", SB_SELECT_SEEDS, "--band-eval-top", "1",
+            "--band-gen-seeds", SB_BAND_SEEDS, "--data-root", ep_root, "--device", str(dev),
+            "--out", sweep_file], "seed_sweep")
+        times["seed_sweep"] = time.perf_counter() - t0
+        with open(sweep_file) as f:
+            if json.load(f) != doc:
+                fail("seed_sweep's --out differs from its line")
+        # jsonable writes a -inf margin (a non-finite mean) as null
+        rows = [dict(r, worst_margin=float("-inf") if r["worst_margin"] is None
+                     else r["worst_margin"]) for r in doc["ranked"]]
+        ident = ("train_seed", "epochs", "lr", "kld_weight", "point_mode")
+        if [[r[i] for i in ident] for r in seed_sweep.rank_candidates(rows)] != \
+                [[r[i] for i in ident] for r in rows] or len(rows) != 2 or \
+                len(doc["band_eval"]) != 1:
+            fail(f"seed_sweep's ranking is not rank_candidates on its rows: {doc['ranked']}")
+        info["seed_sweep"] = {
+            "ranked": [{k: r[k] for k in (*ident, "beats_published", "worst_margin", "means",
+                                          "final_loss")} for r in doc["ranked"]],
+            "band_eval": doc["band_eval"]}
+
+        # ---- multiseed_validate on sce2: chunked, stopped and resumed, one call
+        def band_run(tag, chunk):
+            return driver_line(multiseed_validate.main, [
+                "--scenarios", "sce2", "--gen-seeds", SB_BAND_GENS, "--data-root", ep_root,
+                "--ckpt-root", ckpt_root, "--chunk", str(chunk), "--device", str(dev),
+                "--out", os.path.join(work, f"band_{tag}.json")], "multiseed_validate")
+
+        class Stopped(Exception):
+            pass
+
+        t0 = time.perf_counter()
+        chunked = band_run("chunked", SB_CHUNK)
+        times["multiseed_chunked"] = time.perf_counter() - t0
+        real, calls = multiseed_validate.generate_and_track_multi, []
+
+        def stop_after_first(*args, **kwargs):
+            if calls:
+                raise Stopped
+            calls.append(kwargs["seeds"])
+            return real(*args, **kwargs)
+
+        multiseed_validate.generate_and_track_multi = stop_after_first
+        try:
+            band_run("resumed", SB_CHUNK)
+            fail("the interrupted multiseed_validate run did not stop")
+        except Stopped:
+            pass
+        finally:
+            multiseed_validate.generate_and_track_multi = real
+        with open(os.path.join(work, "band_resumed.json.progress")) as f:
+            saved = sorted(json.load(f)["sce2"]["reports"])
+        t0 = time.perf_counter()
+        resumed = band_run("resumed", SB_CHUNK)
+        times["multiseed_resumed"] = time.perf_counter() - t0
+        if resumed["sce2"] != chunked["sce2"]:
+            fail("the resumed band differs from the uninterrupted chunked run")
+        t0 = time.perf_counter()
+        single = band_run("single", 0)
+        times["multiseed_single"] = time.perf_counter() - t0
+        gap = {m: {"max_abs": max(abs(a - b) for a, b in zip(
+                       chunked["sce2"][m]["values"], single["sce2"][m]["values"])),
+                   "band_std": single["sce2"][m]["std"]}
+               for m in multiseed_validate.METRICS}
+        info["multiseed_validate"] = {
+            "gen_seeds": SB_BAND_GENS, "chunk": SB_CHUNK, "saved_before_stop": saved,
+            "resumed_bit_for_bit": True, "chunked_vs_single": gap,
+            "gap_exceeds_spread": [m for m, g in gap.items() if g["max_abs"] > g["band_std"]],
+            "band": {m: {k: single["sce2"][m][k] for k in ("mean", "std")}
+                     for m in multiseed_validate.METRICS}}
+
+        # ---- stage_timings: pipeline_sce2, K2 at 4 x 300, the DNDA stage
+        ft._fused_multi_call.launches = 0
+        t0 = time.perf_counter()
+        stages = driver_line(stage_timings.main, [
+            "--data-root", ep_root, "--sut-dir", sut_dir, "--ckpt-root", ckpt_root,
+            "--scenarios", "sce2", "--epochs", str(SB_K2_EPOCHS), "--processes", "1",
+            "--device", str(dev)], "stage_timings")
+        times["stage_timings"] = time.perf_counter() - t0
+        k2_launches = ft._fused_multi_call.launches
+        n_sut = len([f for f in os.listdir(sut_dir) if f.endswith(".csv")])
+        want = {"pipeline_sce2", "sce2_conditions", "sce2_generate", "sce2_track",
+                "sce2_validate", f"multi_kernel_train_4x{SB_K2_EPOCHS}",
+                f"dnda_sweep_{n_sut}_episodes"}
+        if set(stages) != want or (dev.type == "cuda" and k2_launches != 2):
+            fail(f"stage_timings gave stages {sorted(stages)} (expected {sorted(want)}) and "
+                 f"{k2_launches} K2 launches (expected 2)")
+        info["stage_timings"] = {k: v["seconds"] for k, v in stages.items()}
+
+        # ---- dnda_drift_probe at one rep; its stages against score_directory
+        t0 = time.perf_counter()
+        drift = driver_line(dnda_drift_probe.main, [
+            "--sut-dir", sut_dir, "--reps", str(SB_DRIFT_REPS), "--processes", "1",
+            "--device", str(dev)], "dnda_drift_probe")
+        frames = dnda_drift_probe._smoke(sut_dir, dev)
+        times["dnda_drift_probe"] = time.perf_counter() - t0
+        info["dnda_drift_probe"] = {"summary": drift["summary"], "reps": drift["reps"],
+                                    "frames_matched": frames}
+    info.update(depth={"sweep_seeds": SB_SWEEP_SEEDS, "sweep_epochs": SB_SWEEP_EPOCHS,
+                       "select_gen_seeds": SB_SELECT_SEEDS, "band_seeds": SB_BAND_SEEDS,
+                       "band_gens": SB_BAND_GENS, "chunk": SB_CHUNK,
+                       "stage_scenarios": ["sce2"], "k2_epochs": SB_K2_EPOCHS,
+                       "drift_reps": SB_DRIFT_REPS},
+                driver_s=times, k2_launches=k2_launches, budget_s=SB_BUDGET_S, card=card)
+    return info, k2_launches
+
+
 def edges_phase(np, torch, dev, w4, ep_root, card):
     """The migration and control edges on the card: ``.pth`` export and
     import, the optimizer state's round trip, the horizon sweep, the linear
@@ -2054,19 +2333,17 @@ def main() -> int:
         print(smi[0] if smi else "nvidia-smi: no output", flush=True)
     card = smi[0] if smi else "unknown"
 
-    # ---- 2. build, beside the cache probe's rounds of nvcc ---------------
-    # The probe's rounds A and A2 start first; P3 is then built, launched and
-    # held against its plain version (the decoy); round B starts; then every
-    # kernel of the port builds, all side by side on the host's cores.
-    probe = cache_probe.Probe(timeout=CACHE_PROBE_ROUND_S)
-    atexit.register(probe.close)  # a failed phase leaves no nvcc running
+    # ---- 2. build, then the cache probe's rounds of nvcc start -----------
+    # Every kernel of the port builds, all side by side on the host's cores;
+    # then P3 is compiled in round B's directory, launched and held against
+    # its plain version (the decoy), and the probe's rounds start.  They run
+    # beside the phases that follow, cache_probe.SLOTS nvccs at a time, and
+    # are collected at the end (phase 3).
+    # (not "probe": train_scale uses that name for its own)
+    nvcc_probe = cache_probe.Probe(timeout=CACHE_PROBE_ROUND_S, slots=cache_probe.SLOTS)
+    atexit.register(nvcc_probe.close)  # a failed phase leaves no nvcc running
     with phase("build", 240) as info:
-        probe.start("A")
-        probe.start("A2")
-        cdy.decoy.launches = 0
-        p3_check = probe.decoy(dev)
-        p3_launches = cdy.decoy.launches
-        probe.start("B")
+        t_build = time.perf_counter()
         built = _build.build_all()
         for name, b in built.items():
             ptxas = [ln.strip() for ln in b["log"].splitlines()
@@ -2082,102 +2359,11 @@ def main() -> int:
         info["sass_mma"] = sass_mma
         if not sass_mma["fused_scale"]["HMMA"] + sass_mma["fused_scale"]["HGMMA"]:
             fail(f"K3/K4's library holds no tensor-core instruction: {sass_mma}")
-
-    # ---- 3. cache_probe: the rounds' verdicts, and P3 timed ---------------
-    with phase("cache_probe", 90) as info:
-        cp = probe.finish()
-        emit({"cache_probe": cp})
-        if p3_launches != 1 or not p3_check["exact"]:
-            fail(f"P3 launched {p3_launches} times (expected 1) or is not x * 2 + 1 "
-                 f"bit for bit: {p3_check}")
-        if not all(r["determinism"] and r["context"] for r in cp["specs"].values()):
-            fail("the cache probe printed no verdict for some object")
-        xp = torch.randn(cdy.SHAPE, generator=torch.Generator().manual_seed(1)).to(dev)
-        ones = torch.ones_like(xp)
-        want = cdy._decoy_plain(xp.cpu())
-
-        def p3_call():
-            return cdy.decoy(xp)
-
-        def lib_call():
-            return torch.add(ones, xp, alpha=2.0)
-
-        def per_call(fn):
-            return cuda_ms(lambda: [fn() for _ in range(P3_TIMING_REPS)])[0] / P3_TIMING_REPS
-
-        # through the wrapper: what a caller sees, host work and launch
-        for warm in (p3_call, lib_call, lambda: cdy._decoy_plain(xp)):
-            per_call(warm)
-        p3_med, p3_spread = in_turns(lambda: per_call(p3_call), lambda: per_call(lib_call))
-        p3_plain_ms = per_call(lambda: cdy._decoy_plain(xp))
-        # on the device alone: P3_GRAPH_CALLS calls captured in one graph
-        # each; P3's capture fails unless it launches on torch's current
-        # stream (the capture stream), and every replayed output is checked
-        graphs, outs = {}, {}
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        for name, fn in (("kernel", p3_call), ("library", lib_call)):
-            with torch.cuda.stream(side):
-                fn()
-            torch.cuda.current_stream().wait_stream(side)
-            graphs[name] = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graphs[name]):
-                outs[name] = [fn() for _ in range(P3_GRAPH_CALLS)]
-        p3_dev_med, p3_dev_spread = in_turns(
-            lambda: device_ms(graphs["kernel"].replay, P3_GRAPH_CALLS),
-            lambda: device_ms(graphs["library"].replay, P3_GRAPH_CALLS))
-        want_dev = want.to(dev)
-        p3_graph_exact = all(torch.equal(o, want_dev) for o in outs["kernel"])
-        if not p3_graph_exact:
-            fail("P3 replayed from a CUDA graph is not x * 2 + 1 bit for bit")
-        del graphs, outs
-        # the host split of one call: each part alone, host clock
-        out = torch.empty_like(xp)
-        idx, n, optr, xptr = dev.index or 0, xp.numel(), out.data_ptr(), xp.data_ptr()
-        raw = cdy._raw_stream(idx)
-        p3_ctypes = _build.load("cache_decoy").p3_decoy  # the same launch through ctypes
-        f32 = torch.float32
-        p3_split_us = {
-            "loop": host_us(lambda: None),
-            "checks": host_us(lambda: xp.dtype is not f32 or not xp.is_cuda
-                              or not xp.is_contiguous()),
-            "alloc": host_us(lambda: torch.empty_like(xp)),
-            "args": host_us(lambda: (xp.data_ptr(), out.data_ptr(), xp.numel(),
-                                     xp.get_device())),
-            "stream_raw": host_us(lambda: cdy._raw_stream(idx)),
-            "stream_current_dev": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
-            "stream_current": host_us(lambda: torch.cuda.current_stream().cuda_stream),
-            "launch": host_us(lambda: cdy._launch(xptr, optr, n, raw)),
-            "ctypes_launch": host_us(lambda: p3_ctypes(xptr, optr, n, raw)),
-            "call": host_us(p3_call),
-            "library_call": host_us(lib_call),
-        }
-
-        def ctypes_call():  # the wrapper as it is, its launch through ctypes
-            if xp.dtype is not f32 or not xp.is_cuda or not xp.is_contiguous():
-                raise ValueError("unreachable")
-            o = torch.empty_like(xp)
-            p3_ctypes(xp.data_ptr(), o.data_ptr(), xp.numel(), cdy._raw_stream(xp.get_device()))
-            return o
-
-        # the whole call through ctypes in turns with torch.add (host clock)
-        med, spread = in_turns(lambda: host_us(ctypes_call, blocks=1),
-                               lambda: host_us(lib_call, blocks=1))
-        p3_split_us["ctypes_call_in_turns"] = {"ctypes_call": med["kernel"],
-                                               "library_call": med["library"],
-                                               "spread": {"ctypes_call": spread["kernel"],
-                                                          "library_call": spread["library"]}}
-        p3_ms, p3_lib_ms = p3_med["kernel"], p3_med["library"]
-        p3_timing = {"ms": p3_ms, "device_ms": p3_dev_med["kernel"], "library_ms": p3_lib_ms,
-                     "library_device_ms": p3_dev_med["library"],
-                     "spread": {"ms": p3_spread["kernel"], "device_ms": p3_dev_spread["kernel"],
-                                "library_ms": p3_spread["library"],
-                                "library_device_ms": p3_dev_spread["library"]},
-                     "host_split_us": p3_split_us}
-        info.update(p3_launches=p3_launches, p3_exact=p3_check["exact"],
-                    p3_graph_exact=p3_graph_exact,
-                    round_s=cp["round_s"], probe_s=cp["seconds"], all_stable=cp["all_stable"],
-                    nvcc=cp["nvcc"], p3=p3_timing, p3_plain_ms=p3_plain_ms, card=card)
+        info["build_s"] = time.perf_counter() - t_build
+        cdy.decoy.launches = 0
+        p3_check = nvcc_probe.decoy(dev)
+        p3_launches = cdy.decoy.launches
+        nvcc_probe.start()
 
     # ---- 4. K1 against its plain version ----------------------------------
     k1_err = {}
@@ -2374,8 +2560,10 @@ def main() -> int:
         info.update(metrics=metrics, n_valid=int(ok2.sum()), card=card)
 
     # ---- 10. dnda: SUT risk scoring, the collision sweep on the card ---------
+    sut_work = tempfile.TemporaryDirectory()  # the SUT episodes, for the scoreboard phase
+    atexit.register(sut_work.cleanup)
     with phase("dnda", 30) as info:
-        info.update(dnda_phase(np, torch, dev, trees, card))
+        info.update(dnda_phase(np, torch, dev, trees, card, sut_work.name))
 
     # ---- 11. K3 and K4 against their plain versions ------------------------
     # a block takes ceil(steps / SMs) 32-row steps: one in the 4096- and
@@ -3336,6 +3524,110 @@ def main() -> int:
     grid_us = {v: {"us_per_epoch_seed": r["us_per_epoch_seed"], "cluster": r["cluster"]}
                for v, r in drv["grid_probe"]["variants"].items()}
 
+    # ---- 30. scoreboard: reproduce_scoreboard and the last four drivers -------
+    with phase("scoreboard", SB_BUDGET_S) as info:
+        sb, k2_sb_launches = scoreboard_phase(np, torch, dev, ep_root,
+                                              os.path.join(sut_work.name, "score"), card)
+        info.update(sb)
+
+    # ---- 3. cache_probe: the rounds' verdicts, and P3 timed ---------------
+    # (run last: the probe's nvccs, started after the build, finish beside
+    # the phases since, and P3's host timing wants a quiet host)
+    with phase("cache_probe", 90) as info:
+        cp = nvcc_probe.finish()
+        emit({"cache_probe": cp})
+        if p3_launches != 1 or not p3_check["exact"]:
+            fail(f"P3 launched {p3_launches} times (expected 1) or is not x * 2 + 1 "
+                 f"bit for bit: {p3_check}")
+        if not all(r["determinism"] and r["context"] for r in cp["specs"].values()):
+            fail("the cache probe printed no verdict for some object")
+        xp = torch.randn(cdy.SHAPE, generator=torch.Generator().manual_seed(1)).to(dev)
+        ones = torch.ones_like(xp)
+        want = cdy._decoy_plain(xp.cpu())
+
+        def p3_call():
+            return cdy.decoy(xp)
+
+        def lib_call():
+            return torch.add(ones, xp, alpha=2.0)
+
+        def per_call(fn):
+            return cuda_ms(lambda: [fn() for _ in range(P3_TIMING_REPS)])[0] / P3_TIMING_REPS
+
+        # through the wrapper: what a caller sees, host work and launch
+        for warm in (p3_call, lib_call, lambda: cdy._decoy_plain(xp)):
+            per_call(warm)
+        p3_med, p3_spread = in_turns(lambda: per_call(p3_call), lambda: per_call(lib_call))
+        p3_plain_ms = per_call(lambda: cdy._decoy_plain(xp))
+        # on the device alone: P3_GRAPH_CALLS calls captured in one graph
+        # each; P3's capture fails unless it launches on torch's current
+        # stream (the capture stream), and every replayed output is checked
+        graphs, outs = {}, {}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        for name, fn in (("kernel", p3_call), ("library", lib_call)):
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            graphs[name] = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graphs[name]):
+                outs[name] = [fn() for _ in range(P3_GRAPH_CALLS)]
+        p3_dev_med, p3_dev_spread = in_turns(
+            lambda: device_ms(graphs["kernel"].replay, P3_GRAPH_CALLS),
+            lambda: device_ms(graphs["library"].replay, P3_GRAPH_CALLS))
+        want_dev = want.to(dev)
+        p3_graph_exact = all(torch.equal(o, want_dev) for o in outs["kernel"])
+        if not p3_graph_exact:
+            fail("P3 replayed from a CUDA graph is not x * 2 + 1 bit for bit")
+        del graphs, outs
+        # the host split of one call: each part alone, host clock
+        out = torch.empty_like(xp)
+        idx, n, optr, xptr = dev.index or 0, xp.numel(), out.data_ptr(), xp.data_ptr()
+        raw = cdy._raw_stream(idx)
+        p3_ctypes = _build.load("cache_decoy").p3_decoy  # the same launch through ctypes
+        f32 = torch.float32
+        p3_split_us = {
+            "loop": host_us(lambda: None),
+            "checks": host_us(lambda: xp.dtype is not f32 or not xp.is_cuda
+                              or not xp.is_contiguous()),
+            "alloc": host_us(lambda: torch.empty_like(xp)),
+            "args": host_us(lambda: (xp.data_ptr(), out.data_ptr(), xp.numel(),
+                                     xp.get_device())),
+            "stream_raw": host_us(lambda: cdy._raw_stream(idx)),
+            "stream_current_dev": host_us(lambda: torch.cuda.current_stream(dev).cuda_stream),
+            "stream_current": host_us(lambda: torch.cuda.current_stream().cuda_stream),
+            "launch": host_us(lambda: cdy._launch(xptr, optr, n, raw)),
+            "ctypes_launch": host_us(lambda: p3_ctypes(xptr, optr, n, raw)),
+            "call": host_us(p3_call),
+            "library_call": host_us(lib_call),
+        }
+
+        def ctypes_call():  # the wrapper as it is, its launch through ctypes
+            if xp.dtype is not f32 or not xp.is_cuda or not xp.is_contiguous():
+                raise ValueError("unreachable")
+            o = torch.empty_like(xp)
+            p3_ctypes(xp.data_ptr(), o.data_ptr(), xp.numel(), cdy._raw_stream(xp.get_device()))
+            return o
+
+        # the whole call through ctypes in turns with torch.add (host clock)
+        med, spread = in_turns(lambda: host_us(ctypes_call, blocks=1),
+                               lambda: host_us(lib_call, blocks=1))
+        p3_split_us["ctypes_call_in_turns"] = {"ctypes_call": med["kernel"],
+                                               "library_call": med["library"],
+                                               "spread": {"ctypes_call": spread["kernel"],
+                                                          "library_call": spread["library"]}}
+        p3_ms, p3_lib_ms = p3_med["kernel"], p3_med["library"]
+        p3_timing = {"ms": p3_ms, "device_ms": p3_dev_med["kernel"], "library_ms": p3_lib_ms,
+                     "library_device_ms": p3_dev_med["library"],
+                     "spread": {"ms": p3_spread["kernel"], "device_ms": p3_dev_spread["kernel"],
+                                "library_ms": p3_spread["library"],
+                                "library_device_ms": p3_dev_spread["library"]},
+                     "host_split_us": p3_split_us}
+        info.update(p3_launches=p3_launches, p3_exact=p3_check["exact"],
+                    p3_graph_exact=p3_graph_exact,
+                    round_s=cp["round_s"], probe_s=cp["seconds"], all_stable=cp["all_stable"],
+                    nvcc=cp["nvcc"], p3=p3_timing, p3_plain_ms=p3_plain_ms, card=card)
+
     # ---- 29. kernels --------------------------------------------------------
     emit({"check_s": time.perf_counter() - t_start, "card": card})
     flops, nbytes = k1_flops_bytes(cfg, len(w4), epochs)
@@ -3492,6 +3784,8 @@ def main() -> int:
         # launch, those under _metrics="static" and those of use_mask=False
         "drivers_launches": (drv_launches["grid_probe"]["k2"]
                              + drv_launches["run_baseline_configs"]["k2"]),
+        # the scoreboard phase: stage_timings' warm and timed 4 x 300 runs
+        "scoreboard_launches": k2_sb_launches,
         "static_launches": drv_launches["grid_probe"]["k2_static"],
         "unmasked_launches": drv_launches["grid_probe"]["k2_unmasked"],
         # use_mask=False on the four corpora padded to 134 rows, 50 epochs

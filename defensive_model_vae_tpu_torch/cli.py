@@ -58,8 +58,16 @@ process a device, NCCL on the card and gloo with ``--device cpu``:
 
 Only rank 0 writes checkpoints, prints and (with ``--listen``) binds the
 port; the other ranks run their block of every request.  Without
-``torchrun`` these run as a world of one.  ``reproduce`` waits for the
-CARLA episode CSVs and exits.
+``torchrun`` these run as a world of one.  ``reproduce`` regenerates every
+scenario's ``validation_<sce>.json`` and ``scoreboard.json`` at the seeds the
+committed artifacts record (``--check`` exits 1 on any drift); its
+``--out`` defaults to ``results``, so point it elsewhere unless the
+committed artifacts are to be rewritten.  On episode trees written from
+the committed windows (``scripts/episodes.py``) the scoreboard describes
+that data, not the human logs:
+
+    python -m defensive_model_vae_tpu_torch.cli reproduce --data-root DIR \
+        --out OUT [--scenarios sce1,sce2] [--seeds sce2=0] [--check]
 Without ``--fused``/``--fused-scale``, ``--dtype bfloat16`` runs the scan
 trainer's bf16 chain.  A command that touches the device takes
 ``--device``, default ``cuda``; ``--device cpu`` runs on the CPU (the
@@ -294,11 +302,41 @@ def _cmd_loss_plot(args):
 
 
 def _cmd_reproduce(args):
-    """JAX's ``reproduce`` (cli.py:198) regenerates the published scoreboard
-    from the CARLA episode CSVs, which are not in this repository."""
-    raise SystemExit("reproduce needs the CARLA episode CSVs of the published runs "
-                     f"(looked for them under {args.data_root}); they are not in this "
-                     "repository, so the scoreboard cannot be regenerated yet")
+    """JAX's ``reproduce`` (cli.py:198): ``pipeline.reproduce_scoreboard``,
+    its board as a table, and with ``--check`` a verdict (exit 1 on drift,
+    the failures as strict JSON)."""
+    from . import scenarios
+    from .pipeline import reproduce_scoreboard
+    from .utils import jsonable
+
+    seeds = None
+    if args.seeds:
+        seeds = {k: int(v) for k, v in (pair.split("=") for pair in args.seeds.split(","))}
+    keys = args.scenarios.split(",") if args.scenarios else None
+    for key in keys or scenarios.REGISTRY:
+        tree = os.path.join(args.data_root, scenarios.get(key).town)
+        if not os.path.isdir(tree):
+            raise SystemExit(f"reproduce: no episode tree for {key} at {tree}")
+    out = reproduce_scoreboard(args.ckpt_root, args.data_root, args.out, scenario_keys=keys,
+                               seeds=seeds, check=args.check, device=args.device)
+    rows = ["scenario  metric                      ours        published  beats"]
+    for key, entry in out.items():
+        for m, cell in entry["board"].items():
+            rows.append(
+                f"{key:<9} {m:<26} {cell['ours']:<11.6f} "
+                f"{cell['published_best']:<10.6f} "
+                f"{'YES' if cell['beats'] else 'no'}"
+            )
+    print("\n".join(rows))
+    if args.check:
+        bad = {k: e["check_failures"] for k, e in out.items() if e.get("check_failures")}
+        if bad:
+            print("CHECK FAILED — regenerated values drifted from the "
+                  "committed artifacts:")
+            print(json.dumps(jsonable(bad), indent=2))
+            raise SystemExit(1)
+        print("CHECK OK: every regenerated metric matches its committed "
+              "artifact to 1e-6")
 
 
 def _cmd_dnda(args):
@@ -675,11 +713,19 @@ def build_parser() -> argparse.ArgumentParser:
     th.add_argument("--out-thw", default=None, help="histogram PNG")
     th.set_defaults(fn=_cmd_thw)
 
-    rp = sub.add_parser("reproduce", help="regenerate the validation scoreboard "
-                                          "(needs the CARLA episode CSVs)")
+    rp = sub.add_parser("reproduce", help="regenerate all validation JSONs + scoreboard "
+                                          "from checkpoints (one process, seeds from the "
+                                          "committed artifacts)")
     rp.add_argument("--ckpt-root", default="results/checkpoints")
     rp.add_argument("--data-root", default="DefensiveData")
     rp.add_argument("--out", default="results")
+    rp.add_argument("--scenarios", default=None, help="comma-separated subset (default: all)")
+    rp.add_argument("--seeds", default=None,
+                    help="sce1=1,sce2=0,... overrides (default: recorded)")
+    rp.add_argument("--check", action="store_true",
+                    help="falsifier mode: exit 1 if any regenerated metric deviates >1e-6 "
+                         "from its committed artifact")
+    rp.add_argument("--device", default="cuda")
     rp.set_defaults(fn=_cmd_reproduce)
 
     gf = sub.add_parser("gif", help="human-vs-model GIF animation")

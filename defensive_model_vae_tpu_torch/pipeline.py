@@ -16,10 +16,14 @@ Port of ``defensive_model_vae_tpu/pipeline.py``:
   the reference's naming scheme; :func:`validate` is the full metric sweep
   (JS, RMSE_frequency variants, STV surface RMSEs, plane RMSE) as one dict;
   :func:`provenance` and :func:`run_scenario` (:588) the one-shot workflow
-  that writes ``validation_<sce>.json``.
-
-``reproduce_scoreboard`` (:457) is not ported yet: it needs the episode
-CSVs and the seeds of the committed artifacts.
+  that writes ``validation_<sce>.json``;
+- :func:`reproduce_scoreboard` (:457) runs :func:`run_scenario` for every
+  scenario at the seeds recorded in the committed artifacts, writes
+  ``scoreboard.json`` against the published-best values and, with
+  ``check=True``, holds every regenerated metric to its committed value.
+  Its numbers describe whatever episode tree ``data_root`` holds: on trees
+  written from the committed windows (``scripts/episodes.py``) they are
+  not the published values, which need the CARLA logs.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import contextlib
 import json
 import os
 import subprocess
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -495,3 +500,110 @@ def run_scenario(
     with open(os.path.join(out_dir, f"validation_{sce.key}.json"), "w") as f:
         json.dump(jsonable(report), f, indent=2)
     return report
+
+
+def reproduce_scoreboard(
+    checkpoint_root: str,
+    data_root: str,
+    out_dir: str,
+    scenario_keys: Optional[Sequence[str]] = None,
+    seeds: Optional[Dict[str, int]] = None,
+    check: bool = False,
+    device="cuda",
+) -> Dict[str, Dict]:
+    """Regenerate every ``validation_<sce>.json`` and the scoreboard against
+    the published-best values from the committed checkpoints in one process
+    (JAX ``pipeline.py:457``).
+
+    Each scenario's generation seed is the one recorded in its existing
+    artifact's provenance block, so a plain rerun reproduces the committed
+    numbers; ``seeds`` overrides.  A seed that cannot be read falls back to
+    0 with a warning on stderr.
+
+    Returns ``{sce: {"report": …, "board": {metric: {ours, published_best,
+    beats}}}}`` and writes ``<out_dir>/scoreboard.json`` (a subset run
+    refreshes only its own scenarios' blocks).
+
+    ``check=True``: every numeric (or null, read as NaN) metric of the
+    committed artifact except ``provenance``, snapshotted before the run
+    overwrites it, is compared with its regenerated value at a relative
+    1e-6; a deviation, a non-finite value on one side only, or a missing or
+    unreadable artifact (``"__artifact__"``) lands under the scenario's
+    ``"check_failures"``.  No baseline is a failure."""
+    keys = list(scenario_keys or scenarios.REGISTRY)
+    out: Dict[str, Dict] = {}
+    for key in keys:
+        # the committed artifact is both the check's baseline and the
+        # source of the recorded seed: read it once, before the run
+        committed, committed_err = None, None
+        prev = os.path.join(out_dir, f"validation_{key}.json")
+        try:
+            with open(prev) as f:
+                committed = json.load(f)
+        except (OSError, ValueError) as e:
+            committed_err = f"{type(e).__name__}: {e}"
+
+        seed = (seeds or {}).get(key)
+        if seed is None:
+            seed = 0
+            try:
+                seed = int(committed["provenance"]["seed"])
+            except (KeyError, TypeError, ValueError):
+                print(
+                    f"WARNING: could not read recorded seed from {prev} "
+                    f"({committed_err or 'no provenance.seed'}); using seed 0 "
+                    f"— results will NOT match the committed artifact",
+                    file=sys.stderr,
+                )
+        report = run_scenario(os.path.join(checkpoint_root, key), key, data_root, out_dir,
+                              seed=seed, device=device)
+        out[key] = {
+            "report": dict(report),
+            "board": {
+                m: {"ours": float(report[m]), "published_best": pub,
+                    "beats": bool(report[m] < pub)}
+                for m, pub in (scenarios.get(key).published_best or {}).items()
+            },
+        }
+        if check:
+            out[key]["check_failures"] = _check_failures(committed, committed_err, report)
+
+    # subset runs refresh only their scenarios' blocks, preserving the rest
+    board_path = os.path.join(out_dir, "scoreboard.json")
+    board = {}
+    if os.path.exists(board_path):
+        try:
+            with open(board_path) as f:
+                board = json.load(f)
+        except (OSError, ValueError):
+            board = {}
+    board.update({key: entry["board"] for key, entry in out.items()})
+    with open(board_path, "w") as f:
+        json.dump(jsonable(board), f, indent=2)
+    return out
+
+
+def _check_failures(committed, committed_err, report) -> Dict[str, Dict]:
+    """The metrics of ``report`` that drifted from the committed artifact
+    (:func:`reproduce_scoreboard`'s ``check``)."""
+    if committed is None:
+        return {"__artifact__": {
+            "committed": None,
+            "error": committed_err or "no committed artifact to check against"}}
+    failures = {}
+    # jsonable stores a non-finite metric as null: a committed null is a
+    # metric too (NaN at commit time) and is compared as NaN
+    for m, v in committed.items():
+        if m == "provenance" or not (
+                v is None or (isinstance(v, (int, float)) and not isinstance(v, bool))):
+            continue
+        old = float("nan") if v is None else float(v)
+        new = report.get(m)
+        new = float(new) if new is not None else float("nan")
+        if np.isnan(old) and np.isnan(new):
+            continue
+        if not (np.isfinite(new) and np.isfinite(old)):
+            failures[m] = {"committed": v, "regenerated": new}
+        elif abs(new - old) > 1e-6 * max(1.0, abs(old)):
+            failures[m] = {"committed": old, "regenerated": new}
+    return failures

@@ -25,10 +25,24 @@
 - ``python -m defensive_model_vae_tpu_torch.scripts.robustness_row`` — the
   scoreboard's selection-free row from the committed train-seed sweeps;
 - ``python -m defensive_model_vae_tpu_torch.scripts.mint_provenance_probe``
-  — which edits and moves of the checkout re-key the kernel build cache.
+  — which edits and moves of the checkout re-key the kernel build cache;
+- ``python -m defensive_model_vae_tpu_torch.scripts.seed_sweep`` — train-seed
+  selection over the scan trainer, ranked against the published-best values;
+- ``python -m defensive_model_vae_tpu_torch.scripts.multiseed_validate`` —
+  the unselected multi-seed band of every scenario's validation metrics;
+- ``python -m defensive_model_vae_tpu_torch.scripts.stage_timings`` — the
+  warm production loop's stage times (pipeline, K2, the DNDA sweep);
+- ``python -m defensive_model_vae_tpu_torch.scripts.dnda_drift_probe`` — the
+  SUT sweep's time taken apart into preparation, sweep and finalize;
+- ``python -m defensive_model_vae_tpu_torch.scripts.build_timing`` — the
+  kernels' cold build, and the cache probe's rounds after it;
+- ``python -m defensive_model_vae_tpu_torch.scripts.episodes`` — the
+  committed windows written out as CARLA-format episode trees.
 
 Each runs on the card; those that take ``--device`` also on the CPU with
 ``--device cpu``.  The research drivers (``grid_probe`` to
-``mint_provenance_probe``) each print one JSON line and write a file only
-under ``--out``.
+``dnda_drift_probe``) each print one JSON line and write a file only under
+``--out``; ``seed_sweep``, ``multiseed_validate``, ``stage_timings`` and
+``dnda_drift_probe`` read episode trees and SUT episodes (``episodes``
+writes the trees).
 """

@@ -24,16 +24,20 @@ JAX's specs and the objects that serve them here:
   scale_prng_auto    fused_scale_auto.cu -DKS_AUTO_MODE=1: K3's f32_acts
                      autodiff instance
 
-Three rounds, each in a fresh temporary directory with every object's
-``nvcc -cubin`` started together: A and A2 in the canonical order; B,
-after the decoy (P3, ``ops/cache_decoy.py``, the port of JAX's ``_decoy``)
-was compiled in B's directory, built and launched, and held against its
-plain version bit for bit, in the reversed order.  Each ``nvcc`` is a
-process of its own, whose context is its directory, its flags and what
-was built before it, not this process's state; so the rounds run side by
-side (A and A2 first, B once the decoy has run), and ``chip_smoke.py``
-runs them beside its build of every kernel.  Each cubin is hashed (SHA-256, 12 hex digits); where two
-rounds' bytes differ, the hashes of their ``cuobjdump -sass`` decide.
+Three rounds, each in a fresh temporary directory: A and A2 in the
+canonical order; B, after the decoy (P3, ``ops/cache_decoy.py``, the port
+of JAX's ``_decoy``) was compiled in B's directory, built and launched,
+and held against its plain version bit for bit, in the reversed order.
+Each ``nvcc -cubin`` is a process of its own, whose context is its
+directory, its flags and what was built before it, not this process's
+state; so the rounds run side by side, once the decoy has run, from a
+:class:`Queue` that starts them in round order, at most ``slots`` at a
+time (all at once by default).  ``chip_smoke.py`` runs the decoy once its
+build of every kernel is done, then queues the rounds' nine nvccs
+``SLOTS`` at a time beside its later phases and collects them at
+its end (``scripts/build_timing.py`` times the build and the rounds).
+Each cubin is hashed (SHA-256, 12 hex digits); where two rounds' bytes
+differ, the hashes of their ``cuobjdump -sass`` decide.
 Verdicts as JAX's: ``deterministic`` / ``NONDETERMINISTIC-IN-CONTEXT``
 (A against A2) and ``context-stable`` / ``CONTEXT-DEPENDENT`` (A against
 B).  It prints a line per spec, the library key each object's library
@@ -50,6 +54,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -58,6 +63,10 @@ from .._device import resolve_device
 from ..ops import _build
 from ..ops import cache_decoy
 
+ROUNDS = ("A", "A2", "B")
+# the rounds' nvccs at a time when they run beside other work (chip_smoke.py's
+# later phases): two of the card machine's 8 cores, the rest left to the work
+SLOTS = 2
 # JAX's spec → (library, object index in _build.KERNELS[library][0])
 SPECS = (
     ("fused_whole", "fused_trainer", 0),
@@ -89,32 +98,75 @@ def _cubin_cmd(obj, out: pathlib.Path):
 
 def start_round(objs, workdir: pathlib.Path):
     """Start every object's ``nvcc -cubin`` into ``workdir`` at once →
-    [(object, cubin path, process)]."""
+    [(object, cubin path, its ``_build._Nvcc``, which notes its seconds)]."""
     workdir.mkdir(parents=True, exist_ok=True)
-    started = []
-    for i, obj in enumerate(objs):
-        path = workdir / f"{i}.cubin"
-        started.append((obj, path, subprocess.Popen(_cubin_cmd(obj, path),
-                                                     stdout=subprocess.PIPE,
-                                                     stderr=subprocess.STDOUT, text=True)))
-    return started
+    paths = [workdir / f"{i}.cubin" for i in range(len(objs))]
+    return [(obj, path, _build._Nvcc(_cubin_cmd(obj, path), path))
+            for obj, path in zip(objs, paths)]
+
+
+def round_jobs(root: pathlib.Path, objs):
+    """The three rounds' [(round, object, cubin path)], in round order (B's
+    objects reversed), each round in a directory of its own under ``root``."""
+    jobs = []
+    for rnd in ROUNDS:
+        order = objs if rnd != "B" else list(reversed(objs))
+        (root / rnd).mkdir(parents=True, exist_ok=True)
+        jobs += [(rnd, obj, root / rnd / f"{i}.cubin") for i, obj in enumerate(order)]
+    return jobs
+
+
+class Queue:
+    """The rounds' ``nvcc -cubin`` jobs, started in the order given by a
+    thread of their own, at most ``slots`` running at once (all at once
+    when None).  ``started``: {round: [(object, cubin path, _Nvcc)]}."""
+
+    def __init__(self, jobs, slots=None):
+        self.started = {rnd: [] for rnd, _, _ in jobs}
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, args=(jobs, slots), daemon=True)
+        self._thread.start()
+
+    def _run(self, jobs, slots):
+        running = []
+        for rnd, obj, path in jobs:
+            while slots and sum(not nv.wait(0) for nv in running) >= slots and not self._stop:
+                time.sleep(0.2)
+            if self._stop:
+                return
+            nv = _build._Nvcc(_cubin_cmd(obj, path), path)
+            running.append(nv)
+            self.started[rnd].append((obj, path, nv))
+
+    def finish(self, timeout: float):
+        """Wait for every job → {round: {object: (cubin path, nvcc seconds)}}."""
+        self._thread.join(timeout * len(self.started))
+        if self._thread.is_alive():
+            self.close()
+            raise RuntimeError(f"the nvcc queue did not drain in {timeout} s a round")
+        return {rnd: finish_round(started, timeout) for rnd, started in self.started.items()}
+
+    def close(self):
+        """Start nothing more, and stop every nvcc still running."""
+        self._stop = True
+        self._thread.join()
+        for started in self.started.values():
+            for _, _, nv in started:
+                nv.kill()
 
 
 def finish_round(started, timeout: float):
-    """Wait for a round's nvccs → {object: cubin path}."""
+    """Wait for a round's nvccs → {object: (cubin path, nvcc seconds)}."""
     deadline = time.monotonic() + timeout
     out = {}
-    for obj, path, proc in started:
-        try:
-            log, _ = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            for _, _, p in started:
-                p.kill()
-                p.communicate()
+    for obj, path, nv in started:
+        if not nv.wait(max(1.0, deadline - time.monotonic())):
+            for _, _, other in started:
+                other.kill()
             raise RuntimeError(f"nvcc did not finish in {timeout} s")
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {object_name(obj)}:\n{log}")
-        out[obj] = path
+        if nv.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {object_name(obj)}:\n{nv.log}")
+        out[obj] = (path, nv.seconds)
     return out
 
 
@@ -155,28 +207,22 @@ def compare(paths):
 
 
 class Probe:
-    """The three rounds, started one after another without waiting:
-    :meth:`start` ("A", "A2", then "B" after :meth:`decoy`), then
-    :meth:`finish` for the result.  :meth:`close` stops what still runs."""
+    """:meth:`decoy`, then :meth:`start` (the three rounds, through a
+    :class:`Queue` of ``slots``), then :meth:`finish` for the result.
+    :meth:`close` stops what still runs."""
 
-    def __init__(self, timeout: float = 80.0):
-        self.timeout = timeout
+    def __init__(self, timeout: float = 80.0, slots=None):
+        self.timeout, self.slots = timeout, slots
         self.objs = objects()
         self.root = pathlib.Path(tempfile.mkdtemp(prefix="cache_probe_"))
-        self.started = {}
+        self.queue = None
         self.p3 = None
         self.t0 = time.perf_counter()
 
-    def _dir(self, rnd):
-        d = self.root / rnd
-        d.mkdir(exist_ok=True)
-        return d
-
-    def start(self, rnd: str):
-        order = self.objs if rnd != "B" else list(reversed(self.objs))
-        if rnd == "B" and self.p3 is None:
-            raise RuntimeError("round B starts after the decoy")
-        self.started[rnd] = (start_round(order, self._dir(rnd)), time.perf_counter())
+    def start(self):
+        if self.p3 is None:
+            raise RuntimeError("the rounds start after the decoy")
+        self.queue = Queue(round_jobs(self.root, self.objs), self.slots)
 
     def decoy(self, dev):
         """P3: compiled in round B's directory, built and launched, held
@@ -184,7 +230,7 @@ class Probe:
         disagrees."""
         if dev.type != "cuda":
             raise RuntimeError("the cache probe launches P3 on the card")
-        finish_round(start_round([("cache_decoy", 0)], self._dir("B") / "decoy"),
+        finish_round(start_round([("cache_decoy", 0)], self.root / "B" / "decoy"),
                      self.timeout)
         x = torch.randn(cache_decoy.SHAPE, generator=torch.Generator().manual_seed(0))
         got = cache_decoy.decoy(x.to(dev)).cpu()
@@ -199,11 +245,11 @@ class Probe:
         """Wait for every round → the result dict (and remove the cubins)."""
         try:
             paths = {obj: {} for obj in self.objs}
-            rounds = {}
-            for rnd, (started, t_start) in self.started.items():
-                for obj, path in finish_round(started, self.timeout).items():
+            nvcc_s = {}
+            for rnd, done in self.queue.finish(self.timeout).items():
+                for obj, (path, _) in done.items():
                     paths[obj][rnd] = path
-                rounds[rnd] = time.perf_counter() - t_start
+                nvcc_s[rnd] = {object_name(obj): secs for obj, (_, secs) in done.items()}
             rows = compare(paths)
         finally:
             self.close()
@@ -211,20 +257,17 @@ class Probe:
         return {"specs": {name: rows[(lib, idx)] for name, lib, idx in SPECS},
                 "library_keys": {lib: _build._lib_path(lib).name for lib in libs},
                 "nvcc": _build.nvcc_version().strip().splitlines()[-1],
-                "p3": self.p3, "round_s": rounds,
-                "seconds": time.perf_counter() - self.t0,
+                "p3": self.p3, "nvcc_s": nvcc_s,
+                "round_s": {rnd: max(secs.values()) for rnd, secs in nvcc_s.items()},
+                "slots": self.slots, "seconds": time.perf_counter() - self.t0,
                 "all_stable": all(r["determinism"] == "deterministic"
                                   and r["context"] == "context-stable"
                                   for r in rows.values())}
 
-
     def close(self):
         """Stop every nvcc still running and remove the rounds' directory."""
-        for started, _ in self.started.values():
-            for _, _, proc in started:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.communicate()
+        if self.queue is not None:
+            self.queue.close()
         shutil.rmtree(self.root, ignore_errors=True)
 
 
@@ -235,10 +278,8 @@ def run(dev, timeout: float = 80.0):
         raise RuntimeError("the cache probe builds with nvcc and launches P3 on the card")
     probe = Probe(timeout)
     try:
-        probe.start("A")
-        probe.start("A2")
         probe.decoy(dev)
-        probe.start("B")
+        probe.start()
         return probe.finish()
     finally:
         probe.close()

@@ -16,6 +16,7 @@ import pathlib
 import subprocess
 import sys
 import textwrap
+import time
 
 import numpy as np
 import pytest
@@ -172,16 +173,47 @@ def test_library_key_names_the_compiler_and_needs_no_hash_seed(monkeypatch):
     assert names == {a.name}
 
 
-def test_probe_close_stops_what_runs_and_removes_its_directory():
+def _stand_in(script):
+    """A ``_cubin_cmd`` that runs ``script`` with the cubin path as argv[1]."""
+    return lambda obj, out: [sys.executable, "-c", script, str(out)]
+
+
+def test_probe_close_stops_what_runs_and_removes_its_directory(monkeypatch):
     """A probe abandoned mid-round (a failed phase of chip_smoke.py) leaves
     no compiler running and no cubins behind: ``close`` kills and reaps."""
-    import time
-
-    probe = cache_probe.Probe(5.0)
-    proc = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(60)"])
-    probe.started["A"] = ([(("fused_trainer", 0), probe.root / "0.cubin", proc)],
-                          time.perf_counter())
+    monkeypatch.setattr(cache_probe, "_cubin_cmd", _stand_in("import time; time.sleep(60)"))
+    probe = cache_probe.Probe(5.0, slots=2)
+    probe.p3 = {"exact": True}
+    probe.start()
     root = probe.root
     assert root.is_dir()
+    deadline = time.monotonic() + 10
+    while sum(map(len, probe.queue.started.values())) < 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
     probe.close()
-    assert proc.poll() is not None and not root.exists()
+    nvs = [nv for s in probe.queue.started.values() for _, _, nv in s]
+    assert len(nvs) == 2 and all(nv.proc.poll() is not None for nv in nvs)
+    assert not root.exists()
+
+
+@pytest.mark.parametrize("slots", [1, 2, None])
+def test_queue_runs_every_round_at_most_slots_at_a_time(tmp_path, monkeypatch, slots):
+    """The rounds' nine jobs all run, in round order (B's objects reversed),
+    each into its own cubin, never more than ``slots`` at once."""
+    monkeypatch.setattr(cache_probe, "_cubin_cmd", _stand_in(
+        "import sys, time; t = time.time(); time.sleep(0.2); "
+        "open(sys.argv[1], 'w').write(f'{t} {time.time()}')"))
+    objs = cache_probe.objects()
+    jobs = cache_probe.round_jobs(tmp_path, objs)
+    assert [(r, o) for r, o, _ in jobs] == [
+        (r, o) for r in cache_probe.ROUNDS for o in (objs[::-1] if r == "B" else objs)]
+    done = cache_probe.Queue(jobs, slots).finish(30.0)
+    spans = []
+    for rnd, by_obj in done.items():
+        assert list(by_obj) == [o for r, o, _ in jobs if r == rnd]
+        for path, secs in by_obj.values():
+            spans.append(tuple(map(float, path.read_text().split())))
+            assert secs > 0
+    assert len(spans) == len(jobs) == 3 * len(objs)
+    busiest = max(sum(a <= t < b for a, b in spans) for t, _ in spans)
+    assert busiest <= (slots or len(jobs))

@@ -417,10 +417,3 @@ def test_cli_thw_histograms(tmp_path, episode_tree, capsys):
     report = json.loads(capsys.readouterr().out)
     assert report["start_speeds"] and (tmp_path / "v.png").stat().st_size > 1000
     assert ("thw" in report) == (tmp_path / "t.png").exists()
-
-
-def test_cli_reproduce_waits_for_the_episode_csvs():
-    from defensive_model_vae_tpu_torch.cli import main
-
-    with pytest.raises(SystemExit, match="CARLA episode CSVs"):
-        main(["reproduce", "--data-root", "/nonexistent"])
