@@ -10,7 +10,8 @@ traceback and a non-zero exit:
 1. ``device``      torch, CUDA, the card, ``nvidia-smi``, ``nvcc``, triton;
 2. ``build``       ``nvcc`` builds every kernel of the port, all at once
                    (each object's nvcc seconds printed); the tensor-core
-                   instructions of K3/K4's library counted (``cuobjdump``);
+                   instructions of K3/K4's and P1-sol's libraries counted
+                   (``cuobjdump``; P1-sol must hold HGMMA);
                    then the cache probe's decoy: P3 compiled in round B's
                    directory, launched and held against x * 2 + 1 bit for
                    bit; and its rounds A, A2 and B start, two nvccs at a
@@ -93,8 +94,13 @@ traceback and a non-zero exit:
                    last tile): K3 under each of its seven ``_ablate`` knobs at
                    1 and 3 epochs (dwT among them), K3 with ``_ablate=()`` and K4 bit for
                    bit their reference digests (``scripts/k3_digest.py``), P1's
-                   stream, sol, fwd and dx kernels, sol's and dx's limit
-                   held below plain versions with one deliberate error; P2
+                   stream, fwd and dx kernels, dx's limit held below plain
+                   versions with one deliberate error; P1-sol bit for bit
+                   on an order-free case whose every sum is exact (the
+                   kernel's last tile ragged; both deliberate errors
+                   missing it) and on the corpus within
+                   its plain version's own order spread (``ORDER_TOL``, the
+                   live spread printed beside it); P2
                    at the full 200 × 131,072 × 8 bf16 stream, four calls
                    (the second on the stream negated) bit for bit alike,
                    its limit held below plain versions that drop a batch
@@ -107,7 +113,8 @@ traceback and a non-zero exit:
                    entries count them; P2 one a call); P2 timed in turns
                    with ``torch.sum`` through its wrapper and on the device
                    alone; P1 held against its plain versions
-                   there, as in phase 17, and timed; K3 under dwT held
+                   there, as in phase 17, and timed; P1-sol timed in turns
+                   with the same chain as 24 cuBLAS bf16 products; K3 under dwT held
                    against its plain version over the first 2 epochs;
 19. ``train_auto`` K1's autodiff instance on its main path:
                    ``fused_train(backward="auto")`` on sce4 at 3000 epochs,
@@ -377,15 +384,17 @@ PROBE_EPOCHS = 10       # else these, scaled up; K3 is held against them
 # the K3 ablation (phases 17 and 18).  P1 and P2 against their plain
 # versions: each sum within a fraction of the sum of the absolute values of
 # its terms — float32 sums in another order (stream: 1e-5); fwd's loss
-# components rtol 1e-5, as K3's one-epoch rows.  sol's and dx's sums pass
-# through chains of products whose float32 sums, taken in another order,
-# can round an intermediate to the neighbouring bf16 value; their limit
-# lies between the sound runs' gaps and those of plain versions with one
-# deliberate error each (p1_wrong_sums), which both phases print and hold
-# above it.
+# components rtol 1e-5, as K3's one-epoch rows.  dx's sum passes through
+# chains of products whose float32 sums, taken in another order, can round
+# an intermediate to the neighbouring bf16 value; its limit lies between
+# the sound runs' gaps and those of plain versions with one deliberate
+# error each (p1_wrong_sums), which both phases print and hold above it.
 ABL_N, ABL_TILE = 8448, 352
 ABL_EPOCHS, ABL_REPS, ABL_PLAIN_EPOCHS = 20, 2, 2
-P1_TOL = {"stream": 1e-5, "sol": 1e-6, "dx": 1e-6, "fwd_rel": 1e-5}
+P1_TOL = {"stream": 1e-5, "dx": 1e-6, "fwd_rel": 1e-5}
+# P1-sol is held by two checks (scripts/sol_checks.py): an order-free case
+# bit for bit, and the corpus within twice its plain version's own spread
+# under permuted summation orders (ORDER_TOL, the live spread beside it).
 # P2 at the full stream (P2_EPOCHS x 131,072 x 8, N(0, 1) in bf16): the
 # kernel and its plain version are float32 sums of the same 2.1e8 terms in
 # two orders, ~1 ulp of the total apart (0.002 at |total| ~ 2.5e4); a
@@ -845,29 +854,52 @@ def tile_order_noise(fs, ft, scale_corpus, plist, cfg, lw, dev,
     return worst, rows
 
 
-def tensor_core_ops(lib_path):
-    """The HMMA and HGMMA instructions in a built library's SASS
-    (``cuobjdump -sass``), counted over all its objects."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
-                          timeout=120).stdout.splitlines()
-    return {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass)
-            for op in ("HMMA", "HGMMA")}
+def sol_library_chain(torch, packed, w_in, w_ch, n_chain, epochs):
+    """P1-sol's function as cuBLAS products on bf16 tensors, ``epochs``
+    times: the entry product and n_chain - 1 products with bf16 outputs (the
+    chain's rounding), the last with a float32 output, its sum (float32) per
+    epoch.  The yardstick of the ``kernels`` line; the port never calls it."""
+    out = []
+    for _ in range(epochs):
+        h = packed @ w_in
+        for _ in range(n_chain - 1):
+            h = h @ w_ch
+        out.append(torch.mm(h, w_ch, out_dtype=torch.float32).sum())
+    return out
 
 
-def p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, nv, w_in, w_ch, n_chain):
-    """P1-sol's or P1-dx's sum from its plain version with one deliberate
-    error each: {what is wrong: the sum}."""
+def sol_library_turns(torch, sa, packed, w_in, w_ch, n_chain):
+    """P1-sol at ABL_EPOCHS in turns with sol_library_chain (CUDA events,
+    TURN_ROUNDS rounds of kernel, library, library, kernel; bf16 reductions
+    in full precision) → {"turns_ms", "library_ms", "spread"}."""
+    mm = torch.backends.cuda.matmul
+    was = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        def kern():
+            return cuda_ms(lambda: sa.p1_sol(packed, w_in, w_ch, n_chain, ABL_EPOCHS,
+                                             SCALE_TILE))[0]
+
+        def lib():
+            return cuda_ms(lambda: sol_library_chain(torch, packed, w_in, w_ch, n_chain,
+                                                     ABL_EPOCHS))[0]
+
+        kern(), lib()  # warm
+        med, spread = in_turns(kern, lib)
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = was
+    return {"turns_ms": med["kernel"], "library_ms": med["library"], "spread": spread,
+            "library_call": "24 torch.mm on bf16 (the last with out_dtype=float32), "
+                            "allow_bf16_reduced_precision_reduction=False"}
+
+
+def p1_wrong_sums(sa, ft, packed, plist, cfg, lw, nv):
+    """P1-dx's sum from its plain version with one deliberate error each:
+    {what is wrong: the sum} (P1-sol's: scripts/sol_checks.py)."""
     import dataclasses
 
     import torch
 
-    if mode == "sol":
-        h = packed.float() @ w_in.float()
-        for _ in range(n_chain):
-            h = h @ w_ch.float()
-        return {"one_product_fewer": float(sa._sol_h(packed, w_in, w_ch, n_chain - 1).sum()),
-                "no_bf16_rounding": float(h.sum())}
     x, cond, mask, eps = sa._split(packed, cfg)
     xv = x.float().requires_grad_(True)
     total, _ = ft._forward_loss(plist, xv, cond.float(), eps.float(), cfg, lw, mask,
@@ -2296,6 +2328,7 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.scripts import k1_phases as k1p
     from defensive_model_vae_tpu_torch.scripts import k3_digest as k3d
     from defensive_model_vae_tpu_torch.scripts import scale_ablation as sab
+    from defensive_model_vae_tpu_torch.scripts import sol_checks as solc
     from defensive_model_vae_tpu_torch.scripts.scale_ablation import scale_corpus
     from defensive_model_vae_tpu_torch.parallel import start_world
     from defensive_model_vae_tpu_torch.data import build_dataset, collect_csv_files, csv_io
@@ -2347,18 +2380,22 @@ def main() -> int:
         built = _build.build_all()
         for name, b in built.items():
             ptxas = [ln.strip() for ln in b["log"].splitlines()
-                     if "registers" in ln or "spill" in ln or "entry function" in ln]
+                     if "registers" in ln or "spill" in ln or "entry function" in ln
+                     or "wgmma" in ln]
             info[name] = {"seconds": b["seconds"], "nvcc_s": b["nvcc_s"],
                           "cached": b["cached"], "ptxas": ptxas}
             _build.load(name)
         # K3's and K4's bf16 weight gradients on the tensor cores: their
         # library's SASS holds mma instructions (HMMA; HGMMA for wgmma);
-        # P1's products, all on FMA, are counted beside it
-        sass_mma = {name: tensor_core_ops(_build._lib_path(name))
-                    for name in ("fused_scale", "scale_ablation")}
+        # P1-sol's products on wgmma (HGMMA); P1-stream/abl's, on FMA,
+        # counted beside them
+        sass_mma = {name: _build.tensor_core_ops(_build._lib_path(name))
+                    for name in ("fused_scale", "scale_ablation", "p1_sol")}
         info["sass_mma"] = sass_mma
         if not sass_mma["fused_scale"]["HMMA"] + sass_mma["fused_scale"]["HGMMA"]:
             fail(f"K3/K4's library holds no tensor-core instruction: {sass_mma}")
+        if not sass_mma["p1_sol"]["HGMMA"]:
+            fail(f"P1-sol's library holds no HGMMA: {sass_mma}")
         info["build_s"] = time.perf_counter() - t_build
         cdy.decoy.launches = 0
         p3_check = nvcc_probe.decoy(dev)
@@ -2941,26 +2978,30 @@ def main() -> int:
             fail("K3/K4 with _ablate=() are not their reference build bit for bit")
         # P1 on the same corpus
         n_chain = sa.sol_chain_length(cfg)
-        g = torch.Generator().manual_seed(5)
-        w_in = (torch.randn((packed.shape[1], 128), generator=g)
-                / packed.shape[1] ** 0.5).to(torch.bfloat16).to(dev)
-        w_ch = (torch.randn((128, 128), generator=g) / 128 ** 0.5).to(torch.bfloat16).to(dev)
-        for mode in ("stream", "sol", "fwd", "dx"):
+        w_in, w_ch = solc.chip_weights(packed.shape[1], dev)
+        # P1-sol: the order-free case bit for bit, the corpus within the
+        # plain version's own order spread
+        sol_exact = solc.exact_case(dev, n_chain)
+        row, ok, caught = solc.check(sa.p1_sol, packed, w_in, w_ch, n_chain, ABL_TILE, 3,
+                                     sol_exact)
+        row = {"kernel": "P1-sol", "n": ABL_N, "epochs": 3, **row}
+        rows.append(row)
+        emit({"ablation_vs_plain": row})
+        if not ok:
+            fail(f"P1-sol disagrees with its plain version: {row}")
+        if not caught:
+            fail(f"P1-sol's checks pass a wrong plain version: {row}")
+        for mode in ("stream", "fwd", "dx"):
             wrong = {}
             if mode == "stream":
                 k, p = sa.p1_stream(packed, 3, ABL_TILE), sa._p1_stream_plain(packed, 3, ABL_TILE)
                 scale = float(packed.float().abs().sum())
-            elif mode == "sol":
-                k = sa.p1_sol(packed, w_in, w_ch, n_chain, 3, ABL_TILE)
-                p = sa._p1_sol_plain(packed, w_in, w_ch, n_chain, 3, ABL_TILE)
-                scale = float(sa._sol_h(packed, w_in, w_ch, n_chain).abs().sum())
             else:
                 k = sa.p1_ablation(packed, plist, mode, cfg, lw, float(nv), 3, ABL_TILE)
                 p = sa._p1_ablation_plain(packed, plist, mode, cfg, lw, float(nv), 3)
                 scale = float(sa._dx_plain(packed, plist, cfg, lw, float(nv)).float().abs().sum())
-            if mode in ("sol", "dx"):
-                wrong = p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, float(nv), w_in,
-                                      w_ch, n_chain)
+            if mode == "dx":
+                wrong = p1_wrong_sums(sa, ft, packed, plist, cfg, lw, float(nv))
             row = {"kernel": f"P1-{mode}", "n": ABL_N, "epochs": 3,
                    "epochs_equal": bool(torch.equal(k[0], k[-1]))}
             ok, caught = row["epochs_equal"], True
@@ -3064,10 +3105,7 @@ def main() -> int:
                                       rng.standard_normal((SCALE_N, cfg.latent_dim))
                                       .astype(np.float32), dev)
         plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), cfg, dev))
-        g = torch.Generator().manual_seed(5)
-        w_in = (torch.randn((packed.shape[1], 128), generator=g)
-                / packed.shape[1] ** 0.5).to(torch.bfloat16).to(dev)
-        w_ch = (torch.randn((128, 128), generator=g) / 128 ** 0.5).to(torch.bfloat16).to(dev)
+        w_in, w_ch = solc.chip_weights(packed.shape[1], dev)
         n_chain = sa.sol_chain_length(cfg)
         E, scale_up = ABL_PLAIN_EPOCHS, ABL_EPOCHS / ABL_PLAIN_EPOCHS
         p1_res = {}
@@ -3085,18 +3123,20 @@ def main() -> int:
             k = kern()
             p1_plain_ms, p = cuda_ms(plain)
             res = {}
-            if mode == "fwd":
+            if mode == "sol":
+                res, ok, caught = solc.check(sa.p1_sol, packed, w_in, w_ch, n_chain,
+                                             SCALE_TILE, E, sol_exact)
+                err = res["order"]["sum_gap"]
+                emit({"ablation": {"kernel": "P1-sol", "n": SCALE_N, "epochs": E, **res}})
+            elif mode == "fwd":
                 err = float((k[:, :5] - p[:, :5]).abs().max())
                 ok, caught = (float(((k[:, :5] - p[:, :5]).abs() / p[:, :5].abs()).max())
                               <= P1_TOL["fwd_rel"]), True
             else:
                 terms = (float(packed.float().abs().sum()) if mode == "stream" else
-                         float(sa._sol_h(packed, w_in, w_ch, n_chain).abs().sum())
-                         if mode == "sol" else
                          float(sa._dx_plain(packed, plist, cfg, lw, float(nv)).float().abs().sum()))
                 wrong = ({} if mode == "stream" else
-                         p1_wrong_sums(sa, ft, mode, packed, plist, cfg, lw, float(nv), w_in,
-                                       w_ch, n_chain))
+                         p1_wrong_sums(sa, ft, packed, plist, cfg, lw, float(nv)))
                 res, ok, caught = p1_sum_row(mode, k, p, terms, wrong)
                 err = res["sum_gap"]
             if not ok:
@@ -3108,6 +3148,7 @@ def main() -> int:
                             "ms": 1e3 * out["variants"][mode]["best_s"], **res}
         p1_res["stream"]["library_ms"] = cuda_ms(
             lambda: [torch.sum(packed, dtype=torch.float32) for _ in range(ABL_EPOCHS)])[0]
+        p1_res["sol"].update(sol_library_turns(torch, sa, packed, w_in, w_ch, n_chain))
         del packed
         eps2 = fs.hbm_noise(6, P2_EPOCHS, SCALE_N, cfg.latent_dim, "bfloat16", dev)
 
@@ -3647,14 +3688,15 @@ def main() -> int:
     # cs CTAs has cs SMs' share
     one_sm_ms = 1e3 * grid_flops_bytes(cfg, [max(k2_rows)], 0, DEPTH)[0] / (FP32_FLOPS / 132)
     abl_src = f"{PKG}/csrc/scale_ablation.cu"
+    sol_src = f"{PKG}/csrc/p1_sol.cu"
     pf = p1_flops(cfg)
     width41 = width + cfg.latent_dim
     corpus_bytes = ABL_EPOCHS * SCALE_N * width41 * 2
     p1_rows = []
     for name, mode, line, p1_ops, extra_bytes, lib_note in (
             ("p1_stream", "stream", 182, ABL_EPOCHS * SCALE_N * width41, 0, None),
-            ("p1_sol", "sol", 148, ABL_EPOCHS * SCALE_N * pf["sol"], 4 * (width41 + 128) * 128,
-             "no single PyTorch call: a chain of 24 products"),
+            ("p1_sol", "sol", 148, ABL_EPOCHS * SCALE_N * pf["sol"], 2 * (width41 + 128) * 128,
+             None),
             ("p1_ablation_fwd", "fwd", 94, ABL_EPOCHS * SCALE_N * pf["fwd"],
              4 * cfg.n_params(), "no single PyTorch call: the CVAE's forward and loss"),
             ("p1_ablation_dx", "dx", 94, ABL_EPOCHS * SCALE_N * pf["dx"], 4 * cfg.n_params(),
@@ -3662,7 +3704,7 @@ def main() -> int:
         b_ms, b_by = bound(p1_ops, corpus_bytes + extra_bytes + 4 * 8 * ABL_EPOCHS,
                            FP32_FLOPS if mode == "stream" else BF16_FLOPS)
         p1_rows.append({
-            "name": name, "route": "cuda", "source": abl_src,
+            "name": name, "route": "cuda", "source": sol_src if mode == "sol" else abl_src,
             "replaces": f"scripts/scale_ablation.py:{line}",
             "launches": abl_launches[name], "cuda_launches": abl_cuda[mode],
             "max_abs_err": p1_res[mode]["max_abs_err"], "ms": p1_res[mode]["ms"],
@@ -3670,6 +3712,10 @@ def main() -> int:
             "library_ms": p1_res[mode].get("library_ms"),
             **({"library_note": lib_note} if lib_note else {}),
             **({"fp32_fma_bound_ms": 1e3 * p1_ops / FP32_FLOPS} if mode != "stream" else {}),
+            **({k: p1_res[mode][k] for k in ("turns_ms", "spread", "library_call")}
+               if mode == "sol" else {}),
+            **({"sass_mma": sass_mma["p1_sol"]} if mode == "sol" else {}),
+            "bound_share": b_ms / p1_res[mode]["ms"],
             "epochs": ABL_EPOCHS, "flops": p1_ops, "card": card})
     p2_bytes = P2_EPOCHS * SCALE_N * cfg.latent_dim * 2 + 32
     p2_bound, p2_by = bound(P2_EPOCHS * SCALE_N * cfg.latent_dim, p2_bytes, FP32_FLOPS)

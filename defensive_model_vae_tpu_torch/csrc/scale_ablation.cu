@@ -1,11 +1,11 @@
-// P1 and P2: the K3 ablation's own kernels, for Hopper.
+// P1 and P2: the K3 ablation's own kernels, for Hopper (P1-sol, on the
+// tensor cores, is p1_sol.cu).
 //
 // Replace the Pallas kernels of the JAX package's K3 ablation,
 // scripts/scale_ablation.py (_ablation_call :207): _make_stream_kernel
-// (:182, pallas_call :236), _make_sol_kernel (:148, :240) and
-// _make_ablation_kernel (:94, :248, modes fwd and dx), and the probe
-// scripts/noise_consumer_probe.py::_stream_kernel (:78, gen_stream :94,
-// pallas_call :100).  P1's kernels run the grid (epochs x corpus) the way
+// (:182, pallas_call :236) and _make_ablation_kernel (:94, :248, modes
+// fwd and dx), and the probe scripts/noise_consumer_probe.py::_stream_kernel
+// (:78, gen_stream :94, pallas_call :100).  P1's kernels run the grid (epochs x corpus) the way
 // K3 does on this card (fused_scale.cu): per epoch a kernel whose blocks
 // each take a chunk of the rows and write a partial row, then a one-block
 // kernel that sums the partial rows in chunk order into the epoch's
@@ -19,16 +19,6 @@
 //                bench shape x 200 epochs (0.64 ms at 3.35 TB/s); the 10.7
 //                MB corpus stays in the 50 MB L2 from epoch to epoch, so
 //                the launches (two an epoch) are what this one measures.
-//   p1_sol       per 32-row step h = x W_in (41 x 128), then n_chain
-//                products h W (128 x 128), no relu, on K3's own `gemm`
-//                (scale_common.cuh) with its staging, its rounding of both
-//                operands to bf16 and float32 FMA, each output one chain
-//                over k in order, as K3's step products; sum(h) into
-//                metrics[e, 0].  The FLOPs of K3's products with none of
-//                K3's other work.  Every h is rounded to bf16 again by the
-//                next of its 23 chained products, so another order of the
-//                sums moves the total past P1_TOL's 1e-6 of Σ|terms| (the
-//                tensor cores: 2.7e-6, PERF.md §6).
 //   p1_ablation  K3's forward and loss (mode 0, fwd) under fixed params
 //                with packed eps, and (mode 1, dx) the gradient of the total
 //                loss in x, summed into metrics[e, 5].  dx is JAX autodiff's
@@ -78,7 +68,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // kernel launches issued, by entry (and P1-abl mode), counted at the launch
-enum { L_STREAM, L_SOL, L_FWD, L_DX, L_P2, L_KINDS };
+enum { L_STREAM, L_FWD, L_DX, L_P2, L_KINDS };
 long long g_launches[L_KINDS];
 
 // float32 sum of p[begin, end) by one block (16-byte loads where
@@ -142,41 +132,6 @@ rows_kernel(const float* __restrict__ partial, int n, int stride, int kind,
       for (int q = 0; q < 8; ++q) row[q] = (kind == 1 || q == 0) ? cols[0] : 0.f;
     }
   }
-}
-
-// P1-sol: one block per chunk of `steps` 32-row steps
-__global__ void __launch_bounds__(NT, 1)
-sol_kernel(const bf16* __restrict__ packed, int width, long long n_pad,
-           const float* __restrict__ w_in, const float* __restrict__ w_chain,
-           int n_chain, float* __restrict__ partial, int steps) {
-  float* XS = sm + S_C0;  // R x width staged rows (width <= H)
-  float* HA = sm + S_E0;
-  float* HB = sm + S_E1;
-  float s = 0.f;
-  for (int step = 0; step < steps; ++step) {
-    const long long r0 = ((long long)blockIdx.x * steps + step) * R;
-    if (r0 >= n_pad) break;
-    for (int i = threadIdx.x; i < R * width; i += NT) {
-      const long long row = r0 + i / width;
-      XS[i] = row < n_pad ? __bfloat162float(packed[r0 * width + i]) : 0.f;
-    }
-    __syncthreads();
-    gemm<true, true>(R, H, width, XS, width, 1, w_in, H, 1, HA, H, false, nullptr, false,
-                     nullptr, 0, nullptr, 0);
-    float* cur = HA;
-    float* nxt = HB;
-    for (int c = 0; c < n_chain; ++c) {
-      gemm<true, true>(R, H, H, cur, H, 1, w_chain, H, 1, nxt, H, false, nullptr, false,
-                       nullptr, 0, nullptr, 0);
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-    for (int i = threadIdx.x; i < R * H; i += NT) s += cur[i];
-    __syncthreads();
-  }
-  const float t = block_sum(s, sm + S_RED);
-  if (threadIdx.x == 0) partial[blockIdx.x] = t;
 }
 
 // dx's chain: JAX autodiff's gradient of the total loss in x, f32_acts
@@ -390,32 +345,6 @@ int p1_stream(const void* packed, long long n_elems, int epochs, float* partial,
     rows_kernel<<<1, NT, 0, st>>>(partial, blocks, 1, 0, 1.f, LossW{}, metrics + 8LL * e);
     ++g_launches[L_STREAM];
     const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return 0;
-}
-
-// P1-sol: per epoch the chained products over every 32-row step of the
-// (n_pad, width) bf16 corpus, sum(h) into metrics[e, 0].  w_in (width, 128)
-// and w_chain (128, 128) are float32 holding bf16 values; partial holds
-// sa_chunks(n_pad, sms) floats.
-int p1_sol(const void* packed, int width, long long n_pad, const float* w_in,
-           const float* w_chain, int n_chain, int epochs, float* partial, int sms,
-           float* metrics, void* stream) {
-  if (n_pad <= 0 || width <= 0 || width > H || n_chain < 0 || epochs <= 0 || sms <= 0)
-    return (int)cudaErrorInvalidValue;
-  int err = set_smem(sol_kernel);
-  if (err) return err;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int chunks = (int)n_chunks_of(n_pad, sms);
-  const int steps = (int)chunk_steps(n_pad, sms);
-  for (int e = 0; e < epochs; ++e) {
-    sol_kernel<<<chunks, NT, SMEM_BYTES, st>>>((const bf16*)packed, width, n_pad, w_in,
-                                               w_chain, n_chain, partial, steps);
-    ++g_launches[L_SOL];
-    rows_kernel<<<1, NT, 0, st>>>(partial, chunks, 1, 0, 1.f, LossW{}, metrics + 8LL * e);
-    ++g_launches[L_SOL];
-    err = (int)cudaGetLastError();
     if (err) return err;
   }
   return 0;

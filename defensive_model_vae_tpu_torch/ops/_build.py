@@ -143,12 +143,6 @@ KERNELS: Dict[str, tuple] = {
             _P, ctypes.c_longlong, ctypes.c_int,  # packed corpus, its elements, epochs
             _P, ctypes.c_int, _P, _P,          # partials, SM count, metrics, stream
         ]),
-        "p1_sol": (ctypes.c_int, [
-            _P, ctypes.c_int, ctypes.c_longlong,  # packed corpus, width, rows
-            _P, _P, ctypes.c_int,              # w_in, w_chain, chain length
-            ctypes.c_int, _P, ctypes.c_int,    # epochs, partials, SM count
-            _P, _P,                            # metrics, stream
-        ]),
         "p1_ablation": (ctypes.c_int, [
             _P, ctypes.c_int, ctypes.c_longlong,  # packed corpus, width, rows
             ctypes.c_float, ctypes.c_int,      # n_valid, mode (0 fwd, 1 dx)
@@ -167,6 +161,19 @@ KERNELS: Dict[str, tuple] = {
         "sa_cuda_launches": (ctypes.c_longlong, [ctypes.c_int]),
         "sa_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
         "sa_sum_blocks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
+    }),
+    # P1-sol on wgmma: a source of its own, so scale_ablation.cu's object
+    # (and its nvcc time) stays as it was
+    "p1_sol": ((("p1_sol.cu", ()),), {
+        "p1_sol": (ctypes.c_int, [
+            _P, ctypes.c_int, ctypes.c_longlong,  # packed corpus, width, rows
+            _P, _P, ctypes.c_int,              # w_in, w_chain (bf16), chain length
+            ctypes.c_int, _P, ctypes.c_int,    # epochs, partials, grid
+            _P, _P,                            # metrics, stream
+        ]),
+        "p1_sol_grid": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),  # SM count, width
+        "p1_sol_partials": (ctypes.c_longlong, [ctypes.c_int]),       # grid
+        "p1_sol_cuda_launches": (ctypes.c_longlong, []),
     }),
     # P3, and its launch as a CPython function (load_module): that object
     # alone takes Python's headers, whose directory its flags name
@@ -304,6 +311,16 @@ def load_module(name: str, module: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def tensor_core_ops(lib_path) -> Dict[str, int]:
+    """The HMMA and HGMMA instructions in a built library's SASS
+    (``cuobjdump -sass``), counted over all its objects."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          timeout=120).stdout.splitlines()
+    return {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass)
+            for op in ("HMMA", "HGMMA")}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -5,9 +5,10 @@ Port of the Pallas kernels of the JAX package's ablation script
 ``_make_stream_kernel`` :182, ``_make_sol_kernel`` :148 and
 ``_make_ablation_kernel`` :94) and of the probe
 ``scripts/noise_consumer_probe.py`` (``_stream_kernel`` :78, ``gen_stream``
-:94).  On the card they are ``csrc/scale_ablation.cu``, which shares K3's
-device code (``csrc/scale_common.cuh``); its design note gives each
-kernel's bound.  Every function here takes a packed bf16 corpus
+:94).  On the card P1-sol is ``csrc/p1_sol.cu`` (``wgmma`` on the tensor
+cores, the chain kept in registers) and the others ``csrc/scale_ablation.cu``,
+which shares K3's device code (``csrc/scale_common.cuh``); their design
+notes give each kernel's bound.  Every function here takes a packed bf16 corpus
 ``(n_pad, width)`` as ``ops/fused_scale._pack_corpus`` makes it and returns
 an ``(epochs, 8)`` metrics block, one row per epoch, as the JAX grid does
 (JAX pads the rows to a multiple of 8; the port does not):
@@ -93,15 +94,21 @@ def _check(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-_LAUNCH_KINDS = ("stream", "sol", "fwd", "dx", "p2")
+_LAUNCH_KINDS = ("stream", "fwd", "dx", "p2")
 
 
 def cuda_launches() -> dict:
-    """The CUDA kernel launches each entry of ``csrc/scale_ablation.cu`` has
-    issued in this process, counted by the C code at each launch (P1-abl by
-    mode)."""
+    """The CUDA kernel launches each entry of ``csrc/scale_ablation.cu`` and
+    ``csrc/p1_sol.cu`` has issued in this process, counted by the C code at
+    each launch (P1-abl by mode)."""
+    from ._build import _LOADED
+
     lib = _lib()
-    return {k: int(lib.sa_cuda_launches(i)) for i, k in enumerate(_LAUNCH_KINDS)}
+    out = {k: int(lib.sa_cuda_launches(i)) for i, k in enumerate(_LAUNCH_KINDS)}
+    # a P1-sol library not loaded in this process has launched nothing
+    sol = _LOADED.get("p1_sol")
+    out["sol"] = int(sol.p1_sol_cuda_launches()) if sol is not None else 0
+    return out
 
 
 # ---- P1-stream ------------------------------------------------------------------
@@ -152,11 +159,31 @@ def _p1_sol_plain(packed, w_in, w_chain, n_chain, epochs, tile):
     return metrics
 
 
+# the widest corpus the kernel's entry product takes (one 64-deep k atom)
+SOL_MAX_WIDTH = 64
+# id of a loaded P1-sol library -> its SASS's HGMMA count, read at its first
+# call (the library path's key hashes the sources: not once a launch)
+_SOL_HGMMA: dict = {}
+
+
+def _sol_lib():
+    """The P1-sol library, refused unless its SASS holds HGMMA (its products
+    on wgmma): the kernel has no other path on the card."""
+    from ._build import _lib_path, load, tensor_core_ops
+
+    lib = load("p1_sol")
+    if id(lib) not in _SOL_HGMMA:
+        _SOL_HGMMA[id(lib)] = tensor_core_ops(_lib_path("p1_sol"))["HGMMA"]
+    if not _SOL_HGMMA[id(lib)]:
+        raise RuntimeError("the p1_sol library's SASS holds no HGMMA")
+    return lib
+
+
 def p1_sol(packed: torch.Tensor, w_in: torch.Tensor, w_chain: torch.Tensor,
            n_chain: int, epochs: int, tile: int) -> torch.Tensor:
     """Per epoch the FLOP-equivalent chained products over the block, sum(h)
     in column 0 (JAX ``_make_sol_kernel``).  ``w_in`` (width, 128) and
-    ``w_chain`` (128, 128) are bf16."""
+    ``w_chain`` (128, 128) are bf16; the width is at most 64."""
     _check_packed(packed, "P1-sol")
     _check_tile(packed.shape[0], tile, "P1-sol")
     width = packed.shape[1]
@@ -164,16 +191,26 @@ def p1_sol(packed: torch.Tensor, w_in: torch.Tensor, w_chain: torch.Tensor,
             or w_in.dtype != torch.bfloat16 or w_chain.dtype != torch.bfloat16):
         raise ValueError(f"P1-sol: w_in must be ({width}, 128) and w_chain (128, 128), "
                          f"both bf16")
-    if _device_of(packed, "P1-sol").type == "cpu":
+    if width > SOL_MAX_WIDTH or n_chain < 0 or epochs < 1:
+        raise ValueError(f"P1-sol: width {width} (at most {SOL_MAX_WIDTH}), n_chain "
+                         f"{n_chain} (at least 0) or epochs {epochs} (at least 1) refused")
+    dev = _device_of(packed, "P1-sol")
+    if w_in.device != dev or w_chain.device != dev:
+        raise ValueError("P1-sol: the corpus and the weights must be on one device")
+    if dev.type == "cpu":
         return _p1_sol_plain(packed, w_in, w_chain, n_chain, epochs, tile)
-    lib, dev = _lib(), packed.device
-    wi = w_in.float().contiguous()
-    wc = w_chain.float().contiguous()
-    partial = torch.empty(int(lib.sa_chunks(packed.shape[0], _sms(dev))),
-                          dtype=torch.float32, device=dev)
-    metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=dev)
+    if packed.data_ptr() % 16:
+        raise ValueError("P1-sol: the corpus must start on a 16-byte boundary")
+    lib = _sol_lib()
+    grid = int(lib.p1_sol_grid(_sms(dev), width))
+    if grid <= 0:
+        raise RuntimeError("P1-sol: no grid for this card (p1_sol_grid)")
+    partial = torch.empty(epochs * int(lib.p1_sol_partials(grid)), dtype=torch.float32,
+                          device=dev)
+    metrics = torch.empty((epochs, 8), dtype=torch.float32, device=dev)
+    wi, wc = w_in.contiguous(), w_chain.contiguous()
     _check(lib.p1_sol(packed.data_ptr(), width, packed.shape[0], wi.data_ptr(),
-                      wc.data_ptr(), n_chain, epochs, partial.data_ptr(), _sms(dev),
+                      wc.data_ptr(), n_chain, epochs, partial.data_ptr(), grid,
                       metrics.data_ptr(), _stream(dev)), "P1-sol")
     p1_sol.launches += 1
     return metrics

@@ -32,6 +32,7 @@ Variants, all bf16 at the bench shape (``bench.py::_scale_corpus``):
   dx           P1: forward + the gradient in x (JAX autodiff's rounding)
   fwd          P1: forward and loss only
   sol          P1: K3's products' FLOPs as chained products, nothing else
+               (on the tensor cores: the compute floor)
   stream       P1: read the block, sum it, write the sum
 
 Each rep draws fresh inputs (a fresh packed ε, a fresh seed for the hbm

@@ -18,9 +18,13 @@ corpus is 8,448 rows in tiles of 352, so a block runs two 32-row steps and
 one block's chunk straddles the start of the last tile, which is the case
 noacc's design has to get right.  P1 and P2: each sum within a fraction of
 the sum of the absolute values of its terms, 1e-5 for the plain sums
-(P1-stream, P2) and 1e-6 for P1-sol's and dx's, which lies below the gaps
-of plain versions with one deliberate error (chip_smoke.py's ``P1_TOL``);
-the loss components rtol 1e-5.  K3 with ``_ablate=()`` and K4 are held bit
+(P1-stream, P2) and 1e-6 for dx's, which lies below the gaps of plain
+versions with one deliberate error (chip_smoke.py's ``P1_TOL``); the loss
+components rtol 1e-5.  P1-sol by its two checks
+(``scripts/sol_checks.py``): an order-free case bit for bit, and this
+corpus within ``ORDER_TOL`` (twice its plain version's own spread under
+permuted summation orders), the live spread within it too; its library
+must hold ``HGMMA``.  K3 with ``_ablate=()`` and K4 are held bit
 for bit to their reference digests (``scripts/k3_digest.py``: float32 the
 build before the tensor cores, bf16 the tensor-core engine's).
 """
@@ -34,6 +38,7 @@ from defensive_model_vae_tpu_torch.ops import fused_scale as fs
 from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
 from defensive_model_vae_tpu_torch.ops import scale_ablation as sa
 from defensive_model_vae_tpu_torch.scripts import k3_digest
+from defensive_model_vae_tpu_torch.scripts import sol_checks as solc
 from defensive_model_vae_tpu_torch.scripts.scale_ablation import scale_corpus
 
 pytestmark = pytest.mark.gpu
@@ -104,9 +109,11 @@ def test_p1_matches_plain(mode):
         k, p = sa.p1_stream(packed, 2, TILE), sa._p1_stream_plain(packed, 2, TILE)
         scale = float(packed.float().abs().sum())
     elif mode == "sol":
-        k = sa.p1_sol(packed, w_in, w_ch, n_chain, 2, TILE)
-        p = sa._p1_sol_plain(packed, w_in, w_ch, n_chain, 2, TILE)
-        scale = float(sa._sol_h(packed, w_in, w_ch, n_chain).abs().sum())
+        row, ok, caught = solc.check(sa.p1_sol, packed, w_in, w_ch, n_chain, TILE, 2,
+                                     solc.exact_case(dev, n_chain))
+        torch.cuda.synchronize()
+        assert ok and caught, row
+        return
     else:
         k = sa.p1_ablation(packed, plist, mode, CFG, LW, nv, 2, TILE)
         p = sa._p1_ablation_plain(packed, plist, mode, CFG, LW, nv, 2)
@@ -117,10 +124,33 @@ def test_p1_matches_plain(mode):
     col = 5 if mode == "dx" else 0
     if mode != "fwd":
         # chip_smoke.py's P1_TOL: float32 sums in another order (stream);
-        # below the plain versions with one deliberate error (sol, dx)
+        # below the plain versions with one deliberate error (dx)
         tol = 1e-5 if mode == "stream" else 1e-6
         assert float((k[:, col] - p[:, col]).abs().max()) <= tol * scale
     assert torch.equal(k[0], k[1])  # every epoch the same row
+
+
+def test_p1_sol_library_holds_hgmma():
+    """P1-sol's products run on wgmma: its library's SASS holds HGMMA."""
+    from defensive_model_vae_tpu_torch.ops import _build
+
+    _cuda()
+    _build.load("p1_sol")
+    assert _build.tensor_core_ops(_build._lib_path("p1_sol"))["HGMMA"] > 0
+
+
+def test_p1_sol_counts_its_launches():
+    """One call: one wrapper launch, two CUDA launches (the products, then
+    the partials' sum), every epoch's row the same."""
+    dev = _cuda()
+    _, packed, _ = _inputs(dev)
+    w_in, w_ch = solc.chip_weights(41, dev)
+    before, cuda_before = sa.p1_sol.launches, sa.cuda_launches()["sol"]
+    m = sa.p1_sol(packed, w_in, w_ch, 23, 4, TILE)
+    torch.cuda.synchronize()
+    assert sa.p1_sol.launches == before + 1
+    assert sa.cuda_launches()["sol"] == cuda_before + 2
+    assert torch.equal(m[0], m[3]) and not torch.any(m[:, 1:])
 
 
 def test_p2_matches_plain():
