@@ -32,8 +32,16 @@ traceback and a non-zero exit:
                    version's, a checkpoint round trip; one more run of 300
                    epochs with the phase timer for K1's phase split;
 6. ``sample``      one trajectory per sce4 start point, with re-draws;
-7. ``track``       the samples tracked by the batched MPC, and the SLSQP
+7. ``track``       the samples tracked by the batched MPC (its step one
+                   captured CUDA graph a batch size, replayed a step; the
+                   LU kernel's launches on this path counted), and the SLSQP
                    golden windows held to the bands of tests/test_mpc.py;
+                   the captured tracker bit for bit the eager loop at 2,
+                   16, 38 and 134 rows and 64 steps, a second
+                   call replaying without a capture; the LU kernel
+                   (``csrc/lu_solve.cu``) against ``torch.linalg.solve_ex``
+                   on the tracker's LM systems at 1-134 rows, timed in turns
+                   with it at the serve batch;
 8. ``data``        the native CSV loader built (``data/csv_io.py``, g++),
                    the four committed corpora written as CARLA episode CSVs
                    (``scripts/episodes.py``) and read back by the port's
@@ -61,7 +69,11 @@ traceback and a non-zero exit:
                    (rows equal), TTC, PET and JERK on each;
 11. ``k3_vs_plain`` kernels K3 and K4 against their plain torch versions on
                    the card (f32 and bf16, packed, hbm and prng noise, ragged
-                   corpora, blocks of one 32-row step and of several);
+                   corpora, blocks of one 32-row step and of several; the
+                   bf16 rows within twice the plain version's own order
+                   spread), and K4 on an order-free case
+                   (``scripts/k3_order_noise.py``) bit for bit in float32 and
+                   bf16, a plain version without one step unequal;
 12. ``train_scale`` the production-scale path at the bench shape:
                    ``fused_train_scale`` on 131,072 windows, 200 epochs, tile
                    2048, bf16, hbm noise, in one K3 call; K3's time against
@@ -78,9 +90,9 @@ traceback and a non-zero exit:
                    in one K2 launch, each scenario converging (last <
                    first/5); K2 timed against its plain version; at 300
                    epochs each scenario held against ``fused_train`` with
-                   seed + i; each model sampled at every start, its first
-                   16 starts tracked with its scenario's tracker, controls
-                   within bounds;
+                   seed + i; each model sampled at every start, every start
+                   tracked with its scenario's tracker, controls within
+                   bounds;
 15. ``track_multi`` ``generate_and_track_multi_from_starts`` with 4
                    generation seeds on the sce2 model, row by row against
                    per-seed ``generate_and_track_from_starts``;
@@ -113,7 +125,9 @@ traceback and a non-zero exit:
                    entries count them; P2 one a call); P2 timed in turns
                    with ``torch.sum`` through its wrapper and on the device
                    alone; P1 held against its plain versions
-                   there, as in phase 17, and timed; P1-sol timed in turns
+                   there, as in phase 17, and timed; P1-stream (one launch
+                   for all epochs) timed in turns with ``torch.sum`` through
+                   its wrapper and on the device alone; P1-sol timed in turns
                    with the same chain as 24 cuBLAS bf16 products; K3 under dwT held
                    against its plain version over the first 2 epochs;
 19. ``train_auto`` K1's autodiff instance on its main path:
@@ -177,7 +191,9 @@ traceback and a non-zero exit:
                    to sce1 as npz; each request's wall time, the program's
                    CUDA-event time, its device kernels' time (torch.profiler
                    over 4 and 8 steps, extrapolated to 512) and the host
-                   share.  No kernel of the port is on this path;
+                   share; the step graph captured by the warm-up and none
+                   by the requests; the same program with its tracker run
+                   eagerly, bit for bit the served states, and its wall;
 27. ``parallel``   the data-parallel tier (``parallel/``) over
                    ``torch.distributed``: a NCCL world of one on the card
                    (``fused_train_scale_dp(mesh=create_mesh())`` at the bench
@@ -237,7 +253,9 @@ traceback and a non-zero exit:
                    each option and grid_probe's µs an epoch and seed, and
                    its launches in the scoreboard phase).
 
-Before the ``kernels`` line, the check's own seconds (``check_s``).  The
+Every phase line that ran the tracker carries ``tracker_graph``: the step
+graphs captured and the steps replayed in that phase.  Before the
+``kernels`` line, the check's own seconds (``check_s``).  The
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or
 without the port beside this file, it exits non-zero and prints no result.
 """
@@ -273,6 +291,27 @@ SERVE_THETA_TOL, SERVE_V_TOL, SERVE_POS_MEAN_M = 1e-4, 0.05, 2.0
 # the served states against the same waypoints tracked through the host
 # PathReference: the tracker's whole-simulation tolerance
 SERVE_HOST_TRACK_TOL = 1e-3
+
+# the track phase's checks of the tracker (control/mpc.py): the captured
+# step graph against the eager loop at TRACK_GRAPH_ROWS rows and
+# TRACK_GRAPH_STEPS steps bit for bit (the same kernels on the same shapes:
+# no tolerance; the serve phase holds the serve batch at its 512 steps), a
+# second call at each shape replaying without a capture; the LU kernel
+# (csrc/lu_solve.cu) against its plain version, torch.linalg.solve_ex, on the LM systems of the
+# tracker's first step at LU_ROWS rows.  Both are float32 LU with partial
+# pivoting whose sums run in other orders, so neither gives the other's
+# bits; each solve is held to what such an LU guarantees: its normwise
+# backward error |Hx - g| / (|H| |x| + |g|) (infinity norms, float64) at
+# most n u (u = 2^-24, growth factor 1; the kernel's measured 1e-9-2e-8 at
+# n = 40 on the CPU, against 2.4e-6), and the kernel's gap to the plain
+# version at most the 2 kappa(H) n u |x| that two such solves can part by
+# (kappa(H) the float64 condition number).  A wrong pivot or a row left
+# out moves the backward error to order 1.  The kernel timed at the serve
+# batch over LU_TIMED_CALLS calls a block, in turns with solve_ex (its
+# library call).
+TRACK_GRAPH_ROWS, TRACK_GRAPH_STEPS = (2, 16, 38, 134), 64
+LU_ROWS, LU_TIMED_CALLS = (1, 16, 38, 134), 50
+LU_U = 2.0 ** -24
 
 # the dnda phase: 256 distinct synthetic SUT frames (the four scenarios'
 # baselines, 0-6 vehicles; scripts/dnda_sweep.py) held index for index
@@ -330,13 +369,28 @@ GRID_TOL = {1: {**K1_TOL[1], "metrics_vs": "component"},
 # to the neighbouring bf16 value (2^-8 relative) and a gradient near zero
 # then changes sign; from the second epoch on, a few elements of an array
 # take steps the other way.
+# The bf16 rows of one and twenty epochs held K3 to the plain version's own
+# summation order: with only the order of the step products' sums moved (the
+# hidden units permuted), the plain version parts from itself by more than
+# they allowed (scripts/k3_order_noise.py, 32 permutations on the CPU: after
+# one epoch a few elements step the other way, 2.0e-3 at most, 1.22e-4 of an
+# array, loss rows 2.76e-5 apart; after twenty 1.33e-2, 1.56e-2 and
+# 2.29e-3).  So those two rows are twice that spread, and beside them K4 is
+# held bit for bit on an order-free case (the k3_vs_plain phase), as
+# P1-sol is.
+# The pair still sees a 32-row step left out of 9,000 (the card tests'
+# deliberate error: 7.8e-3 of an array over a tenth of a step, loss rows
+# 3.9e-3 apart, and the order-free case unequal).  The ten-epoch row (three
+# epochs of the ablation's corpus: 4.30e-3, 4.9e-4, 1.23e-4 apart) holds.
 STEP_TENTH = 1e-4
 K3_TOL = {(None, 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-5},
           (None, 5): {"params_abs": 1e-4, "params_frac": 0.0, "metrics_rel": 1e-4},
           (None, 20): {"params_abs": 1e-4, "params_frac": 0.0, "metrics_rel": 1e-4},
-          ("bfloat16", 1): {"params_abs": 1e-5, "params_frac": 0.0, "metrics_rel": 1e-5},
+          ("bfloat16", 1): {"params_abs": 4.0e-3, "params_frac": 2.44e-4,
+                            "metrics_rel": 5.52e-5},
           ("bfloat16", 10): {"params_abs": 5e-3, "params_frac": 0.05, "metrics_rel": 1e-3},
-          ("bfloat16", 20): {"params_abs": 5e-3, "params_frac": 0.05, "metrics_rel": 1e-3}}
+          ("bfloat16", 20): {"params_abs": 2.67e-2, "params_frac": 3.125e-2,
+                             "metrics_rel": 4.58e-3}}
 # three epochs under an ablation knob (ablation_vs_plain), or two at the
 # bench width (ablation): the ten-epoch row's numbers, since from the
 # second epoch on a few elements can take steps the other way, as above
@@ -469,12 +523,12 @@ AUTO_PROBE_EPOCHS, AUTO_DP_EPOCHS = 1, 20
 # convergence"), finite and descending; at a third of that test's 300
 # epochs to keep the check under 300 s (no kernel runs in this phase)
 SCAN_EPOCHS, SCAN_BF16_BAND = 100, 2.0
-# the multi phase samples every start of each K2 model and tracks the first
-# MULTI_TRACK_ROWS (the serve batch; all 16 of sce2, whose seed-0 traces
-# track_multi reuses): a tracker step of 38-134 rows took 9.4-11.6 ms on
-# the H100 against 4.5 ms at 16, and tracking every start was 36 s of the
-# check
-MULTI_TRACK_ROWS = 16
+# the multi phase samples every start of each K2 model and tracks all of
+# them (38-134 a model) with its scenario's tracker: MULTI_TRACK_ROWS slices
+# the starts (None: every one).  It was cut to the serve batch's 16 while the
+# tracker ran eagerly (a step of 38-134 rows 9.4-11.6 ms on the H100, 36 s of
+# the check); the captured step graph brought it back
+MULTI_TRACK_ROWS = None
 # the conv phase: BASELINE config 3 at the shapes of bench.py::bench_conv_long
 # (:928): 256 random-walk windows of 50 points × 2, step 5 m, seed 0, the
 # default ConvCVAEConfig (channels 32/64/128, kernel 5, H 128, Z 8), 500
@@ -578,8 +632,11 @@ PAR_GLOO_LABEL = "two gloo ranks sharing one card (not a multi-card figure)"
 # corpus, measured beside it ("plain_one_ulp"); after one epoch, where no
 # chaos has set in, the whole of GRID_TOL[1] holds.
 DRV_GRID_EPOCHS, DRV_BASE_EPOCHS, DRV_CONV_EPOCHS, DRV_HOT_EPOCHS = 300, 100, 50, 20
-DRV_SERVE_STEPS, DRV_SERVE_REPS, DRV_CONCURRENCY, DRV_LOAD_REQUESTS = 32, 2, 4, 2
-DRV_BUDGET_S = 30
+DRV_SERVE_STEPS, DRV_SERVE_REPS, DRV_CONCURRENCY, DRV_LOAD_REQUESTS = 512, 7, 4, 2
+# the phase's watchdog: its 23.3 s with serve_latency back at 512 steps and 7
+# reps (NVIDIA H100 80GB HBM3, 700 W) times the 1.5x spread of host speed
+# seen between calls, rounded up
+DRV_BUDGET_S = 45
 # the scoreboard phase: pipeline.reproduce_scoreboard over the four
 # scenarios (never cut), then cli reproduce --check at the same seeds (the
 # four again, never cut) and on sce2 with a metric moved, and the
@@ -588,22 +645,24 @@ DRV_BUDGET_S = 30
 # seed_sweep on sce2 at SB_SWEEP_SEEDS train seeds (0:70) x SB_SWEEP_EPOCHS
 # epochs (3000), selection seeds SB_SELECT_SEEDS (5,6,8), the top 1 on the
 # band seeds SB_BAND_SEEDS (70 seeds); multiseed_validate on sce2 at
-# SB_BAND_GENS (70 seeds, all four scenarios) in chunks of SB_CHUNK;
+# SB_BAND_GENS (70 seeds, all four scenarios) in chunks of SB_CHUNK (the
+# script's usage line's 10: two chunks, so the run can stop after the first);
 # stage_timings on sce2 alone (all four), K2 whole at 4 x 300 epochs, the
 # DNDA stage over the dnda phase's SUT episodes with host preparation
 # inline (a pool of one a core); dnda_drift_probe at SB_DRIFT_REPS reps (4),
 # inline.  Every output goes to a temporary directory, never results/.
 SB_SWEEP_SEEDS, SB_SWEEP_EPOCHS, SB_SELECT_SEEDS, SB_BAND_SEEDS = "0:2", 300, "5", "0,1"
-SB_BAND_GENS, SB_CHUNK, SB_K2_EPOCHS, SB_DRIFT_REPS = "0,1", 1, 300, 1
+SB_BAND_GENS, SB_CHUNK, SB_K2_EPOCHS, SB_DRIFT_REPS = ",".join(map(str, range(20))), 10, 300, 1
 # the committed artifact's metric that the check must catch when moved
 SB_PERTURB = ("sce2", "velocity_js_divergence", 1e-3)
-# The phase is tracking-bound: 19 tracker runs of 1-10 s each (the four
-# scenarios twice, sce2 once more, and ten in the drivers).  Reckoned at
-# 60 s from sce2's one run_scenario, it took 114.3 s alone and 146.4-184.6 s
-# in the whole check (NVIDIA H100 80GB HBM3, 700 W), the reproduction and
-# its check 39-61 s each; the watchdog is the worst of those runs times the
-# spread of host speed seen between calls (1.5x)
-SB_BUDGET_S = 280
+# The phase ran 19 tracker runs of 1-10 s each while the tracker ran eagerly
+# (114.3 s alone and 146.4-184.6 s in the whole check, NVIDIA H100 80GB
+# HBM3, 700 W); with the step captured it took 26.0-26.2 s in the check
+# with the multiseed chunks back at 10 (the reproduction 3.5 s, its check
+# 3.2-3.4, seed_sweep's training 9.5-10.3).  The watchdog is the worst of
+# those runs times the spread of host speed seen between calls (1.5x),
+# rounded up
+SB_BUDGET_S = 40
 # the cache probe: each round's nvccs, and the phase that waits for them.
 # Its three rounds (nine objects, three of them K1's, the build's longest)
 # start once the build is done: beside it they held it up (the build 134.3 s
@@ -953,14 +1012,28 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def tracker_graph_counts():
+    """(graphs captured, steps replayed) by the port's tracker so far, or
+    None before it is imported."""
+    mpc = sys.modules.get(f"{PKG}.control.mpc")
+    return None if mpc is None else (mpc.graph_captures, mpc.graph_steps)
+
+
 @contextlib.contextmanager
 def phase(name, budget_s):
-    """Run one phase under a watchdog; print its JSON line at the end."""
+    """Run one phase under a watchdog; print its JSON line at the end, with
+    the tracker's CUDA-graph work in it (the step graphs captured and the
+    steps replayed) where the phase ran the tracker."""
     faulthandler.dump_traceback_later(budget_s, exit=True)
     info = {}
     t0 = time.perf_counter()
+    g0 = tracker_graph_counts()
     yield info
     faulthandler.cancel_dump_traceback_later()
+    g1 = tracker_graph_counts()
+    if g1 is not None and g1 != (g0 or (0, 0)):
+        c0, r0 = g0 or (0, 0)
+        info["tracker_graph"] = {"captures": g1[0] - c0, "steps_replayed": g1[1] - r0}
     emit({"phase": name, "seconds": time.perf_counter() - t0, **info})
 
 
@@ -1221,6 +1294,27 @@ def _http(port, path, payload=None, raw=False):
     return time.perf_counter() - t0, status, body if raw else json.loads(body)
 
 
+# the thread that opens the process's first profiler session (main)
+PROFILER_WARM = None
+
+
+def start_profiler_warm_up(torch, dev):
+    """A thread that opens and closes one torch.profiler session over one
+    kernel on ``dev``; → the started thread."""
+    import threading
+
+    def run():
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize(dev)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
 def device_busy_ms(torch, fn):
     """(milliseconds of the device work that ``fn()`` ran, its count of
     device events) by ``torch.profiler``, read from the raw trace (building
@@ -1229,6 +1323,8 @@ def device_busy_ms(torch, fn):
     share needs it."""
     from torch.profiler import ProfilerActivity, profile
 
+    if PROFILER_WARM is not None:  # one session at a time in a process
+        PROFILER_WARM.join()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -1237,6 +1333,99 @@ def device_busy_ms(torch, fn):
     if not ns:
         fail("torch.profiler recorded no device time for the serve program")
     return sum(ns) / 1e6, len(ns)
+
+
+def lm_systems(torch, dev, rows):
+    """The LM systems (H (B, 2M, 2M), g (B, 2M, 1)) of the tracker's first
+    solve at the serve configuration, on the sce4 fixture's windows."""
+    from defensive_model_vae_tpu_torch.control import mpc
+    from defensive_model_vae_tpu_torch.scripts import tracker_profile as tp
+
+    s0, refs, l0 = tp.inputs(rows, 1, dev)
+    prob = mpc._problem(tp.CFG, dev)
+    u = torch.zeros((rows, tp.CFG.control_horizon, 2), device=dev)
+    first = torch.ones((), dtype=torch.bool, device=dev)
+    r, J = prob.residuals(u, s0, refs[:, 0], l0, prob.du_pair(first), True)
+    Jt = J.transpose(1, 2)
+    H = Jt @ J + tp.CFG.lm_lambda * prob.eye
+    return H.contiguous(), (Jt @ r[:, :, None]).contiguous()
+
+
+def tracker_checks(np, torch, dev, card):
+    """The captured tracker against the eager loop, and the LU kernel
+    against its plain version and timed (TRACK_GRAPH_*, LU_* above) → (the
+    phase's info, the kernel's row fields)."""
+    from defensive_model_vae_tpu_torch.control import mpc
+    from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+    from defensive_model_vae_tpu_torch.scripts import tracker_profile as tp
+
+    shapes = {}
+    for B in TRACK_GRAPH_ROWS:
+        for S in (TRACK_GRAPH_STEPS,):
+            s0, refs, l0 = tp.inputs(B, S, dev)
+            c0 = mpc.graph_captures
+            a = mpc._simulate(tp.CFG, s0, refs, l0)
+            c1 = mpc.graph_captures
+            b = mpc._simulate(tp.CFG, s0, refs, l0)
+            e = mpc._simulate_eager(tp.CFG, s0, refs, l0)
+            row = {"bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, e)),
+                   "replay_repeats": all(torch.equal(x, y) for x, y in zip(a, b)),
+                   "captures_first_call": c1 - c0,
+                   "captures_second_call": mpc.graph_captures - c1,
+                   "finite": bool(torch.isfinite(a[0]).all())}
+            shapes[f"{B}x{S}"] = row
+            if not (row["bit_for_bit"] and row["replay_repeats"] and row["finite"]):
+                fail(f"the captured tracker against the eager loop at {B} x {S}: {row}")
+            if row["captures_second_call"]:
+                fail(f"a second call at {B} x {S} captured the step again: {row}")
+    emit({"tracker_graph_vs_eager": shapes})
+    lu = {}
+    for B in LU_ROWS:
+        H, g = lm_systems(torch, dev, B)
+        k, p = lus.lu_solve(H, g), lus._lu_solve_plain(H, g)
+        Hd, gd = H.double(), g.double()
+
+        def backward(x):
+            r = (Hd @ x.double() - gd).abs().amax(dim=(1, 2))
+            norm = Hd.abs().sum(dim=2).amax(dim=1) * x.double().abs().amax(dim=(1, 2))
+            return float((r / (norm + gd.abs().amax(dim=(1, 2)))).max())
+
+        n = H.shape[1]
+        x64 = torch.linalg.solve(Hd, gd)
+        kappa = float((Hd.abs().sum(dim=2).amax(dim=1)
+                       * torch.linalg.inv(Hd).abs().sum(dim=2).amax(dim=1)).max())
+        gap = float((k.double() - p.double()).abs().max())
+        lu[B] = {"backward_kernel": backward(k), "backward_plain": backward(p),
+                 "backward_tol": n * LU_U, "gap": gap,
+                 "gap_tol": 2 * kappa * n * LU_U * float(x64.abs().max()),
+                 "kernel_vs_f64": float((k.double() - x64).abs().max()),
+                 "plain_vs_f64": float((p.double() - x64).abs().max()), "kappa": kappa}
+        if not (lu[B]["backward_kernel"] <= n * LU_U and gap <= lu[B]["gap_tol"]):
+            fail(f"the LU kernel against solve_ex at {B} rows: {lu[B]}")
+    emit({"lu_solve_vs_plain": lu})
+    H, g = lm_systems(torch, dev, SERVE_BATCH)
+
+    def block(fn):
+        return cuda_ms(lambda: [fn(H, g) for _ in range(LU_TIMED_CALLS)])[0] / LU_TIMED_CALLS
+
+    def dev_block(fn):
+        return device_ms(lambda: [fn(H, g) for _ in range(LU_TIMED_CALLS)], LU_TIMED_CALLS)
+
+    block(lus.lu_solve), block(lus._lu_solve_plain)  # warm
+    med, spread = in_turns(lambda: block(lus.lu_solve), lambda: block(lus._lu_solve_plain))
+    dmed, dspread = in_turns(lambda: dev_block(lus.lu_solve),
+                             lambda: dev_block(lus._lu_solve_plain))
+    n = H.shape[1]
+    flops = SERVE_BATCH * (2 * n ** 3 / 3 + 2 * n ** 2)
+    b_ms, b_by = bound(flops, SERVE_BATCH * (n * n + 2 * n) * 4, FP32_FLOPS)
+    row = {"max_abs_err": max(v["gap"] for v in lu.values()), "ms": med["kernel"],
+           "device_ms": dmed["kernel"], "plain_ms": med["library"],
+           "library_ms": med["library"], "library_device_ms": dmed["library"],
+           "spread": {"ms": spread["kernel"], "device_ms": dspread["kernel"],
+                      "library_ms": spread["library"],
+                      "library_device_ms": dspread["library"]},
+           "bound_ms": b_ms, "bound_by": b_by, "rows": SERVE_BATCH, "order": n}
+    return {"graph_vs_eager": shapes, "lu_vs_plain": lu, "card": card}, row
 
 
 def serve_phase(np, torch, dev, w4, card):
@@ -1259,6 +1448,7 @@ def serve_phase(np, torch, dev, w4, card):
     from defensive_model_vae_tpu_torch import serving
     from defensive_model_vae_tpu_torch.control import MPCConfig, PathReference
     from defensive_model_vae_tpu_torch.control import device_reference as dr
+    from defensive_model_vae_tpu_torch.control import mpc as mpc_mod
     from defensive_model_vae_tpu_torch.control.mpc import _initial_tracker_state, _simulate
     from defensive_model_vae_tpu_torch.models import sample
     from defensive_model_vae_tpu_torch.pipeline import fixture_starts
@@ -1268,9 +1458,13 @@ def serve_phase(np, torch, dev, w4, card):
     ckpts = {k: os.path.join(HERE, "results", "checkpoints", k)
              for k in ("sce1", "sce2", "sce3", "sce4")}
     t0 = time.perf_counter()
+    c0 = mpc_mod.graph_captures
     server = serving.serve_checkpoint(ckpts, SERVE_BATCH, SERVE_STEPS, dt=SERVE_DT,
                                       port=0, warm_seed=1, device=dev)
     info["load_and_warm_s"] = time.perf_counter() - t0
+    # the warm-up captures the step graph that the requests replay
+    c1 = mpc_mod.graph_captures
+    info["tracker_captures_warm"] = c1 - c0
     # the sce4 program, timed by CUDA events inside the request, its
     # outputs kept for the comparison with the answer
     program, seen = server.serve_fns["sce4"], []
@@ -1308,7 +1502,11 @@ def serve_phase(np, torch, dev, w4, card):
         if one["states"][0] != body["states"][0]:
             fail("the first request alone is not row 0 of the batch bit for bit")
         info.update(serve_wall_s=wall, serve_one_row_wall_s=wall1,
-                    serve_fn_cuda_event_ms=ev_ms, ms_per_step=ev_ms / SERVE_STEPS)
+                    serve_fn_cuda_event_ms=ev_ms, ms_per_step=ev_ms / SERVE_STEPS,
+                    tracker_captures_requests=mpc_mod.graph_captures - c1)
+        if mpc_mod.graph_captures != c1:
+            fail(f"the requests captured {mpc_mod.graph_captures - c1} tracker graphs "
+                 "after the warm-up")
 
         # the device's share: the same program at 4 and 8 steps, profiled
         p4, c4, m4 = load_checkpoint(ckpts["sce4"], dev)
@@ -1332,6 +1530,22 @@ def serve_phase(np, torch, dev, w4, card):
                     profiled_busy_ms=[prof[lo][0], prof[hi][0]],
                     profiled_kernels=[prof[lo][1], prof[hi][1]],
                     host_share=1.0 - busy / ev_ms)
+
+        # the same program with its tracker run eagerly (the parent form):
+        # bit for bit the captured one, and its wall beside the request's
+        real = mpc_mod._simulate
+        mpc_mod._simulate = mpc_mod._simulate_eager
+        try:
+            eager_fn = dr.make_serve_fn(p4, c4, mpc, SERVE_STEPS, m4.get("offset_mode", True))
+        finally:
+            mpc_mod._simulate = real
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e_states = eager_fn(SERVE_SEED, pstarts, pinits)[0].cpu().numpy()
+        info["eager_serve_fn_s"] = time.perf_counter() - t0
+        if not np.array_equal(e_states, d_states):
+            fail("the served states differ from the eager tracker's")
+        info["graph_vs_eager_bit_for_bit"] = True
 
         # each row's reference and tracking against the host, from its draws
         t0 = time.perf_counter()
@@ -2321,12 +2535,14 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.ops import cache_decoy as cdy
     from defensive_model_vae_tpu_torch.ops import fused_scale as fs
     from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
+    from defensive_model_vae_tpu_torch.ops import lu_solve as lus
     from defensive_model_vae_tpu_torch.ops import scale_ablation as sa
     from defensive_model_vae_tpu_torch.scripts import cache_probe
     from defensive_model_vae_tpu_torch.scripts import noise_consumer_probe as ncp
     from defensive_model_vae_tpu_torch.scripts import k1_digest as k1d
     from defensive_model_vae_tpu_torch.scripts import k1_phases as k1p
     from defensive_model_vae_tpu_torch.scripts import k3_digest as k3d
+    from defensive_model_vae_tpu_torch.scripts import k3_order_noise as k3on
     from defensive_model_vae_tpu_torch.scripts import scale_ablation as sab
     from defensive_model_vae_tpu_torch.scripts import sol_checks as solc
     from defensive_model_vae_tpu_torch.scripts.scale_ablation import scale_corpus
@@ -2375,6 +2591,11 @@ def main() -> int:
     # (not "probe": train_scale uses that name for its own)
     nvcc_probe = cache_probe.Probe(timeout=CACHE_PROBE_ROUND_S, slots=cache_probe.SLOTS)
     atexit.register(nvcc_probe.close)  # a failed phase leaves no nvcc running
+    # torch.profiler's first session in a process starts up for 8-13 s
+    # (CUPTI): open and close one in a thread beside the build, so that the
+    # serve phase's profile does not wait on it
+    global PROFILER_WARM
+    PROFILER_WARM = start_profiler_warm_up(torch, dev)
     with phase("build", 240) as info:
         t_build = time.perf_counter()
         built = _build.build_all()
@@ -2485,14 +2706,22 @@ def main() -> int:
     # ---- 7. track -----------------------------------------------------------
     with phase("track", 240) as info:
         mpc = default_mpc_cfg(scenarios.get("sce4"))
+        lus.lu_solve.launches = 0
         t0 = time.perf_counter()
         traces, idx = generate_and_track_from_starts(params, cfg, starts, inits,
                                                      seed=0, mpc_cfg=mpc)
         info["generate_and_track_s"] = time.perf_counter() - t0
+        # the main path's solves, each a launch of the LU kernel (in the
+        # captured step's replays)
+        lu_launches = lus.lu_solve.launches
+        if not lu_launches:
+            fail("the tracker's main path launched no LU kernel")
         if len(traces) != int(ok.sum()):
             fail("tracked fewer paths than valid samples")
         steps = check_tracked(traces, mpc, "sce4")
-        info.update(n_tracked=len(traces), tracked_steps=steps)
+        info.update(n_tracked=len(traces), tracked_steps=steps, lu_launches=lu_launches)
+        checks, lu_row = tracker_checks(np, torch, dev, card)
+        info.update(checks)
 
         # the SLSQP golden windows (tests/test_mpc.py:124-148)
         w1 = np.load(scenarios.get("sce1").fixture_windows)
@@ -2608,6 +2837,26 @@ def main() -> int:
     # 32 at the bench shape (phase 12)
     with phase("k3_vs_plain", 90) as info:
         rows = []
+        # K4 on the order-free case (scripts/k3_order_noise.py), in both
+        # dtypes: its gradients and loss row bit for bit the plain version's,
+        # and the plain version that leaves a 32-row step out unequal
+        for cd in (None, "bfloat16"):
+            xp, xpk, xnv = k3on.exact_case(dev, cd)
+            row, ok = k3on.exact_row(k3on.exact_kernel(xp, xpk, xnv, cd),
+                                     k3on.exact_plain(xp, xpk, xnv, cd))
+            wrong = xpk.clone()
+            wrong[k3on.EXACT_DROP, cfg.seq_len * cfg.dim + cfg.cond_dim] = 0  # mask
+            _, wrong_equal = k3on.exact_row(k3on.exact_kernel(xp, xpk, xnv, cd),
+                                            k3on.exact_plain(xp, wrong, xnv, cd))
+            row.update(kernel="K4", case="order_free", dtype=cd or "float32",
+                       rows=k3on.EXACT_ROWS, tile=k3on.EXACT_TILE,
+                       wrong_step_equal=wrong_equal)
+            rows.append(row)
+            emit({"k3_vs_plain": row})
+            if not ok:
+                fail(f"K4 differs from its plain version on the order-free case: {row}")
+            if wrong_equal:
+                fail(f"the order-free case passes a plain version without a step: {row}")
         for n, tile, cd, noise, epoch_list in ((4096, 512, None, "packed", (1, 20)),
                                                (4096, 512, "bfloat16", "hbm", (1, 20)),
                                                (1000, 256, None, "prng", (5,)),
@@ -2831,8 +3080,8 @@ def main() -> int:
                                        "params_tol": K1_TOL[50]["params_abs"]}})
         if gap > K1_TOL[50]["params_abs"]:
             fail(f"K2's runs differ from fused_train per scenario by {gap}")
-        # each scenario's model sampled at every start, its first
-        # MULTI_TRACK_ROWS starts tracked with its own tracker
+        # each scenario's model sampled at every start, the starts of
+        # MULTI_TRACK_ROWS (every one) tracked with its own tracker
         tracked, seed0_traces = {}, {}
         for k in keys:
             sce = scenarios.get(k)
@@ -3085,6 +3334,9 @@ def main() -> int:
         idle = sorted(k for k, c in {**abl_launches, **abl_cuda}.items() if c == 0)
         if idle:
             fail(f"the ablation's main path launched none of {idle}")
+        if abl_cuda["stream"] != abl_launches["p1_stream"]:
+            fail(f"P1-stream issued {abl_cuda['stream']} CUDA launches for "
+                 f"{abl_launches['p1_stream']} calls (one a call)")
         if abl_cuda["p2"] != abl_launches["p2_stream_sum"]:
             fail(f"P2 issued {abl_cuda['p2']} CUDA launches for "
                  f"{abl_launches['p2_stream_sum']} calls (one a call)")
@@ -3146,8 +3398,26 @@ def main() -> int:
                 fail(f"P1-{mode}'s limit passes a wrong plain version at the bench width: {res}")
             p1_res[mode] = {"max_abs_err": err, "plain_ms": p1_plain_ms * scale_up,
                             "ms": 1e3 * out["variants"][mode]["best_s"], **res}
-        p1_res["stream"]["library_ms"] = cuda_ms(
-            lambda: [torch.sum(packed, dtype=torch.float32) for _ in range(ABL_EPOCHS)])[0]
+        # P1-stream (one launch for the ABL_EPOCHS epochs) in turns with its
+        # library call, ABL_EPOCHS torch.sum calls: through the wrapper, and
+        # on the device alone (the window behind a spin kernel)
+        def s_call():
+            return sa.p1_stream(packed, ABL_EPOCHS, SCALE_TILE)
+
+        def s_lib():
+            return [torch.sum(packed, dtype=torch.float32) for _ in range(ABL_EPOCHS)]
+
+        s_call(), s_lib()  # warm
+        s_med, s_spread = in_turns(lambda: cuda_ms(s_call)[0], lambda: cuda_ms(s_lib)[0])
+        s_dev, s_dev_spread = in_turns(lambda: device_ms(s_call, 1),
+                                       lambda: device_ms(s_lib, 1))
+        p1_res["stream"].update(
+            ablation_best_ms=p1_res["stream"]["ms"], ms=s_med["kernel"],
+            device_ms=s_dev["kernel"], library_ms=s_med["library"],
+            library_device_ms=s_dev["library"],
+            spread={"ms": s_spread["kernel"], "device_ms": s_dev_spread["kernel"],
+                    "library_ms": s_spread["library"],
+                    "library_device_ms": s_dev_spread["library"]})
         p1_res["sol"].update(sol_library_turns(torch, sa, packed, w_in, w_ch, n_chain))
         del packed
         eps2 = fs.hbm_noise(6, P2_EPOCHS, SCALE_N, cfg.latent_dim, "bfloat16", dev)
@@ -3714,6 +3984,12 @@ def main() -> int:
             **({"fp32_fma_bound_ms": 1e3 * p1_ops / FP32_FLOPS} if mode != "stream" else {}),
             **({k: p1_res[mode][k] for k in ("turns_ms", "spread", "library_call")}
                if mode == "sol" else {}),
+            **({k: p1_res[mode][k] for k in ("device_ms", "library_device_ms", "spread",
+                                             "ablation_best_ms")}
+               if mode == "stream" else {}),
+            **({"library_call": f"{ABL_EPOCHS} x torch.sum(packed, dtype=torch.float32)",
+                "device_bound_share": b_ms / p1_res[mode]["device_ms"]}
+               if mode == "stream" else {}),
             **({"sass_mma": sass_mma["p1_sol"]} if mode == "sol" else {}),
             "bound_share": b_ms / p1_res[mode]["ms"],
             "epochs": ABL_EPOCHS, "flops": p1_ops, "card": card})
@@ -3919,7 +4195,18 @@ def main() -> int:
         "spread": p2_timing["spread"],
         "bytes": p2_bytes,
         "card": card,
-    }] + auto_rows})
+    }] + auto_rows + [{
+        "name": "lu_solve",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/lu_solve.cu",
+        "replaces": "none: jnp.linalg.solve in the jitted tracker, "
+                    "defensive_model_vae_tpu/control/mpc.py:172 (XLA)",
+        "launches": lu_launches,
+        **lu_row,
+        "library_call": "torch.linalg.solve_ex (the plain version)",
+        "bound_share": lu_row["bound_ms"] / lu_row["device_ms"],
+        "card": card,
+    }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

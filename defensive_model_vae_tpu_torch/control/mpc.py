@@ -17,17 +17,30 @@ tracked states — do not depend on x and y, and the recurrence for them and
 for their sensitivities is a running sum over the horizon, so one LM
 iteration is one pass of prefix sums over the 30 steps (``torch.cumsum``),
 not 30 Python-level steps.
+
+JAX runs the outer simulation as one jitted ``lax.scan``; here a step is
+one function, :func:`_step`, in place on static buffers.  On the CPU it
+runs as a Python loop (:func:`_simulate_eager`); on a CUDA device it is
+captured once per (config, batch size, device) as a CUDA graph and
+replayed once a step, so a step costs the host one replay instead of some
+350 launches.  The LM systems are solved by ``ops/lu_solve.py``, the
+port's own kernel: ``torch.linalg.solve_ex`` reaches MAGMA's batched LU
+from some batch on, which a capture cannot take.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import functools
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.lu_solve import lu_solve
 from .reference import PathReference
 
 
@@ -103,7 +116,8 @@ def rollout(cfg: MPCConfig, state0: torch.Tensor, controls: torch.Tensor) -> tor
 
 
 class _Problem:
-    """The constant pieces of one configuration's LM problem, on a device."""
+    """The constant pieces of one configuration's LM problem, on a device
+    (built once per (cfg, device) by :func:`_problem`)."""
 
     def __init__(self, cfg: MPCConfig, dev: torch.device):
         P, M = cfg.prediction_horizon, cfg.control_horizon
@@ -139,15 +153,25 @@ class _Problem:
             return u
         return torch.cat([u, u[:, -1:].expand(-1, self.P - self.M, -1)], dim=1)
 
-    def residuals(self, u, state, ref, last, du0_w, jac: bool):
+    def du_pair(self, first: torch.Tensor):
+        """The Δu rows' (Jacobian, weights) pair of the step: the Δu₀-free
+        pair where the 0-d bool ``first`` is set.  A select between the two
+        pairs built above, so no arithmetic differs from the pair looked up
+        by its weight, and the flag can live on the device."""
+        (j0, w0), (j1, w1) = self.du_jac[0.0], self.du_jac[1.0]
+        return torch.where(first, j0, j1), torch.where(first, w0, w1)
+
+    def residuals(self, u, state, ref, last, du, jac: bool):
         """Residual vector (B, R) whose sum of squares is the cost
-        (mpc.py:114), and with ``jac`` its Jacobian (B, R, 2M)."""
+        (mpc.py:114), and with ``jac`` its Jacobian (B, R, 2M); ``du`` the
+        Δu rows' (Jacobian, weights) pair (``du_jac[du0_w]`` or
+        :meth:`du_pair`)."""
         cfg, P, M = self.cfg, self.P, self.M
         B = u.shape[0]
         uf = self.full_controls(u)
         th, v, tan_d = _theta_v(cfg, state, uf)
         track = (torch.stack([th, v], dim=-1) - ref) * self.w_track  # (B, P+1, 2)
-        du_jac, du_w = self.du_jac[du0_w]
+        du_jac, du_w = du
         prev = torch.cat([last[:, None], u[:, :-1]], dim=1)
         du = (u - prev) * self.sqrt_r * du_w[:, None]
         res = torch.cat([track.reshape(B, -1), du.reshape(B, -1)], dim=1)
@@ -173,55 +197,212 @@ class _Problem:
                        du_jac.expand(B, -1, -1)], dim=1)
         return res, J
 
-    def solve(self, state, ref, last, u_init, du0_w):
-        """Projected LM with a fixed iteration count (mpc.py:141)."""
+    def solve(self, state, ref, last, u_init, first):
+        """Projected LM with a fixed iteration count (mpc.py:141); ``first``
+        the 0-d bool flag of a simulation's first solve (:func:`_step`)."""
         cfg, M = self.cfg, self.M
         B = u_init.shape[0]
+        du = self.du_pair(first)
         u = u_init
         lam = torch.full((B,), cfg.lm_lambda, dtype=torch.float32, device=u.device)
         J0 = None
         if cfg.freeze_jacobian:
-            _, J0 = self.residuals(u_init, state, ref, last, du0_w, True)
+            _, J0 = self.residuals(u_init, state, ref, last, du, True)
         for _ in range(cfg.lm_iters):
-            r, J = self.residuals(u, state, ref, last, du0_w, J0 is None)
+            r, J = self.residuals(u, state, ref, last, du, J0 is None)
             if J0 is not None:
                 J = J0
             Jt = J.transpose(1, 2)
             Hm = Jt @ J + lam[:, None, None] * self.eye
             g = Jt @ r[:, :, None]
-            step = -torch.linalg.solve_ex(Hm, g)[0][:, :, 0]
+            step = -lu_solve(Hm, g)[:, :, 0]
             u_trial = torch.minimum(torch.maximum(
                 u + step.reshape(B, M, 2), self.lo), self.hi)
             cost0 = torch.sum(r * r, dim=1)
-            r1, _ = self.residuals(u_trial, state, ref, last, du0_w, False)
+            r1, _ = self.residuals(u_trial, state, ref, last, du, False)
             accept = torch.sum(r1 * r1, dim=1) < cost0
             u = torch.where(accept[:, None, None], u_trial, u)
             lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e4)
         return u
 
 
+@functools.lru_cache(maxsize=32)
+def _problem(cfg: MPCConfig, dev: torch.device) -> _Problem:
+    """One configuration's constant pieces on a device, built once."""
+    return _Problem(cfg, dev)
+
+
+class _StepBuffers:
+    """What one simulation step reads and writes, in place: the state
+    (B, 4), the last applied control (B, 2), the step's reference rows
+    (B, P+1, 2), the warm start (B, M, 2) and the first-solve flag (a 0-d
+    bool).  The captured graph's static buffers, and the eager loop's."""
+
+    def __init__(self, cfg: MPCConfig, B: int, dev: torch.device):
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.state = torch.zeros((B, 4), **f32)
+        self.last = torch.zeros((B, 2), **f32)
+        self.ref = torch.zeros((B, cfg.prediction_horizon + 1, 2), **f32)
+        self.u0 = torch.zeros((B, cfg.control_horizon, 2), **f32)
+        self.first = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def start(self, states0: torch.Tensor, last0: torch.Tensor) -> None:
+        self.state.copy_(states0)
+        self.last.copy_(last0)
+        self.u0.zero_()
+        self.first.fill_(True)
+
+
+def _step(prob: _Problem, buf: _StepBuffers) -> None:
+    """One step of the simulation (mpc.py:196, the scan's body), in place on ``buf``:
+    solve warm-started with the applied control, apply the solve's first
+    control, Euler-step.  Δu₀ is free on the first solve of a simulation
+    (mpc.py:121-126): the flag selects that pair and the step clears it."""
+    cfg = prob.cfg
+    buf.u0[:, 0] = buf.last
+    u = prob.solve(buf.state, buf.ref, buf.last, buf.u0, buf.first)
+    last = u[:, 0]
+    buf.state.copy_(buf.state + _dynamics(cfg, buf.state, last) * cfg.dt)
+    buf.last.copy_(last)
+    buf.first.fill_(False)
+
+
+def _simulate_eager(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
+                    last0: torch.Tensor):
+    """:func:`_simulate` as a Python loop over :func:`_step`: the CPU's
+    path, and the captured program's plain version on the card."""
+    dev = states0.device
+    prob = _problem(cfg, dev)
+    B, S = refs.shape[0], refs.shape[1]
+    buf = _StepBuffers(cfg, B, dev)
+    buf.start(states0, last0)
+    states = torch.empty((B, S + 1, 4), dtype=torch.float32, device=dev)
+    controls = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
+    states[:, 0] = states0
+    for i in range(S):
+        buf.ref.copy_(refs[:, i])
+        _step(prob, buf)
+        states[:, i + 1] = buf.state
+        controls[:, i] = buf.last
+    return states, controls
+
+
+# the captured steps, keyed by (cfg, B, device), least recently used first;
+# each graph holds its static buffers and a private memory pool, which an
+# eviction releases with the last reference to it
+GRAPH_CACHE_MAX = 16
+_graphs: "collections.OrderedDict" = collections.OrderedDict()
+_graphs_lock = threading.Lock()
+# one capture at a time in the process; each device's captures on a stream
+# of their own
+_capture_lock = threading.Lock()
+_capture_streams = {}
+# captures since import (a replay of a cached graph adds none), and the
+# steps replayed
+graph_captures = 0
+graph_steps = 0
+
+
+class _StepGraph:
+    """:func:`_step` at one batch size captured as one CUDA graph."""
+
+    def __init__(self, cfg: MPCConfig, B: int, dev: torch.device):
+        global graph_captures
+        prob = _problem(cfg, dev)
+        self.buf = _StepBuffers(cfg, B, dev)
+        self.lock = threading.Lock()
+        self.graph = torch.cuda.CUDAGraph()
+        with _capture_lock:
+            stream = _capture_streams.get(dev)
+            if stream is None:
+                stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                # one eager step first, on the capture stream: the cuBLAS
+                # and cuSOLVER handles and workspaces of this thread and
+                # stream are made outside the capture
+                _step(prob, self.buf)
+                # thread_local: another thread's CUDA calls (the server's
+                # caller, a rank sharing the card) neither fail this
+                # capture nor are failed by it
+                before = lu_solve.launches
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    _step(prob, self.buf)
+                finally:
+                    self.graph.capture_end()
+                # the solves the graph launches at each replay; the capture
+                # itself launched none
+                self.solves = lu_solve.launches - before
+                lu_solve.launches = before
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            graph_captures += 1
+
+
+def _step_graph(cfg: MPCConfig, B: int, dev: torch.device) -> _StepGraph:
+    """The cached graph of (cfg, B, dev), captured on its first use."""
+    key = (cfg, B, dev)
+    with _graphs_lock:
+        g = _graphs.get(key)
+        if g is not None:
+            _graphs.move_to_end(key)
+            return g
+    try:
+        g = _StepGraph(cfg, B, dev)
+    except Exception as e:
+        raise RuntimeError(f"capturing the tracker step at batch {B} on {dev} failed: "
+                           f"{type(e).__name__}: {e}") from e
+    with _graphs_lock:
+        g = _graphs.setdefault(key, g)
+        _graphs.move_to_end(key)
+        while len(_graphs) > GRAPH_CACHE_MAX:
+            _graphs.popitem(last=False)
+    return g
+
+
+def _simulate_captured(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
+                       last0: torch.Tensor):
+    """:func:`_simulate` on a CUDA device: the step captured once per batch
+    size (:class:`_StepGraph`) and replayed S times.  A step's host work is
+    one copy of its reference rows in, the replay, and two copies out.  The
+    replays' solves count in ``lu_solve.launches``."""
+    global graph_steps
+    dev = states0.device
+    B, S = refs.shape[0], refs.shape[1]
+    states = torch.empty((B, S + 1, 4), dtype=torch.float32, device=dev)
+    controls = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
+    states[:, 0] = states0
+    # the graph's buffers are written inside inference mode only, whatever
+    # mode the caller runs in (the serve program runs in it)
+    with torch.inference_mode():
+        g = _step_graph(cfg, B, dev)
+        with g.lock:
+            buf = g.buf
+            buf.start(states0, last0)
+            try:
+                for i in range(S):
+                    buf.ref.copy_(refs[:, i])
+                    g.graph.replay()
+                    states[:, i + 1] = buf.state
+                    controls[:, i] = buf.last
+                lu_solve.launches += g.solves * S
+                graph_steps += S
+            except Exception as e:
+                raise RuntimeError(f"replaying the tracker step at batch {B} on {dev} "
+                                   f"failed: {type(e).__name__}: {e}") from e
+    return states, controls
+
+
 def _simulate(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
               last0: torch.Tensor):
     """Track B paths: refs (B, S, P+1, 2) → states (B, S+1, 4), controls
     (B, S, 2) (mpc.py:189).  Solve, apply the first control, Euler-step;
-    the next solve is warm-started with the applied control."""
-    prob = _Problem(cfg, states0.device)
-    B, S = refs.shape[0], refs.shape[1]
-    state, last = states0, last0
-    states = torch.empty((B, S + 1, 4), dtype=torch.float32, device=states0.device)
-    controls = torch.empty((B, S, 2), dtype=torch.float32, device=states0.device)
-    states[:, 0] = states0
-    u0 = torch.zeros((B, cfg.control_horizon, 2), dtype=torch.float32,
-                     device=states0.device)
-    for i in range(S):
-        u0[:, 0] = last
-        # Δu₀ is free on the first solve of a simulation (mpc.py:121-126)
-        u = prob.solve(state, refs[:, i], last, u0, 0.0 if i == 0 else 1.0)
-        last = u[:, 0]
-        state = state + _dynamics(cfg, state, last) * cfg.dt
-        states[:, i + 1] = state
-        controls[:, i] = last
-    return states, controls
+    the next solve is warm-started with the applied control.  On a CUDA
+    device the step runs as one captured CUDA graph replayed S times, and a
+    failed capture or replay raises; elsewhere the eager loop runs."""
+    if states0.device.type == "cuda":
+        return _simulate_captured(cfg, states0, refs, last0)
+    return _simulate_eager(cfg, states0, refs, last0)
 
 
 def _initial_tracker_state(initial_state: np.ndarray) -> np.ndarray:

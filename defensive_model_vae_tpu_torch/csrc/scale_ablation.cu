@@ -12,13 +12,19 @@
 // metrics row, so every result is the same from run to run (no atomics).
 //
 //   p1_stream    per epoch the float32 sum of the whole packed bf16 block
-//                into metrics[e, 0]: each block sums a range of the flat
-//                array with 16-byte loads.  A reduction like this is what
-//                Triton serves, but one CUDA source keeps one build path.
-//                Bound: the corpus read once an epoch, 2.15 GB for the
-//                bench shape x 200 epochs (0.64 ms at 3.35 TB/s); the 10.7
-//                MB corpus stays in the 50 MB L2 from epoch to epoch, so
-//                the launches (two an epoch) are what this one measures.
+//                into metrics[e, 0], every epoch in ONE launch of
+//                p1s_kernel (below, after P2, whose design it takes):
+//                a resident grid (p1_stream_grid), each block per epoch
+//                P2_U 16-byte read-only loads a thread in flight, its
+//                partial written to the epoch's slot, then the epoch's
+//                ticket: the block that draws the last one sums that
+//                epoch's partials in block order, writes the row and resets
+//                the ticket, while the others go on to the next epoch.
+//                Bound: the corpus read once an epoch, 214 MB at the bench
+//                shape x 20 epochs (0.064 ms at 3.35 TB/s); the 10.7 MB
+//                corpus stays in the 50 MB L2 from epoch to epoch.  Its
+//                first form launched two kernels an epoch (a partial sum
+//                and a one-block finish) and was host-bound.
 //   p1_ablation  K3's forward and loss (mode 0, fwd) under fixed params
 //                with packed eps, and (mode 1, dx) the gradient of the total
 //                loss in x, summed into metrics[e, 5].  dx is JAX autodiff's
@@ -34,8 +40,7 @@
 //                dec_0's hc columns are dead.
 //   p2_stream_sum  the (rows, 8) bf16 eps stream summed into one (1, 8)
 //                row holding the total in all eight lanes, in ONE launch
-//                of its own kernel (p2_kernel below; p1_stream's are left
-//                as they are).  Bound: the stream read once, 419 MB at
+//                of its own kernel (p2_kernel below).  Bound: the stream read once, 419 MB at
 //                the probe's 200 x 131,072 x 8 (0.125 ms at 3.35 TB/s);
 //                the 50 MB L2 holds an eighth of it, so every byte comes
 //                from HBM.  By Little's law the card needs ~2.3 MB in
@@ -71,53 +76,15 @@ using bf16 = __nv_bfloat16;
 enum { L_STREAM, L_FWD, L_DX, L_P2, L_KINDS };
 long long g_launches[L_KINDS];
 
-// float32 sum of p[begin, end) by one block (16-byte loads where
-// p + begin is 16-byte aligned, then the tail), in a fixed order
-__device__ float block_sum_bf16(const bf16* __restrict__ p, long long begin,
-                                long long end, float* RED) {
-  float s = 0.f;
-  long long i0 = begin;
-  if ((reinterpret_cast<uintptr_t>(p + begin) & 15) == 0) {
-    const long long nvec = (end - begin) / 8;
-    const uint4* v = reinterpret_cast<const uint4*>(p + begin);
-#pragma unroll 4
-    for (long long i = threadIdx.x; i < nvec; i += NT) {
-      const uint4 q = v[i];
-      const unsigned w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {  // two bf16 a word, low half first
-        s += __uint_as_float(w[k] << 16);
-        s += __uint_as_float(w[k] & 0xFFFF0000u);
-      }
-    }
-    i0 = begin + nvec * 8;
-  }
-  for (long long i = i0 + threadIdx.x; i < end; i += NT) s += __bfloat162float(p[i]);
-  return block_sum(s, RED);
-}
-
-// one partial per block: the sum of its range of n elements (ranges of
-// `per` elements, a multiple of 8)
+// the ordered sum of the n partial rows of `stride` floats into P1-abl's
+// row: the loss row of columns 0-4 (loss_row) and the sum of column 5 in
+// row[5]
 __global__ void __launch_bounds__(NT)
-sum_kernel(const bf16* __restrict__ p, long long n, long long per,
-           float* __restrict__ partial) {
-  __shared__ float red[NT];
-  const long long b = (long long)blockIdx.x * per;
-  const long long e = b + per < n ? b + per : n;
-  const float s = block_sum_bf16(p, b, e, red);
-  if (threadIdx.x == 0) partial[blockIdx.x] = s;
-}
-
-// the ordered sum of the n partial rows of `stride` floats.  kind 0:
-// row = [sum col 0, 0 x 7]; kind 1: row = [sum col 0] x 8; kind 2: the
-// loss row of columns 0-4 (loss_row) and the sum of column 5 in row[5]
-__global__ void __launch_bounds__(NT)
-rows_kernel(const float* __restrict__ partial, int n, int stride, int kind,
-            float n_valid, LossW lw, float* __restrict__ row) {
+rows_kernel(const float* __restrict__ partial, int n, int stride, float n_valid, LossW lw,
+            float* __restrict__ row) {
   __shared__ float red[NT];
   __shared__ float cols[8];
-  const int ncol = kind == 2 ? 6 : 1;
-  for (int q = 0; q < ncol; ++q) {
+  for (int q = 0; q < 6; ++q) {
     float s = 0.f;
     for (int c = threadIdx.x; c < n; c += NT) s += partial[(long long)c * stride + q];
     const float t = block_sum(s, red);
@@ -125,12 +92,8 @@ rows_kernel(const float* __restrict__ partial, int n, int stride, int kind,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    if (kind == 2) {
-      loss_row(cols, n_valid, lw, row);
-      row[5] = cols[5];
-    } else {
-      for (int q = 0; q < 8; ++q) row[q] = (kind == 1 || q == 0) ? cols[0] : 0.f;
-    }
+    loss_row(cols, n_valid, lw, row);
+    row[5] = cols[5];
   }
 }
 
@@ -297,20 +260,80 @@ p2_kernel(const bf16* __restrict__ p, long long n, float* __restrict__ partial,
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
+// P1-stream's load: P2's, but volatile, so that no epoch's loads are
+// taken for another's (the same addresses are read every epoch)
+__device__ __forceinline__ uint4 ld_stream_each(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// P1-stream: per epoch e the float32 sum of p[0, n) into metrics[e] =
+// [sum, 0 x 7], all epochs in one launch.  Each epoch is P2's sum (the
+// same batches of P2_U vectors a thread, the head and tail in block 0, the
+// block's tree); block b writes partial[e * gridDim.x + b] and takes
+// ticket[e]; the last block to arrive sums that epoch's partials in block
+// order, writes the row and resets ticket[e] to 0.  No block waits for
+// another: an epoch's finish runs beside the next epoch's reads.
+__global__ void __launch_bounds__(P2_NT)
+p1s_kernel(const bf16* __restrict__ p, long long n, int epochs, float* __restrict__ partial,
+           unsigned* __restrict__ ticket, float* __restrict__ metrics) {
+  __shared__ float wsum[P2_NT / 32];
+  __shared__ bool last;
+  __shared__ float total;
+  long long head = (long long)((16 - (reinterpret_cast<uintptr_t>(p) & 15)) & 15) / 2;
+  if (head > n) head = n;
+  const long long nvec = (n - head) / 8;
+  const long long tail = head + nvec * 8;
+  const uint4* v = reinterpret_cast<const uint4*>(p + head);
+  const long long step = (long long)gridDim.x * P2_NT * P2_U;
+  for (int e = 0; e < epochs; ++e) {
+    float acc[P2_U];
+#pragma unroll
+    for (int u = 0; u < P2_U; ++u) acc[u] = 0.f;
+    long long i = (long long)blockIdx.x * P2_NT * P2_U + threadIdx.x;
+    for (; i + (P2_U - 1) * P2_NT < nvec; i += step) {
+      uint4 q[P2_U];
+#pragma unroll
+      for (int u = 0; u < P2_U; ++u) q[u] = ld_stream_each(v + i + u * P2_NT);
+#pragma unroll
+      for (int u = 0; u < P2_U; ++u) acc[u] += sum8(q[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < P2_U; ++u)  // the thread's last batch, if partial
+      if (i + u * P2_NT < nvec) acc[u] += sum8(ld_stream_each(v + i + u * P2_NT));
+    if (blockIdx.x == 0) {
+      if (threadIdx.x < head) acc[0] += __bfloat162float(p[threadIdx.x]);
+      if (threadIdx.x < n - tail) acc[0] += __bfloat162float(p[tail + threadIdx.x]);
+    }
+    const float s = p2_block_sum((acc[0] + acc[1]) + (acc[2] + acc[3]), wsum);
+    float* const part = partial + (long long)e * gridDim.x;
+    if (threadIdx.x == 0) {
+      part[blockIdx.x] = s;
+      __threadfence();  // the partial is visible before the ticket is taken
+      last = atomicAdd(ticket + e, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      float t = 0.f;
+      for (int b = threadIdx.x; b < (int)gridDim.x; b += P2_NT) t += __ldcg(part + b);
+      t = p2_block_sum(t, wsum);
+      if (threadIdx.x == 0) total = t;
+      __syncthreads();
+      if (threadIdx.x < 8) metrics[8LL * e + threadIdx.x] = threadIdx.x ? 0.f : total;
+      if (threadIdx.x == 0) ticket[e] = 0u;
+    }
+    __syncthreads();  // wsum, last and total are the next epoch's
+  }
+}
+
 template <typename K>
 int set_smem(K kernel) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    SMEM_BYTES);
-}
-
-// the flat sum's layout: ranges of `per` elements (a multiple of 8, at
-// least 64 K), at most 8 blocks an SM → the block count
-long long sum_layout(long long n, int sms, long long* per) {
-  long long b = (n + 65535) / 65536;
-  if (b > 8LL * sms) b = 8LL * sms;
-  if (b < 1) b = 1;
-  *per = ((n + b - 1) / b + 7) / 8 * 8;
-  return (n + *per - 1) / *per;
 }
 
 }  // namespace
@@ -325,29 +348,30 @@ long long sa_cuda_launches(int kind) {
 
 long long sa_chunks(long long n_pad, int sms) { return n_chunks_of(n_pad, sms); }
 
-long long sa_sum_blocks(long long n, int sms) {
-  long long per;
-  return sum_layout(n, sms, &per);
+// P1-stream's grid on a card of `sms` SMs: the blocks of p1s_kernel
+// resident at once
+int p1_stream_grid(int sms) {
+  int per = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, p1s_kernel, P2_NT, 0) !=
+          cudaSuccess || per < 1)
+    per = 1;
+  return sms * per;
 }
 
 // P1-stream: per epoch, the float32 sum of the n_elems bf16 values of the
-// packed corpus into metrics[e, 0] (rows of 8, the rest zero).  partial
-// holds sa_sum_blocks(n_elems, sms) floats.
-int p1_stream(const void* packed, long long n_elems, int epochs, float* partial, int sms,
-              float* metrics, void* stream) {
-  if (n_elems <= 0 || epochs <= 0 || sms <= 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  long long per;
-  const int blocks = (int)sum_layout(n_elems, sms, &per);
-  for (int e = 0; e < epochs; ++e) {
-    sum_kernel<<<blocks, NT, 0, st>>>((const bf16*)packed, n_elems, per, partial);
-    ++g_launches[L_STREAM];
-    rows_kernel<<<1, NT, 0, st>>>(partial, blocks, 1, 0, 1.f, LossW{}, metrics + 8LL * e);
-    ++g_launches[L_STREAM];
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-  }
-  return 0;
+// packed corpus into metrics[e] = [sum, 0 x 7], in one launch.  partial
+// holds epochs x grid floats (p1_stream_grid) and ticket `epochs` zeros,
+// both the stream's own; a corpus of fewer than grid full batches takes
+// fewer blocks.
+int p1_stream(const void* packed, long long n_elems, int epochs, float* partial,
+              unsigned* ticket, int grid, float* metrics, void* stream) {
+  if (n_elems <= 0 || epochs <= 0 || grid <= 0) return (int)cudaErrorInvalidValue;
+  const long long batches = (n_elems / 8 + P2_NT * P2_U - 1) / (P2_NT * P2_U);
+  const int blocks = batches < 1 ? 1 : batches < grid ? (int)batches : grid;
+  p1s_kernel<<<blocks, P2_NT, 0, (cudaStream_t)stream>>>((const bf16*)packed, n_elems, epochs,
+                                                         partial, ticket, metrics);
+  ++g_launches[L_STREAM];
+  return (int)cudaGetLastError();
 }
 
 // P1-abl: per epoch K3's forward and loss (mode 0) or that and the
@@ -375,7 +399,7 @@ int p1_ablation(const void* packed, int width, long long n_pad, float n_valid, i
       abl_kernel<0><<<chunks, NT, SMEM_BYTES, st>>>((const bf16*)packed, width, n_pad,
                                                     1.f / n_valid, lw, params, partial, steps);
     ++g_launches[mode ? L_DX : L_FWD];
-    rows_kernel<<<1, NT, 0, st>>>(partial, chunks, 8, 2, n_valid, lw, metrics + 8LL * e);
+    rows_kernel<<<1, NT, 0, st>>>(partial, chunks, 8, n_valid, lw, metrics + 8LL * e);
     ++g_launches[mode ? L_DX : L_FWD];
     err = (int)cudaGetLastError();
     if (err) return err;

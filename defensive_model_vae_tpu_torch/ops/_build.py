@@ -141,8 +141,10 @@ KERNELS: Dict[str, tuple] = {
     "scale_ablation": ((("scale_ablation.cu", ()),), {
         "p1_stream": (ctypes.c_int, [
             _P, ctypes.c_longlong, ctypes.c_int,  # packed corpus, its elements, epochs
-            _P, ctypes.c_int, _P, _P,          # partials, SM count, metrics, stream
+            _P, _P, ctypes.c_int,              # partials, tickets, grid
+            _P, _P,                            # metrics, stream
         ]),
+        "p1_stream_grid": (ctypes.c_int, [ctypes.c_int]),
         "p1_ablation": (ctypes.c_int, [
             _P, ctypes.c_int, ctypes.c_longlong,  # packed corpus, width, rows
             ctypes.c_float, ctypes.c_int,      # n_valid, mode (0 fwd, 1 dx)
@@ -160,7 +162,6 @@ KERNELS: Dict[str, tuple] = {
         "sa_param_floats": (ctypes.c_longlong, []),
         "sa_cuda_launches": (ctypes.c_longlong, [ctypes.c_int]),
         "sa_chunks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
-        "sa_sum_blocks": (ctypes.c_longlong, [ctypes.c_longlong, ctypes.c_int]),
     }),
     # P1-sol on wgmma: a source of its own, so scale_ablation.cu's object
     # (and its nvcc time) stays as it was
@@ -174,6 +175,17 @@ KERNELS: Dict[str, tuple] = {
         "p1_sol_grid": (ctypes.c_int, [ctypes.c_int, ctypes.c_int]),  # SM count, width
         "p1_sol_partials": (ctypes.c_longlong, [ctypes.c_int]),       # grid
         "p1_sol_cuda_launches": (ctypes.c_longlong, []),
+    }),
+    # the MPC tracker's batched solve (no Pallas counterpart: JAX's
+    # jnp.linalg.solve, which the captured tracker step cannot take from
+    # MAGMA)
+    "lu_solve": ((("lu_solve.cu", ()),), {
+        "lu_solve_batched": (ctypes.c_int, [
+            _P, _P, _P,                        # H (B, n, n), g, x (B, n)
+            ctypes.c_int, ctypes.c_int, _P,    # B, n, stream
+        ]),
+        "lu_solve_nmax": (ctypes.c_int, []),
+        "lu_solve_cuda_launches": (ctypes.c_longlong, []),
     }),
     # P3, and its launch as a CPython function (load_module): that object
     # alone takes Python's headers, whose directory its flags name

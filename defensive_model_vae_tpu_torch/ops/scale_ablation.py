@@ -121,19 +121,37 @@ def _p1_stream_plain(packed, epochs, tile):
     return metrics
 
 
+# P1-stream's workspace, by (device index, stream handle): its block
+# partials (an epoch's row of them per epoch), its tickets (one an epoch,
+# zeroed once, here, on that stream; the kernel leaves them 0) and its grid;
+# grown to the most epochs a call has asked for.
+_P1S_WS: dict = {}
+
+
+def _p1s_workspace(lib, dev, stream, epochs):
+    ws = _P1S_WS.get((dev.index, stream))
+    if ws is None or ws[1].numel() < epochs:
+        grid = int(lib.p1_stream_grid(_sms(dev)))
+        ws = (torch.empty(epochs * grid, dtype=torch.float32, device=dev),
+              torch.zeros(epochs, dtype=torch.int32, device=dev), grid)
+        _P1S_WS[(dev.index, stream)] = ws
+    return ws
+
+
 def p1_stream(packed: torch.Tensor, epochs: int, tile: int) -> torch.Tensor:
     """Per epoch the float32 sum of the packed block (JAX
-    ``_make_stream_kernel``)."""
+    ``_make_stream_kernel``), every epoch in one launch."""
     _check_packed(packed, "P1-stream")
     _check_tile(packed.shape[0], tile, "P1-stream")
     if _device_of(packed, "P1-stream").type == "cpu":
         return _p1_stream_plain(packed, epochs, tile)
     lib, dev = _lib(), packed.device
-    partial = torch.empty(int(lib.sa_sum_blocks(packed.numel(), _sms(dev))),
-                          dtype=torch.float32, device=dev)
-    metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    partial, ticket, grid = _p1s_workspace(lib, dev, stream, epochs)
+    # every lane of every row is written by the kernel
+    metrics = torch.empty((epochs, 8), dtype=torch.float32, device=dev)
     _check(lib.p1_stream(packed.data_ptr(), packed.numel(), epochs, partial.data_ptr(),
-                         _sms(dev), metrics.data_ptr(), _stream(dev)), "P1-stream")
+                         ticket.data_ptr(), grid, metrics.data_ptr(), stream), "P1-stream")
     p1_stream.launches += 1
     return metrics
 

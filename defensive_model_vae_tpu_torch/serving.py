@@ -350,8 +350,10 @@ def serve_checkpoint(ckpt, batch: int, num_steps: int, dt: float = 0.02,
     once.  JAX's warm-up absorbs a compile; torch compiles nothing, so
     here each model's program and sampler run once at the full batch and
     ``_WARM_STEPS`` steps (entropy-seeded unless ``warm_seed`` pins it),
-    which loads the device libraries (cuBLAS, the batched solve) and
-    primes the caching allocator before the first request.
+    which loads the device libraries (cuBLAS, the LU kernel), primes the
+    caching allocator and, on the card, captures the tracker's step graph
+    at the batch (``control/mpc.py``; keyed by the batch, not the step
+    count), so that the first request replays it.
 
     ``mesh`` (``parallel.create_mesh`` over the whole world; the batch a
     multiple of its data axis): every rank calls this.  In a world over one

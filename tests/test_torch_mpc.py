@@ -85,7 +85,8 @@ def test_residual_jacobian_matches_jacfwd(du0_w):
     J_ref = np.asarray(jax.jacfwd(rf)(jnp.asarray(u.ravel())))
     prob = _Problem(cfg, torch.device("cpu"))
     r, J = prob.residuals(torch.tensor(u)[None], torch.tensor(state)[None],
-                          torch.tensor(ref)[None], torch.tensor(last)[None], du0_w, True)
+                          torch.tensor(ref)[None], torch.tensor(last)[None],
+                          prob.du_jac[du0_w], True)
     assert r.shape == (1, 2 * 13 + 12) and J.shape == (1, 2 * 13 + 12, 12)
     assert np.allclose(r[0].numpy(), r_ref, atol=1e-4)
     assert np.allclose(J[0].numpy(), J_ref, atol=1e-4 * np.abs(J_ref).max())
