@@ -375,9 +375,9 @@ GRID_TOL = {1: {**K1_TOL[1], "metrics_vs": "component"},
 # they allowed (scripts/k3_order_noise.py, 32 permutations on the CPU: after
 # one epoch a few elements step the other way, 2.0e-3 at most, 1.22e-4 of an
 # array, loss rows 2.76e-5 apart; after twenty 1.33e-2, 1.56e-2 and
-# 2.29e-3).  So those two rows are twice that spread, and beside them K4 is
-# held bit for bit on an order-free case (the k3_vs_plain phase), as
-# P1-sol is.
+# 2.29e-3).  So those two rows are twice that spread, and beside them K4
+# and one epoch of K3 (its gradients, then Adam's first step) are held bit
+# for bit on an order-free case (the k3_vs_plain phase), as P1-sol is.
 # The pair still sees a 32-row step left out of 9,000 (the card tests'
 # deliberate error: 7.8e-3 of an array over a tenth of a step, loss rows
 # 3.9e-3 apart, and the order-free case unequal).  The ten-epoch row (three
@@ -398,13 +398,17 @@ K3_TOL[("bfloat16", 3)] = K3_TOL[("bfloat16", 2)] = K3_TOL[("bfloat16", 10)]
 # float32 over three epochs (the autodiff instances): the five-epoch row's
 # numbers hold for fewer epochs
 K3_TOL[(None, 3)] = K3_TOL[(None, 5)]
+# the loss rows of noacc and of K3's autodiff instances in bf16: their own
+# summation-order spreads are not measured, so they keep the limits they
+# were held to before the one-epoch row above was set to K3's spread
+K3_BF16_METRICS_REL = {1: 1e-5, 3: 1e-3}
 # noacc: Adam's step reads one tile's gradient sum (352 rows in
 # ablation_vs_plain), in which more elements sit at bf16 rounding level than
 # in the whole corpus's, and such an element can step the other way each
 # epoch: its params are held to that travel (2·E·lr) and to the share of
 # elements over a tenth of a step (5%), its gradient itself to K4's rule
 NOACC_TOL = {ep: {"params_abs": 2 * ep * 1e-3 + 1e-5, "params_frac": 0.05,
-                  "metrics_rel": K3_TOL[("bfloat16", ep)]["metrics_rel"]} for ep in (1, 3)}
+                  "metrics_rel": K3_BF16_METRICS_REL[ep]} for ep in (1, 3)}
 # K4 (one epoch's summed gradients): each array to a fraction of its own max
 # (float32: summation order; bf16: JAX's own bf16 rule), the loss row relative
 K4_TOL = {None: {"grad_rel_max": 1e-5, "row_rel": 1e-5},
@@ -498,8 +502,7 @@ TILES_N = 3
 # to the share of elements over a tenth of a step (5%, as K3_TOL's bf16
 # rows from the second epoch on); their metrics as K3_TOL's
 K3_AUTO_BF16_TOL = {ep: {"params_abs": 2 * ep * 1e-3 + 1e-5, "params_frac": 0.05,
-                         "metrics_rel": K3_TOL[("bfloat16", ep)]["metrics_rel"]}
-                    for ep in (1, 3)}
+                         "metrics_rel": K3_BF16_METRICS_REL[ep]} for ep in (1, 3)}
 
 
 def k3_auto_tol(compute_dtype, epochs):
@@ -524,11 +527,7 @@ AUTO_PROBE_EPOCHS, AUTO_DP_EPOCHS = 1, 20
 # epochs to keep the check under 300 s (no kernel runs in this phase)
 SCAN_EPOCHS, SCAN_BF16_BAND = 100, 2.0
 # the multi phase samples every start of each K2 model and tracks all of
-# them (38-134 a model) with its scenario's tracker: MULTI_TRACK_ROWS slices
-# the starts (None: every one).  It was cut to the serve batch's 16 while the
-# tracker ran eagerly (a step of 38-134 rows 9.4-11.6 ms on the H100, 36 s of
-# the check); the captured step graph brought it back
-MULTI_TRACK_ROWS = None
+# them (38-134 a model) with its scenario's tracker
 # the conv phase: BASELINE config 3 at the shapes of bench.py::bench_conv_long
 # (:928): 256 random-walk windows of 50 points × 2, step 5 m, seed 0, the
 # default ConvCVAEConfig (channels 32/64/128, kernel 5, H 128, Z 8), 500
@@ -657,12 +656,12 @@ SB_BAND_GENS, SB_CHUNK, SB_K2_EPOCHS, SB_DRIFT_REPS = ",".join(map(str, range(20
 SB_PERTURB = ("sce2", "velocity_js_divergence", 1e-3)
 # The phase ran 19 tracker runs of 1-10 s each while the tracker ran eagerly
 # (114.3 s alone and 146.4-184.6 s in the whole check, NVIDIA H100 80GB
-# HBM3, 700 W); with the step captured it took 26.0-26.2 s in the check
+# HBM3, 700 W); with the step captured it took 26.0-35.6 s in the check
 # with the multiseed chunks back at 10 (the reproduction 3.5 s, its check
-# 3.2-3.4, seed_sweep's training 9.5-10.3).  The watchdog is the worst of
-# those runs times the spread of host speed seen between calls (1.5x),
-# rounded up
-SB_BUDGET_S = 40
+# 3.2-3.4, seed_sweep's training 9.5-10.3, on the faster hosts).  The
+# watchdog is the worst of those runs times the spread of host speed seen
+# between calls (1.5x), rounded up
+SB_BUDGET_S = 55
 # the cache probe: each round's nvccs, and the phase that waits for them.
 # Its three rounds (nine objects, three of them K1's, the build's longest)
 # start once the build is done: beside it they held it up (the build 134.3 s
@@ -1339,7 +1338,7 @@ def lm_systems(torch, dev, rows):
     """The LM systems (H (B, 2M, 2M), g (B, 2M, 1)) of the tracker's first
     solve at the serve configuration, on the sce4 fixture's windows."""
     from defensive_model_vae_tpu_torch.control import mpc
-    from defensive_model_vae_tpu_torch.scripts import tracker_profile as tp
+    from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
 
     s0, refs, l0 = tp.inputs(rows, 1, dev)
     prob = mpc._problem(tp.CFG, dev)
@@ -1356,8 +1355,8 @@ def tracker_checks(np, torch, dev, card):
     against its plain version and timed (TRACK_GRAPH_*, LU_* above) → (the
     phase's info, the kernel's row fields)."""
     from defensive_model_vae_tpu_torch.control import mpc
+    from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
     from defensive_model_vae_tpu_torch.ops import lu_solve as lus
-    from defensive_model_vae_tpu_torch.scripts import tracker_profile as tp
 
     shapes = {}
     for B in TRACK_GRAPH_ROWS:
@@ -2706,20 +2705,27 @@ def main() -> int:
     # ---- 7. track -----------------------------------------------------------
     with phase("track", 240) as info:
         mpc = default_mpc_cfg(scenarios.get("sce4"))
-        lus.lu_solve.launches = 0
+        lus.reset_launches(dev)
+        graphs0 = tracker_graph_counts()
         t0 = time.perf_counter()
         traces, idx = generate_and_track_from_starts(params, cfg, starts, inits,
                                                      seed=0, mpc_cfg=mpc)
         info["generate_and_track_s"] = time.perf_counter() - t0
-        # the main path's solves, each a launch of the LU kernel (in the
-        # captured step's replays)
-        lu_launches = lus.lu_solve.launches
-        if not lu_launches:
-            fail("the tracker's main path launched no LU kernel")
+        # the LU kernel's runs on the main path, as the kernel counts them on
+        # the card: lm_iters solves in each replayed step and in the eager
+        # step that each capture runs first
+        lu_launches = lus.launches(dev)
+        captured, replayed = (b - a for a, b in zip(graphs0, tracker_graph_counts()))
+        lu_expected = (replayed + captured) * mpc.lm_iters
+        if not replayed or lu_launches != lu_expected:
+            fail(f"the tracker's main path ran the LU kernel {lu_launches} times, "
+                 f"expected {lu_expected} ({replayed} replayed steps, {captured} "
+                 f"captures, {mpc.lm_iters} solves a step)")
         if len(traces) != int(ok.sum()):
             fail("tracked fewer paths than valid samples")
         steps = check_tracked(traces, mpc, "sce4")
-        info.update(n_tracked=len(traces), tracked_steps=steps, lu_launches=lu_launches)
+        info.update(n_tracked=len(traces), tracked_steps=steps, lu_launches=lu_launches,
+                    lu_expected=lu_expected, replayed_steps=replayed, captures=captured)
         checks, lu_row = tracker_checks(np, torch, dev, card)
         info.update(checks)
 
@@ -2837,26 +2843,29 @@ def main() -> int:
     # 32 at the bench shape (phase 12)
     with phase("k3_vs_plain", 90) as info:
         rows = []
-        # K4 on the order-free case (scripts/k3_order_noise.py), in both
-        # dtypes: its gradients and loss row bit for bit the plain version's,
-        # and the plain version that leaves a 32-row step out unequal
+        # K4, and one epoch of K3, on the order-free case
+        # (scripts/k3_order_noise.py) in both dtypes: K4's gradients and loss
+        # row, K3's params and loss row, bit for bit the plain version's, and
+        # the plain version that leaves a 32-row step out unequal
         for cd in (None, "bfloat16"):
             xp, xpk, xnv = k3on.exact_case(dev, cd)
-            row, ok = k3on.exact_row(k3on.exact_kernel(xp, xpk, xnv, cd),
-                                     k3on.exact_plain(xp, xpk, xnv, cd))
             wrong = xpk.clone()
             wrong[k3on.EXACT_DROP, cfg.seq_len * cfg.dim + cfg.cond_dim] = 0  # mask
-            _, wrong_equal = k3on.exact_row(k3on.exact_kernel(xp, xpk, xnv, cd),
-                                            k3on.exact_plain(xp, wrong, xnv, cd))
-            row.update(kernel="K4", case="order_free", dtype=cd or "float32",
-                       rows=k3on.EXACT_ROWS, tile=k3on.EXACT_TILE,
-                       wrong_step_equal=wrong_equal)
-            rows.append(row)
-            emit({"k3_vs_plain": row})
-            if not ok:
-                fail(f"K4 differs from its plain version on the order-free case: {row}")
-            if wrong_equal:
-                fail(f"the order-free case passes a plain version without a step: {row}")
+            for name, kernel, plain, compare in (
+                    ("K4", k3on.exact_kernel, k3on.exact_plain, k3on.exact_row),
+                    ("K3", k3on.exact_k3_kernel, k3on.exact_k3_plain, k3on.exact_k3_row)):
+                row, ok = compare(kernel(xp, xpk, xnv, cd), plain(xp, xpk, xnv, cd))
+                _, wrong_equal = compare(kernel(xp, xpk, xnv, cd), plain(xp, wrong, xnv, cd))
+                row.update(kernel=name, case="order_free", dtype=cd or "float32",
+                           rows=k3on.EXACT_ROWS, tile=k3on.EXACT_TILE,
+                           wrong_step_equal=wrong_equal)
+                rows.append(row)
+                emit({"k3_vs_plain": row})
+                if not ok:
+                    fail(f"{name} differs from its plain version on the order-free case: "
+                         f"{row}")
+                if wrong_equal:
+                    fail(f"the order-free case passes a plain version without a step: {row}")
         for n, tile, cd, noise, epoch_list in ((4096, 512, None, "packed", (1, 20)),
                                                (4096, 512, "bfloat16", "hbm", (1, 20)),
                                                (1000, 256, None, "prng", (5,)),
@@ -3080,8 +3089,8 @@ def main() -> int:
                                        "params_tol": K1_TOL[50]["params_abs"]}})
         if gap > K1_TOL[50]["params_abs"]:
             fail(f"K2's runs differ from fused_train per scenario by {gap}")
-        # each scenario's model sampled at every start, the starts of
-        # MULTI_TRACK_ROWS (every one) tracked with its own tracker
+        # each scenario's model sampled and tracked at every start with its
+        # own tracker
         tracked, seed0_traces = {}, {}
         for k in keys:
             sce = scenarios.get(k)
@@ -3092,8 +3101,7 @@ def main() -> int:
                 fail(f"the {k} model drew non-finite samples or no valid one")
             t0 = time.perf_counter()
             traces_k, idx_k = generate_and_track_from_starts(
-                mparams[k], cfg, starts_k[:MULTI_TRACK_ROWS], inits_k[:MULTI_TRACK_ROWS],
-                seed=0, mpc_cfg=mpc_k)
+                mparams[k], cfg, starts_k, inits_k, seed=0, mpc_cfg=mpc_k)
             if not len(traces_k):
                 fail(f"no valid sample of the {k} model")
             tracked[k] = {"n_starts": len(starts_k), "n_valid": int(ok_k.sum()),

@@ -292,10 +292,11 @@ def _simulate_eager(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
 # eviction releases with the last reference to it
 GRAPH_CACHE_MAX = 16
 _graphs: "collections.OrderedDict" = collections.OrderedDict()
-_graphs_lock = threading.Lock()
-# one capture at a time in the process; each device's captures on a stream
-# of their own
-_capture_lock = threading.Lock()
+# one lock over the cache, the captures, the replays and the counts: each
+# key is captured once, no two threads write one graph's buffers, and the
+# counts are exact
+_lock = threading.Lock()
+# each device's captures run on a stream of their own
 _capture_streams = {}
 # captures since import (a replay of a cached graph adds none), and the
 # steps replayed
@@ -307,56 +308,46 @@ class _StepGraph:
     """:func:`_step` at one batch size captured as one CUDA graph."""
 
     def __init__(self, cfg: MPCConfig, B: int, dev: torch.device):
-        global graph_captures
         prob = _problem(cfg, dev)
         self.buf = _StepBuffers(cfg, B, dev)
-        self.lock = threading.Lock()
         self.graph = torch.cuda.CUDAGraph()
-        with _capture_lock:
-            stream = _capture_streams.get(dev)
-            if stream is None:
-                stream = _capture_streams[dev] = torch.cuda.Stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                # one eager step first, on the capture stream: the cuBLAS
-                # and cuSOLVER handles and workspaces of this thread and
-                # stream are made outside the capture
+        stream = _capture_streams.get(dev)
+        if stream is None:
+            stream = _capture_streams[dev] = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            # one eager step first, on the capture stream: the cuBLAS
+            # handles and workspaces of this thread and stream are made
+            # outside the capture
+            _step(prob, self.buf)
+            # thread_local: another thread's CUDA calls (the server's
+            # caller, a rank sharing the card) neither fail this capture
+            # nor are failed by it
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
                 _step(prob, self.buf)
-                # thread_local: another thread's CUDA calls (the server's
-                # caller, a rank sharing the card) neither fail this
-                # capture nor are failed by it
-                before = lu_solve.launches
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    _step(prob, self.buf)
-                finally:
-                    self.graph.capture_end()
-                # the solves the graph launches at each replay; the capture
-                # itself launched none
-                self.solves = lu_solve.launches - before
-                lu_solve.launches = before
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            graph_captures += 1
+            finally:
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
 
 
 def _step_graph(cfg: MPCConfig, B: int, dev: torch.device) -> _StepGraph:
-    """The cached graph of (cfg, B, dev), captured on its first use."""
+    """The cached graph of (cfg, B, dev), captured on its first use (the
+    caller holds ``_lock``)."""
+    global graph_captures
     key = (cfg, B, dev)
-    with _graphs_lock:
-        g = _graphs.get(key)
-        if g is not None:
-            _graphs.move_to_end(key)
-            return g
-    try:
-        g = _StepGraph(cfg, B, dev)
-    except Exception as e:
-        raise RuntimeError(f"capturing the tracker step at batch {B} on {dev} failed: "
-                           f"{type(e).__name__}: {e}") from e
-    with _graphs_lock:
-        g = _graphs.setdefault(key, g)
-        _graphs.move_to_end(key)
+    g = _graphs.get(key)
+    if g is None:
+        try:
+            g = _StepGraph(cfg, B, dev)
+        except Exception as e:
+            raise RuntimeError(f"capturing the tracker step at batch {B} on {dev} failed: "
+                               f"{type(e).__name__}: {e}") from e
+        graph_captures += 1
+        _graphs[key] = g
         while len(_graphs) > GRAPH_CACHE_MAX:
             _graphs.popitem(last=False)
+    _graphs.move_to_end(key)
     return g
 
 
@@ -364,8 +355,7 @@ def _simulate_captured(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor
                        last0: torch.Tensor):
     """:func:`_simulate` on a CUDA device: the step captured once per batch
     size (:class:`_StepGraph`) and replayed S times.  A step's host work is
-    one copy of its reference rows in, the replay, and two copies out.  The
-    replays' solves count in ``lu_solve.launches``."""
+    one copy of its reference rows in, the replay, and two copies out."""
     global graph_steps
     dev = states0.device
     B, S = refs.shape[0], refs.shape[1]
@@ -374,22 +364,20 @@ def _simulate_captured(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor
     states[:, 0] = states0
     # the graph's buffers are written inside inference mode only, whatever
     # mode the caller runs in (the serve program runs in it)
-    with torch.inference_mode():
+    with torch.inference_mode(), _lock:
         g = _step_graph(cfg, B, dev)
-        with g.lock:
-            buf = g.buf
-            buf.start(states0, last0)
-            try:
-                for i in range(S):
-                    buf.ref.copy_(refs[:, i])
-                    g.graph.replay()
-                    states[:, i + 1] = buf.state
-                    controls[:, i] = buf.last
-                lu_solve.launches += g.solves * S
-                graph_steps += S
-            except Exception as e:
-                raise RuntimeError(f"replaying the tracker step at batch {B} on {dev} "
-                                   f"failed: {type(e).__name__}: {e}") from e
+        buf = g.buf
+        buf.start(states0, last0)
+        try:
+            for i in range(S):
+                buf.ref.copy_(refs[:, i])
+                g.graph.replay()
+                states[:, i + 1] = buf.state
+                controls[:, i] = buf.last
+        except Exception as e:
+            raise RuntimeError(f"replaying the tracker step at batch {B} on {dev} "
+                               f"failed: {type(e).__name__}: {e}") from e
+        graph_steps += S
     return states, controls
 
 

@@ -185,7 +185,8 @@ KERNELS: Dict[str, tuple] = {
             ctypes.c_int, ctypes.c_int, _P,    # B, n, stream
         ]),
         "lu_solve_nmax": (ctypes.c_int, []),
-        "lu_solve_cuda_launches": (ctypes.c_longlong, []),
+        "lu_solve_launches": (ctypes.c_int, [ctypes.POINTER(ctypes.c_ulonglong)]),
+        "lu_solve_reset_launches": (ctypes.c_int, []),
     }),
     # P3, and its launch as a CPython function (load_module): that object
     # alone takes Python's headers, whose directory its flags name

@@ -11,14 +11,16 @@ batch on (38 and 134 rows on an H100), which invalidates the capture; the
 kernel is LU with partial pivoting, one warp a system (its source notes the
 design and the bound).
 
-On a CUDA tensor the wrapper launches the kernel (counted in
-``lu_solve.launches``) or raises; on a CPU tensor it runs the plain version.
-A captured graph launches the kernel at each replay without running the
-wrapper: the tracker adds those launches to the count itself
-(``control/mpc.py::_simulate_captured``).
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+it runs the plain version.  A captured graph launches the kernel at each
+replay without running the wrapper, so the kernel counts its own runs on
+the device: :func:`launches` reads that count and :func:`reset_launches`
+sets it to 0.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -53,8 +55,31 @@ def lu_solve(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                                torch._C._cuda_getCurrentRawStream(H.device.index))
     if err:
         raise RuntimeError(f"lu_solve launch failed at B={B}, n={n}: CUDA error {err}")
-    lu_solve.launches += 1
     return x
 
 
-lu_solve.launches = 0
+def launches(device) -> int:
+    """The kernel's runs on ``device`` since its last reset, graph replays
+    included, read from the device once its work is done."""
+    from ._build import load
+
+    dev = torch.device(device)
+    out = ctypes.c_ulonglong(0)
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize(dev)
+        err = load("lu_solve").lu_solve_launches(ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"reading lu_solve's launch count failed: CUDA error {err}")
+    return int(out.value)
+
+
+def reset_launches(device) -> None:
+    """Set the kernel's count on ``device`` to 0."""
+    from ._build import load
+
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        torch.cuda.synchronize(dev)
+        err = load("lu_solve").lu_solve_reset_launches()
+    if err:
+        raise RuntimeError(f"resetting lu_solve's launch count failed: CUDA error {err}")

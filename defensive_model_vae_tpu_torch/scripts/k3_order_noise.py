@@ -259,6 +259,40 @@ def exact_row(kernel, plain):
             "nonzero_grads": int(sum(int((g != 0).sum()) for g in gp))}, ok
 
 
+# K3 on the order-free case: one epoch, the gradients above and then Adam's
+# first step.  With m and v zero, the kernel's m and v are the plain
+# version's products whether or not the compiler fuses them into FMAs; its
+# param update may fuse p - lr * step into one FMA where the plain version
+# rounds lr * step first, so lr is a power of two, which makes that product
+# exact.  From the second epoch on, 0.9 m + 0.1 g may be one FMA in the
+# kernel and two roundings in the plain version, so one epoch only.
+EXACT_LR = 2.0 ** -10
+
+
+def exact_k3_plain(plist, packed, n_valid, compute_dtype):
+    """One epoch of K3's plain version on the order-free case → (params,
+    metrics)."""
+    return fs._fused_scale_call_plain(plist, packed, 0, CFG, EXACT_LW, 1, EXACT_LR,
+                                      EXACT_TILE, n_valid, compute_dtype, "packed", None)
+
+
+def exact_k3_kernel(plist, packed, n_valid, compute_dtype):
+    """One epoch of K3 on the order-free case → (params, metrics)."""
+    return fs._fused_scale_call(plist, packed, 0, CFG, EXACT_LW, 1, EXACT_LR, EXACT_TILE,
+                                n_valid, compute_dtype, "packed", None)
+
+
+def exact_k3_row(kernel, plain):
+    """K3 and its plain version on the order-free case → (row, bit for
+    bit): the params, and the loss row."""
+    (pk, mk), (pp, mp) = kernel, plain
+    unequal = [n for i, n in enumerate(ft._LAYERS)
+               for q, j in (("w", 2 * i), ("b", 2 * i + 1)) if not torch.equal(pk[j], pp[j])]
+    ok = not unequal and torch.equal(mk[:, :5], mp[:, :5])
+    return {"bits_equal": ok, "unequal_arrays": unequal,
+            "row_kernel": mk[0, :5].tolist(), "row_plain": mp[0, :5].tolist()}, ok
+
+
 def order_free_self_check(dev, seeds=4):
     """The plain version on the order-free case against itself with its
     hidden units and its valid rows permuted: equal bit for bit, or the case

@@ -3,10 +3,9 @@ step against the eager loop.
 
     python -m defensive_model_vae_tpu_torch.scripts.tracker_profile [--out f.json]
 
-Inputs: the sce4 fixture's windows as waypoints (tests/test_mpc.py's
-reading of a window), their references built by the host ``PathReference``
-at the serve configuration (P 30, M 20, dt 0.02), rows repeated to the
-batch.  Prints one JSON line a part:
+Inputs: ``control/tracker_inputs.py`` (the sce4 fixture's windows at the
+serve configuration, rows repeated to the batch).  Prints one JSON line a
+part:
 
 - ``solve_capture``: ``torch.linalg.solve_ex`` on the LM's (2M, 2M)
   systems captured alone in a CUDA graph at each batch of ``SOLVE_ROWS``,
@@ -18,10 +17,10 @@ batch.  Prints one JSON line a part:
 - ``captured``: ``_simulate`` (the captured step, replayed) bit for bit
   ``_simulate_eager`` at each batch of ``GRAPH_ROWS`` and each step count of
   ``GRAPH_STEPS``; the captures counted;
-- ``walls``: at 16 rows and 512 steps, the eager loop, the captured step
-  and a 64-step captured block, each's wall (host clock), CUDA-event ms,
-  device-busy ms (profiler, 8 steps against 4, scaled to 512) and so its
-  host share, and the capture's own seconds;
+- ``walls``: at 16 rows and 512 steps, the eager loop and the captured
+  step, each's wall (host clock), CUDA-event ms, device-busy ms (profiler,
+  8 steps against 4, scaled to 512) and so its host share, and the
+  capture's own seconds;
 - ``serve``: the serve program of the committed sce4 checkpoint at batch
   16 and 512 steps, its tracker eager and captured, in turns.
 
@@ -39,47 +38,29 @@ import time
 import numpy as np
 import torch
 
+from .. import scenarios
 from .._device import resolve_device
 from ..control import mpc
-from ..control.reference import PathReference
+from ..control.tracker_inputs import CFG, inputs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(os.path.dirname(HERE))
-CFG = mpc.MPCConfig(prediction_horizon=30, control_horizon=20, dt=0.02)
 # the batches that pick cuBLAS's batched LU run first
 SOLVE_ROWS = (16, 38, 134, 1, 8, 2)
 GRAPH_ROWS = (16, 38, 134, 2)
 GRAPH_STEPS = (64, 512)
 PROFILE_ROWS = (16, 134)
 PROFILE_STEPS = (4, 12)
-WALL_ROWS, WALL_STEPS, BLOCK = 16, 512, 64
+WALL_ROWS, WALL_STEPS = 16, 512
 SERVE_SEED, SERVE_TURNS = 5, 2
-
-
-def inputs(rows: int, steps: int, dev):
-    """(states0 (B, 4), refs (B, S, P+1, 2), last0 (B, 2)) from the sce4
-    fixture's windows, repeated to ``rows``."""
-    w = np.load(os.path.join(REPO, "fixtures", "trajectory_sce4_cond.npy"))
-    w = w[np.arange(rows) % len(w)]
-    s0, refs = [], []
-    for win in w:
-        wp = win[:, [1, 2, 0]].astype(float)
-        wp[0, 2] = 0.0
-        v0 = (wp[1, :2] - wp[0, :2]) / (wp[1, 2] - wp[0, 2])
-        init = np.array([wp[0, 0], wp[0, 1], np.arctan2(v0[1], v0[0]), v0[0], v0[1]])
-        refs.append(PathReference(wp, init).build(steps, CFG.prediction_horizon, CFG.dt))
-        s0.append(mpc._initial_tracker_state(init))
-    f32 = dict(dtype=torch.float32, device=dev)
-    return (torch.tensor(np.stack(s0), **f32), torch.tensor(np.stack(refs), **f32),
-            torch.zeros((rows, 2), **f32))
 
 
 def kernel_events(fn):
     """[(name, ns)] of the device kernels ``fn()`` ran (the profiler's raw
     trace; its event tree costs ~0.5 s a session)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch import profiler
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiler.profile(activities=[profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return [(e.name(), e.duration_ns()) for e in prof.profiler.kineto_results.events()
@@ -156,164 +137,111 @@ def solve_capture(dev):
     return out
 
 
-def block_simulate(cfg, states0, refs, last0, cache):
-    """The 64-step block form: BLOCK steps captured in one graph (each with
-    its own slice of a static block of reference rows), replayed S/BLOCK
-    times.  Kept here as the measured alternative to the one-step graph."""
-    dev = states0.device
-    B, S = refs.shape[:2]
-    with torch.inference_mode():
-        if "g" not in cache:
-            t0 = time.perf_counter()
-            prob = mpc._problem(cfg, dev)
-            buf = mpc._StepBuffers(cfg, B, dev)
-            blk = torch.zeros((B, BLOCK) + refs.shape[2:], dtype=torch.float32, device=dev)
-            hs = torch.zeros((B, BLOCK, 4), dtype=torch.float32, device=dev)
-            hc = torch.zeros((B, BLOCK, 2), dtype=torch.float32, device=dev)
-            s = torch.cuda.Stream(dev)
-            s.wait_stream(torch.cuda.current_stream(dev))
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(s):
-                buf.ref.copy_(blk[:, 0])
-                mpc._step(prob, buf)
-                graph.capture_begin(capture_error_mode="thread_local")
-                for j in range(BLOCK):
-                    buf.ref.copy_(blk[:, j])
-                    mpc._step(prob, buf)
-                    hs[:, j] = buf.state
-                    hc[:, j] = buf.last
-                graph.capture_end()
-            torch.cuda.current_stream(dev).wait_stream(s)
-            torch.cuda.synchronize()
-            cache.update(g=graph, buf=buf, blk=blk, hs=hs, hc=hc,
-                         capture_s=time.perf_counter() - t0)
-        g, buf, blk, hs, hc = (cache[k] for k in ("g", "buf", "blk", "hs", "hc"))
-        states = torch.empty((B, S + 1, 4), dtype=torch.float32, device=dev)
-        controls = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
-        states[:, 0] = states0
-        buf.start(states0, last0)
-        for k in range(0, S, BLOCK):
-            blk.copy_(refs[:, k:k + BLOCK])
-            g.replay()
-            states[:, k + 1:k + 1 + BLOCK] = hs
-            controls[:, k:k + BLOCK] = hc
-    return states, controls
+def profile(dev):
+    """The eager step's kernels at each batch of ``PROFILE_ROWS``."""
+    prof = {}
+    for B in PROFILE_ROWS:
+        s0, refs, l0 = inputs(B, PROFILE_STEPS[1], dev)
+        busy, rows = per_step(lambda S: mpc._simulate_eager(CFG, s0, refs[:, :S], l0))
+        host, _ = wall_s(lambda: mpc._simulate_eager(CFG, s0, refs, l0))
+        prof[B] = {"device_busy_us_per_step": busy, "kernels_per_step": sum(r[1] for r in rows),
+                   "eager_wall_ms_per_step": 1e3 * host / PROFILE_STEPS[1],
+                   "top": rows[:25]}
+    return prof
+
+
+def captured(dev):
+    """The captured step against the eager loop at each shape."""
+    cap = {}
+    for B in GRAPH_ROWS:
+        for S in GRAPH_STEPS:
+            s0, refs, l0 = inputs(B, S, dev)
+            before = mpc.graph_captures
+            a = mpc._simulate(CFG, s0, refs, l0)
+            again = mpc.graph_captures
+            b = mpc._simulate(CFG, s0, refs, l0)
+            e = mpc._simulate_eager(CFG, s0, refs, l0)
+            cap[f"{B}x{S}"] = {
+                "bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, e)),
+                "replay_repeats": all(torch.equal(x, y) for x, y in zip(a, b)),
+                "captures_first_call": again - before,
+                "captures_second_call": mpc.graph_captures - again,
+                "finite": bool(torch.isfinite(a[0]).all())}
+    return cap
+
+
+def walls(dev):
+    """The eager loop and the captured step at WALL_ROWS x WALL_STEPS."""
+    B, S = WALL_ROWS, WALL_STEPS
+    s0, refs, l0 = inputs(B, S, dev)
+    mpc._graphs.clear()
+    forms = {"eager": lambda n: mpc._simulate_eager(CFG, s0, refs[:, :n], l0),
+             "step_graph": lambda n: mpc._simulate(CFG, s0, refs[:, :n], l0)}
+    out = {}
+    t_first, _ = wall_s(lambda: forms["step_graph"](64))
+    t_again, _ = wall_s(lambda: forms["step_graph"](64))
+    out["step_graph_capture_s"] = t_first - t_again
+    for name, fn in forms.items():
+        w = [wall_s(lambda: fn(S))[0] for _ in range(2)]
+        ms = event_ms(lambda: fn(S))
+        lo, hi = 4, 8
+        d = [sum(ns for _, ns in kernel_events(lambda: fn(n))) / 1e6 for n in (lo, lo, hi)]
+        busy = d[2] + (d[2] - d[1]) / (hi - lo) * (S - hi)
+        out[name] = {"wall_s": w, "cuda_event_ms": ms, "device_busy_ms": busy,
+                     "host_share": 1 - busy / ms}
+    return out
+
+
+def serve(dev):
+    """The serve program of the committed sce4 checkpoint, its tracker eager
+    and captured, in turns."""
+    from ..control import device_reference as dr
+    from ..pipeline import fixture_starts
+    from ..train import load_checkpoint
+
+    params, cfg, manifest = load_checkpoint(os.path.join(REPO, "results", "checkpoints",
+                                                         "sce4"), dev)
+    w = np.load(scenarios.get("sce4").fixture_windows)[:WALL_ROWS]
+    starts, inits = fixture_starts(w)
+    inits = inits.astype(np.float32)
+    # make_serve_fn binds mpc._simulate when it is made
+    real, fns = mpc._simulate, {}
+    for name, sim in (("eager", mpc._simulate_eager), ("captured", real)):
+        mpc._simulate = sim
+        try:
+            fns[name] = dr.make_serve_fn(params, cfg, CFG, WALL_STEPS,
+                                         manifest.get("offset_mode", True))
+        finally:
+            mpc._simulate = real
+
+    def run(name):
+        return fns[name](SERVE_SEED, starts, inits)
+
+    run("captured")  # the warm-up: the batch's graph captured
+    out = {n: {"wall_s": [], "cuda_event_ms": []} for n in fns}
+    outs = {}
+    for _ in range(SERVE_TURNS):
+        for name in ("eager", "captured", "captured", "eager"):
+            t, outs[name] = wall_s(lambda: run(name))
+            out[name]["wall_s"].append(t)
+            out[name]["cuda_event_ms"].append(event_ms(lambda: run(name)))
+    out["bit_for_bit"] = all(torch.equal(x, y) for x, y in
+                             zip(outs["eager"], outs["captured"]))
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the lines' objects to this JSON file")
-    ap.add_argument("--parts", default="solve_capture,profile,captured,walls,serve")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tracker_profile needs a CUDA card")
     dev = resolve_device("cuda")
-    parts = args.parts.split(",")
     result = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
               "cuda": torch.version.cuda}
-
-    def emit(key, obj):
-        result[key] = obj
-        print(json.dumps({key: obj}), flush=True)
-
-    if "solve_capture" in parts:
-        emit("solve_capture", solve_capture(dev))
-    if "profile" in parts:
-        prof = {}
-        for B in PROFILE_ROWS:
-            s0, refs, l0 = inputs(B, PROFILE_STEPS[1], dev)
-            busy, rows = per_step(lambda S: mpc._simulate_eager(CFG, s0, refs[:, :S], l0))
-            host, _ = wall_s(lambda: mpc._simulate_eager(CFG, s0, refs, l0))
-            prof[B] = {"device_busy_us_per_step": busy, "kernels_per_step": sum(r[1] for r in rows),
-                       "eager_wall_ms_per_step": 1e3 * host / PROFILE_STEPS[1],
-                       "top": rows[:25]}
-        emit("profile", prof)
-    if "captured" in parts:
-        cap = {}
-        for B in GRAPH_ROWS:
-            for S in GRAPH_STEPS:
-                s0, refs, l0 = inputs(B, S, dev)
-                before = mpc.graph_captures
-                try:
-                    a = mpc._simulate(CFG, s0, refs, l0)
-                except RuntimeError as e:  # the refused shape is the finding
-                    cap[f"{B}x{S}"] = {"error": str(e)[:400]}
-                    print(json.dumps({f"captured_{B}x{S}": cap[f"{B}x{S}"]}), flush=True)
-                    continue
-                again = mpc.graph_captures
-                b = mpc._simulate(CFG, s0, refs, l0)
-                e = mpc._simulate_eager(CFG, s0, refs, l0)
-                cap[f"{B}x{S}"] = {
-                    "bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, e)),
-                    "replay_repeats": all(torch.equal(x, y) for x, y in zip(a, b)),
-                    "captures_first_call": again - before,
-                    "captures_second_call": mpc.graph_captures - again,
-                    "finite": bool(torch.isfinite(a[0]).all())}
-        emit("captured", cap)
-    if "walls" in parts:
-        B, S = WALL_ROWS, WALL_STEPS
-        s0, refs, l0 = inputs(B, S, dev)
-        mpc._graphs.clear()
-        block_cache = {}
-        forms = {"eager": lambda n: mpc._simulate_eager(CFG, s0, refs[:, :n], l0),
-                 "step_graph": lambda n: mpc._simulate(CFG, s0, refs[:, :n], l0),
-                 "block_graph": lambda n: block_simulate(CFG, s0, refs[:, :n], l0, block_cache)}
-        walls = {}
-        t_first, _ = wall_s(lambda: forms["step_graph"](BLOCK))
-        t_again, _ = wall_s(lambda: forms["step_graph"](BLOCK))
-        walls["step_graph_capture_s"] = t_first - t_again
-        t_first, _ = wall_s(lambda: forms["block_graph"](BLOCK))
-        walls["block_graph_capture_s"] = block_cache["capture_s"]
-        for name, fn in forms.items():
-            w = [wall_s(lambda: fn(S))[0] for _ in range(2)]
-            ms = event_ms(lambda: fn(S))
-            if name == "block_graph":
-                busy = None  # its 64-step replays do not split into 4 and 8
-            else:
-                lo, hi = 4, 8
-                d = [sum(ns for _, ns in kernel_events(lambda: fn(n))) / 1e6
-                     for n in (lo, lo, hi)]
-                busy = d[2] + (d[2] - d[1]) / (hi - lo) * (S - hi)
-            walls[name] = {"wall_s": w, "cuda_event_ms": ms, "device_busy_ms": busy,
-                           "host_share": None if busy is None else 1 - busy / ms}
-        a = forms["step_graph"](S)
-        walls["block_bit_for_bit"] = all(torch.equal(x, y) for x, y in
-                                         zip(a, forms["block_graph"](S)))
-        emit("walls", walls)
-    if "serve" in parts:
-        from ..control import device_reference as dr
-        from ..pipeline import fixture_starts
-        from ..train import load_checkpoint
-
-        params, cfg, manifest = load_checkpoint(os.path.join(REPO, "results", "checkpoints",
-                                                             "sce4"), dev)
-        w = np.load(os.path.join(REPO, "fixtures", "trajectory_sce4_cond.npy"))[:WALL_ROWS]
-        starts, inits = fixture_starts(w)
-        inits = inits.astype(np.float32)
-        # make_serve_fn binds mpc._simulate when it is made
-        real, fns = mpc._simulate, {}
-        for name, sim in (("eager", mpc._simulate_eager), ("captured", real)):
-            mpc._simulate = sim
-            try:
-                fns[name] = dr.make_serve_fn(params, cfg, CFG, WALL_STEPS,
-                                             manifest.get("offset_mode", True))
-            finally:
-                mpc._simulate = real
-
-        def run(name):
-            return fns[name](SERVE_SEED, starts, inits)
-
-        run("captured")  # the warm-up: the batch's graph captured
-        serve = {n: {"wall_s": [], "cuda_event_ms": []} for n in fns}
-        outs = {}
-        for _ in range(SERVE_TURNS):
-            for name in ("eager", "captured", "captured", "eager"):
-                t, outs[name] = wall_s(lambda: run(name))
-                serve[name]["wall_s"].append(t)
-                serve[name]["cuda_event_ms"].append(event_ms(lambda: run(name)))
-        serve["bit_for_bit"] = all(torch.equal(x, y) for x, y in
-                                   zip(outs["eager"], outs["captured"]))
-        emit("serve", serve)
+    for part in (solve_capture, profile, captured, walls, serve):
+        result[part.__name__] = obj = part(dev)
+        print(json.dumps({part.__name__: obj}), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -11,6 +11,7 @@ import importlib.util
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from conftest import REPO_ROOT
@@ -47,6 +48,25 @@ def test_order_free_case_is_order_free_and_reaches_every_layer():
     plist, packed, nv = k3on.exact_case(CPU, "bfloat16")
     grads, row = k3on.exact_plain(plist, packed, nv, "bfloat16")
     assert all(int((g != 0).sum()) > 0 for g in grads) and torch.isfinite(row).all()
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_k3_order_free_case_is_order_free_and_sees_a_left_out_step(dtype):
+    """One epoch of K3's plain version on the order-free case: Adam moves
+    the params, permuted hidden units give the permuted params and the same
+    loss row bit for bit, and the case without one 32-row step is unequal."""
+    plist, packed, nv = k3on.exact_case(CPU, dtype)
+    params, metrics = k3on.exact_k3_plain(plist, packed, nv, dtype)
+    assert any(not torch.equal(a, b) for a, b in zip(params, plist))
+    perms = k3on.perms_of(1, CPU)
+    pp, mp = k3on.exact_k3_plain(k3on.permute(plist, perms), packed, nv, dtype)
+    assert all(torch.equal(a, b) for a, b in zip(pp, k3on.permute(params, perms)))
+    assert torch.equal(mp, metrics)
+    assert k3on.exact_k3_row((params, metrics), (params, metrics))[1]
+    wrong = packed.clone()
+    wrong[k3on.EXACT_DROP, 32] = 0
+    assert not k3on.exact_k3_row((params, metrics),
+                                 k3on.exact_k3_plain(plist, wrong, nv, dtype))[1]
 
 
 def test_new_bf16_limits_still_see_a_left_out_step():

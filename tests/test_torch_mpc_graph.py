@@ -12,6 +12,7 @@ the replays must then give the eager loop's bits.
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -126,8 +127,7 @@ def test_lu_solve_on_the_cpu_is_its_plain_version():
 
 
 class _EagerGraph:
-    """A stand-in for a captured step: replay runs the step eagerly, and
-    the solves it makes count as the graph's (as a capture sets them)."""
+    """A stand-in for a captured step: replay runs the step eagerly."""
 
     made = []
 
@@ -136,15 +136,11 @@ class _EagerGraph:
             raise RuntimeError("refused")
         prob = mpc._problem(cfg, dev)
         self.buf = mpc._StepBuffers(cfg, B, dev)
-        self.lock = threading.Lock()
-        self.solves = cfg.lm_iters
         outer = self
 
         class _Replay:
             def replay(self):
-                before = lus.lu_solve.launches
                 mpc._step(prob, outer.buf)
-                lus.lu_solve.launches = before
 
         self.graph = _Replay()
         _EagerGraph.made.append((cfg, B))
@@ -163,14 +159,44 @@ def test_replay_loop_gives_the_eager_loops_bits(windows_sce1, stand_in_graphs):
     s0, refs, last0 = (torch.tensor(a) for a in _inputs(windows_sce1, (1, 3), 20, cfg,
                                                         last=(0.5, 0.0)))
     eager = mpc._simulate_eager(cfg, s0, refs, last0)
-    launches, steps = lus.lu_solve.launches, mpc.graph_steps
+    captures, steps = mpc.graph_captures, mpc.graph_steps
     for _ in range(2):  # the second call reuses the cached buffers
         got = mpc._simulate_captured(cfg, s0, refs, last0)
         assert all(torch.equal(a, b) for a, b in zip(got, eager))
     assert stand_in_graphs == [(cfg, 2)]
-    assert lus.lu_solve.launches - launches == 2 * 20 * cfg.lm_iters
+    assert mpc.graph_captures - captures == 1
     assert mpc.graph_steps - steps == 2 * 20
     assert not got[0].is_inference()
+
+
+def test_threads_that_miss_together_capture_once(windows_sce1, stand_in_graphs,
+                                                monkeypatch):
+    """Two threads that ask for one new key while a capture is slow: one
+    capture, both answers the eager loop's, the counts exact."""
+
+    class _SlowGraph(_EagerGraph):
+        def __init__(self, *a):
+            time.sleep(0.2)
+            super().__init__(*a)
+
+    monkeypatch.setattr(mpc, "_StepGraph", _SlowGraph)
+    cfg = mpc.MPCConfig(prediction_horizon=10, control_horizon=5, dt=0.05)
+    s0, refs, last0 = (torch.tensor(a) for a in _inputs(windows_sce1, (1, 3), 8, cfg))
+    eager = mpc._simulate_eager(cfg, s0, refs, last0)
+    captures, steps = mpc.graph_captures, mpc.graph_steps
+    got = [None, None]
+
+    def run(k):
+        got[k] = mpc._simulate_captured(cfg, s0, refs, last0)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert stand_in_graphs == [(cfg, 2)] and mpc.graph_captures - captures == 1
+    assert mpc.graph_steps - steps == 2 * 8
+    assert all(torch.equal(a, b) for g in got for a, b in zip(g, eager))
 
 
 def test_graph_cache_keeps_its_bound_and_evicts_the_oldest(stand_in_graphs, monkeypatch):

@@ -21,9 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from defensive_model_vae_tpu_torch import scenarios
 from defensive_model_vae_tpu_torch.control import mpc
+from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
 from defensive_model_vae_tpu_torch.ops import lu_solve as lus
-from defensive_model_vae_tpu_torch.scripts import tracker_profile as tp
 
 
 def _cuda():
@@ -45,6 +46,18 @@ def test_captured_equals_eager_bit_for_bit(rows, steps):
     got = mpc._simulate(tp.CFG, s0, refs, l0)
     assert torch.isfinite(got[0]).all()
     assert _equal(got, mpc._simulate_eager(tp.CFG, s0, refs, l0))
+
+
+@pytest.mark.gpu
+def test_the_kernel_counts_its_runs_in_replays():
+    """The LU kernel counts its own runs on the card: a captured call at a
+    cached batch runs it lm_iters times a replayed step, and no more."""
+    dev = _cuda()
+    s0, refs, l0 = tp.inputs(16, 64, dev)
+    mpc._simulate(tp.CFG, s0, refs, l0)  # captured (or already cached)
+    lus.reset_launches(dev)
+    mpc._simulate(tp.CFG, s0, refs, l0)
+    assert lus.launches(dev) == 64 * tp.CFG.lm_iters
 
 
 @pytest.mark.gpu
@@ -101,7 +114,8 @@ def test_replay_from_a_server_thread_after_the_warm_up():
     from defensive_model_vae_tpu_torch import serving
 
     dev = _cuda()
-    server = serving.serve_checkpoint(tp.REPO + "/results/checkpoints/sce4", 4, 64, dt=0.02,
+    ckpt = scenarios.REPO_ROOT / "results" / "checkpoints" / "sce4"
+    server = serving.serve_checkpoint(str(ckpt), 4, 64, dt=0.02,
                                       port=0, warm_seed=1, device=dev)
     th = threading.Thread(target=server.serve_forever, daemon=True)
     th.start()
@@ -130,7 +144,7 @@ def test_replay_from_a_server_thread_after_the_warm_up():
 @pytest.mark.parametrize("rows", [1, 16, 134])
 def test_lu_kernel_holds_the_backward_error_of_its_plain_version(rows):
     dev = _cuda()
-    before = lus.lu_solve.launches
+    lus.reset_launches(dev)
     n = 2 * tp.CFG.control_horizon
     gen = torch.Generator().manual_seed(rows)
     J = torch.randn((rows, 2 * n, n), generator=gen).to(dev)
@@ -142,6 +156,6 @@ def test_lu_kernel_holds_the_backward_error_of_its_plain_version(rows):
         norm = (Hd.abs().sum(dim=2).amax(dim=1) * x.double().abs().amax(dim=(1, 2))
                 + gd.abs().amax(dim=(1, 2)))
         assert float((r / norm).max()) <= n * 2.0 ** -24
-    assert lus.lu_solve.launches == before + 1
+    assert lus.launches(dev) == 1
     with pytest.raises(ValueError, match="contiguous"):
         lus.lu_solve(H.transpose(1, 2), g)
