@@ -39,9 +39,13 @@ traceback and a non-zero exit:
                    the captured tracker bit for bit the eager loop at 2,
                    16, 38 and 134 rows and 64 steps, a second
                    call replaying without a capture; the LU kernel
-                   (``csrc/lu_solve.cu``) against ``torch.linalg.solve_ex``
-                   on the tracker's LM systems at 1-134 rows, timed in turns
-                   with it at the serve batch;
+                   (``csrc/lu_solve.cu``): its register form bit for bit
+                   its shared-memory form on the tracker's, the sweep's,
+                   tie and out-of-range systems
+                   (``scripts/lu_checks.py``), against
+                   ``torch.linalg.solve_ex`` on the tracker's LM systems
+                   at 1-134 rows, timed in turns with it and with the
+                   shared-memory form at the serve batch;
 8. ``data``        the native CSV loader built (``data/csv_io.py``, g++),
                    the four committed corpora written as CARLA episode CSVs
                    (``scripts/episodes.py``) and read back by the port's
@@ -269,6 +273,7 @@ import faulthandler
 import json
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -306,9 +311,15 @@ SERVE_HOST_TRACK_TOL = 1e-3
 # n = 40 on the CPU, against 2.4e-6), and the kernel's gap to the plain
 # version at most the 2 kappa(H) n u |x| that two such solves can part by
 # (kappa(H) the float64 condition number).  A wrong pivot or a row left
-# out moves the backward error to order 1.  The kernel timed at the serve
-# batch over LU_TIMED_CALLS calls a block, in turns with solve_ex (its
-# library call).
+# out moves the backward error to order 1.  Its register form (the main
+# path's, n <= 64) bit for bit its shared-memory form (the first, form="smem")
+# and the host's emulation of their arithmetic on the cases of
+# scripts/lu_checks.py (the tracker's systems at 1-134 rows, the sweep's
+# orders 10, 20, 60, a tie case at each order, the wrong pivot rule's
+# emulation unequal there, and a case out of the fast divisions' range).
+# The kernel timed at the serve batch over LU_TIMED_CALLS calls a block,
+# in turns with solve_ex (its library call) and with the shared-memory
+# form.
 TRACK_GRAPH_ROWS, TRACK_GRAPH_STEPS = (2, 16, 38, 134), 64
 LU_ROWS, LU_TIMED_CALLS = (1, 16, 38, 134), 50
 LU_U = 2.0 ** -24
@@ -1334,29 +1345,16 @@ def device_busy_ms(torch, fn):
     return sum(ns) / 1e6, len(ns)
 
 
-def lm_systems(torch, dev, rows):
-    """The LM systems (H (B, 2M, 2M), g (B, 2M, 1)) of the tracker's first
-    solve at the serve configuration, on the sce4 fixture's windows."""
-    from defensive_model_vae_tpu_torch.control import mpc
-    from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
-
-    s0, refs, l0 = tp.inputs(rows, 1, dev)
-    prob = mpc._problem(tp.CFG, dev)
-    u = torch.zeros((rows, tp.CFG.control_horizon, 2), device=dev)
-    first = torch.ones((), dtype=torch.bool, device=dev)
-    r, J = prob.residuals(u, s0, refs[:, 0], l0, prob.du_pair(first), True)
-    Jt = J.transpose(1, 2)
-    H = Jt @ J + tp.CFG.lm_lambda * prob.eye
-    return H.contiguous(), (Jt @ r[:, :, None]).contiguous()
-
-
 def tracker_checks(np, torch, dev, card):
-    """The captured tracker against the eager loop, and the LU kernel
-    against its plain version and timed (TRACK_GRAPH_*, LU_* above) → (the
-    phase's info, the kernel's row fields)."""
+    """The captured tracker against the eager loop, the LU kernel's two
+    forms against each other and its plain version, and timed
+    (TRACK_GRAPH_*, LU_* above) → (the phase's info, the kernel's row
+    fields)."""
     from defensive_model_vae_tpu_torch.control import mpc
     from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
+    from defensive_model_vae_tpu_torch.ops import _build
     from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+    from defensive_model_vae_tpu_torch.scripts import lu_checks as luc
 
     shapes = {}
     for B in TRACK_GRAPH_ROWS:
@@ -1378,9 +1376,23 @@ def tracker_checks(np, torch, dev, card):
             if row["captures_second_call"]:
                 fail(f"a second call at {B} x {S} captured the step again: {row}")
     emit({"tracker_graph_vs_eager": shapes})
+    # the register form bit for bit the shared-memory form (and the host's
+    # emulation of their arithmetic) on every case; on the tie cases the
+    # wrong pivot rule's emulation unequal (scripts/lu_checks.py)
+    forms = [luc.hold(*case) for case in luc.cases(dev)]
+    emit({"lu_forms": forms})
+    for row in forms:
+        if not row["ok"]:
+            fail(f"the LU kernel's register form against its shared-memory form: {row}")
+    lib = _build.load("lu_solve")
+    mirror = [n for n in range(1, lus.NMAX + 1)
+              if lib.lu_solve_reg_bound(n) != (lus.instance(n)[1] if n <= lus.REG_BOUNDS[-1]
+                                                else 0)]
+    if mirror:
+        fail(f"ops/lu_solve.py's choice of instance differs from the kernel's at n = {mirror}")
     lu = {}
     for B in LU_ROWS:
-        H, g = lm_systems(torch, dev, B)
+        H, g = luc.lm_systems(B, dev)
         k, p = lus.lu_solve(H, g), lus._lu_solve_plain(H, g)
         Hd, gd = H.double(), g.double()
 
@@ -1402,7 +1414,12 @@ def tracker_checks(np, torch, dev, card):
         if not (lu[B]["backward_kernel"] <= n * LU_U and gap <= lu[B]["gap_tol"]):
             fail(f"the LU kernel against solve_ex at {B} rows: {lu[B]}")
     emit({"lu_solve_vs_plain": lu})
-    H, g = lm_systems(torch, dev, SERVE_BATCH)
+    H, g = luc.lm_systems(SERVE_BATCH, dev)
+    n = H.shape[1]
+    form, instance = lus.instance(n)
+
+    def smem(H, g):
+        return lus.lu_solve(H, g, form="smem")
 
     def block(fn):
         return cuda_ms(lambda: [fn(H, g) for _ in range(LU_TIMED_CALLS)])[0] / LU_TIMED_CALLS
@@ -1410,11 +1427,13 @@ def tracker_checks(np, torch, dev, card):
     def dev_block(fn):
         return device_ms(lambda: [fn(H, g) for _ in range(LU_TIMED_CALLS)], LU_TIMED_CALLS)
 
-    block(lus.lu_solve), block(lus._lu_solve_plain)  # warm
+    block(lus.lu_solve), block(smem), block(lus._lu_solve_plain)  # warm
     med, spread = in_turns(lambda: block(lus.lu_solve), lambda: block(lus._lu_solve_plain))
     dmed, dspread = in_turns(lambda: dev_block(lus.lu_solve),
                              lambda: dev_block(lus._lu_solve_plain))
-    n = H.shape[1]
+    # the serve path's form against the first form, in turns
+    smed, sspread = in_turns(lambda: block(lus.lu_solve), lambda: block(smem))
+    sdmed, sdspread = in_turns(lambda: dev_block(lus.lu_solve), lambda: dev_block(smem))
     flops = SERVE_BATCH * (2 * n ** 3 / 3 + 2 * n ** 2)
     b_ms, b_by = bound(flops, SERVE_BATCH * (n * n + 2 * n) * 4, FP32_FLOPS)
     row = {"max_abs_err": max(v["gap"] for v in lu.values()), "ms": med["kernel"],
@@ -1423,8 +1442,13 @@ def tracker_checks(np, torch, dev, card):
            "spread": {"ms": spread["kernel"], "device_ms": dspread["kernel"],
                       "library_ms": spread["library"],
                       "library_device_ms": dspread["library"]},
-           "bound_ms": b_ms, "bound_by": b_by, "rows": SERVE_BATCH, "order": n}
-    return {"graph_vs_eager": shapes, "lu_vs_plain": lu, "card": card}, row
+           "bound_ms": b_ms, "bound_by": b_by, "rows": SERVE_BATCH, "order": n,
+           "form": form, "instance": instance,
+           "smem_ms": smed["library"], "smem_device_ms": sdmed["library"],
+           "form_turns": {"ms": smed, "device_ms": sdmed,
+                          "spread": {"ms": sspread, "device_ms": sdspread}}}
+    return {"graph_vs_eager": shapes, "lu_vs_plain": lu, "lu_forms_ok": len(forms),
+            "card": card}, row
 
 
 def serve_phase(np, torch, dev, w4, card):
@@ -2605,6 +2629,14 @@ def main() -> int:
             info[name] = {"seconds": b["seconds"], "nvcc_s": b["nvcc_s"],
                           "cached": b["cached"], "ptxas": ptxas}
             _build.load(name)
+        # the LU kernel's register form holds its rows in registers: no
+        # instance may spill; its object's nvcc seconds beside K1's
+        lu_spills = [ln for ln in info["lu_solve"]["ptxas"]
+                     if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        if lu_spills:
+            fail(f"the LU kernel spills: {lu_spills}")
+        info["lu_nvcc_s"] = sum(info["lu_solve"]["nvcc_s"].values())
+        info["k1_nvcc_s"] = max(info["fused_trainer"]["nvcc_s"].values(), default=None)
         # K3's and K4's bf16 weight gradients on the tensor cores: their
         # library's SASS holds mma instructions (HMMA; HGMMA for wgmma);
         # P1-sol's products on wgmma (HGMMA); P1-stream/abl's, on FMA,
@@ -2715,16 +2747,19 @@ def main() -> int:
         # the card: lm_iters solves in each replayed step and in the eager
         # step that each capture runs first
         lu_launches = lus.launches(dev)
+        lu_by_form = {f: lus.launches(dev, f) for f in lus.FORMS}
+        lu_form = lus.instance(2 * mpc.control_horizon)[0]
         captured, replayed = (b - a for a, b in zip(graphs0, tracker_graph_counts()))
         lu_expected = (replayed + captured) * mpc.lm_iters
-        if not replayed or lu_launches != lu_expected:
-            fail(f"the tracker's main path ran the LU kernel {lu_launches} times, "
-                 f"expected {lu_expected} ({replayed} replayed steps, {captured} "
-                 f"captures, {mpc.lm_iters} solves a step)")
+        if not replayed or lu_launches != lu_expected or lu_by_form[lu_form] != lu_expected:
+            fail(f"the tracker's main path ran the LU kernel {lu_by_form} times, "
+                 f"expected {lu_expected} of its {lu_form} form ({replayed} replayed "
+                 f"steps, {captured} captures, {mpc.lm_iters} solves a step)")
         if len(traces) != int(ok.sum()):
             fail("tracked fewer paths than valid samples")
         steps = check_tracked(traces, mpc, "sce4")
         info.update(n_tracked=len(traces), tracked_steps=steps, lu_launches=lu_launches,
+                    lu_launches_by_form=lu_by_form,
                     lu_expected=lu_expected, replayed_steps=replayed, captures=captured)
         checks, lu_row = tracker_checks(np, torch, dev, card)
         info.update(checks)
@@ -4210,6 +4245,7 @@ def main() -> int:
         "replaces": "none: jnp.linalg.solve in the jitted tracker, "
                     "defensive_model_vae_tpu/control/mpc.py:172 (XLA)",
         "launches": lu_launches,
+        "launches_by_form": lu_by_form,
         **lu_row,
         "library_call": "torch.linalg.solve_ex (the plain version)",
         "bound_share": lu_row["bound_ms"] / lu_row["device_ms"],

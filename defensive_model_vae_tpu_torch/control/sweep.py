@@ -18,6 +18,9 @@ from .._device import resolve_device
 from .mpc import MPCConfig, track
 from .reference import PathReference
 
+# the (prediction, control)-horizon pairs of the reference's study
+COMBOS = ((10, 5), (20, 10), (30, 20), (40, 30))
+
 
 @dataclasses.dataclass
 class SweepResult:
@@ -29,8 +32,7 @@ class SweepResult:
 
 
 def sweep_horizons(waypoints: np.ndarray, initial_state: np.ndarray,
-                   combos: Sequence[Tuple[int, int]] = ((10, 5), (20, 10), (30, 20),
-                                                        (40, 30)),
+                   combos: Sequence[Tuple[int, int]] = COMBOS,
                    dt: float = 0.02, device="cuda") -> List[SweepResult]:
     """Track ``waypoints`` ((N, 3) [x, y, t]) from ``initial_state`` ([x, y,
     theta, vx, vy]) once per (P, M) in ``combos``; → one ``SweepResult``

@@ -22,9 +22,9 @@ from .reference import PathReference
 CFG = MPCConfig(prediction_horizon=30, control_horizon=20, dt=0.02)
 
 
-def inputs(rows: int, steps: int, dev):
+def inputs(rows: int, steps: int, dev, cfg: MPCConfig = CFG):
     """(states0 (B, 4), refs (B, S, P+1, 2), last0 (B, 2)) on ``dev``,
-    B = ``rows`` and S = ``steps``."""
+    B = ``rows`` and S = ``steps``, P and dt ``cfg``'s."""
     w = np.load(scenarios.get("sce4").fixture_windows)
     w = w[np.arange(rows) % len(w)]
     s0, refs = [], []
@@ -33,7 +33,7 @@ def inputs(rows: int, steps: int, dev):
         wp[0, 2] = 0.0
         v0 = (wp[1, :2] - wp[0, :2]) / (wp[1, 2] - wp[0, 2])
         init = np.array([wp[0, 0], wp[0, 1], np.arctan2(v0[1], v0[0]), v0[0], v0[1]])
-        refs.append(PathReference(wp, init).build(steps, CFG.prediction_horizon, CFG.dt))
+        refs.append(PathReference(wp, init).build(steps, cfg.prediction_horizon, cfg.dt))
         s0.append(_initial_tracker_state(init))
     f32 = dict(dtype=torch.float32, device=dev)
     return (torch.tensor(np.stack(s0), **f32), torch.tensor(np.stack(refs), **f32),

@@ -178,14 +178,15 @@ KERNELS: Dict[str, tuple] = {
     }),
     # the MPC tracker's batched solve (no Pallas counterpart: JAX's
     # jnp.linalg.solve, which the captured tracker step cannot take from
-    # MAGMA)
+    # MAGMA), its two forms (shared memory, registers) in one object
     "lu_solve": ((("lu_solve.cu", ()),), {
         "lu_solve_batched": (ctypes.c_int, [
             _P, _P, _P,                        # H (B, n, n), g, x (B, n)
-            ctypes.c_int, ctypes.c_int, _P,    # B, n, stream
+            ctypes.c_int, ctypes.c_int,        # B, n
+            ctypes.c_int, _P,                  # form (0 smem, 1 reg), stream
         ]),
-        "lu_solve_nmax": (ctypes.c_int, []),
-        "lu_solve_launches": (ctypes.c_int, [ctypes.POINTER(ctypes.c_ulonglong)]),
+        "lu_solve_reg_bound": (ctypes.c_int, [ctypes.c_int]),  # n → instance, 0: none
+        "lu_solve_launches": (ctypes.c_int, [ctypes.POINTER(ctypes.c_ulonglong)]),  # [2]
         "lu_solve_reset_launches": (ctypes.c_int, []),
     }),
     # P3, and its launch as a CPython function (load_module): that object

@@ -10,7 +10,8 @@ The captured step replays the eager step's kernels on the same shapes, so
 captured and eager states and controls are held bit for bit (no
 tolerance).  The LU kernel against ``torch.linalg.solve_ex`` as
 ``chip_smoke.py`` holds it: each solve's normwise backward error within
-n·2^-24.
+n·2^-24; its register form bit for bit its shared-memory form at every
+order the repo runs, and each form's count of its runs on the card.
 """
 
 import json
@@ -24,7 +25,9 @@ import torch
 from defensive_model_vae_tpu_torch import scenarios
 from defensive_model_vae_tpu_torch.control import mpc
 from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
+from defensive_model_vae_tpu_torch.control.sweep import COMBOS
 from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+from defensive_model_vae_tpu_torch.scripts import lu_checks as luc
 
 
 def _cuda():
@@ -159,3 +162,45 @@ def test_lu_kernel_holds_the_backward_error_of_its_plain_version(rows):
     assert lus.launches(dev) == 1
     with pytest.raises(ValueError, match="contiguous"):
         lus.lu_solve(H.transpose(1, 2), g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 16, 134])
+@pytest.mark.parametrize("P,M", COMBOS)
+def test_lu_register_form_equals_shared_memory_form(P, M, rows):
+    dev = _cuda()
+    cfg = mpc.MPCConfig(prediction_horizon=P, control_horizon=M, dt=tp.CFG.dt)
+    H, g = luc.lm_systems(rows, dev, cfg)
+    assert lus.instance(2 * M)[0] == "reg"
+    reg, smem = lus.lu_solve(H, g, form="reg"), lus.lu_solve(H, g, form="smem")
+    assert torch.isfinite(reg).all()
+    assert torch.equal(reg, smem) and torch.equal(lus.lu_solve(H, g), reg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", ["reg", "smem"])
+def test_each_form_counts_its_runs_in_a_graph_replay(form):
+    """One eager call counts one run of its form; a captured call counts
+    one at each replay; the other form's count stays 0."""
+    dev = _cuda()
+    H, g = luc.lm_systems(16, dev)
+    other = next(f for f in lus.FORMS if f != form)
+    lus.reset_launches(dev)
+    lus.lu_solve(H, g, form=form)
+    assert (lus.launches(dev, form), lus.launches(dev, other)) == (1, 0)
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(s):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            x = lus.lu_solve(H, g, form=form)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(s)
+    assert lus.launches(dev, form) == 1  # a capture runs nothing
+    for _ in range(3):
+        graph.replay()
+    assert (lus.launches(dev, form), lus.launches(dev, other)) == (4, 0)
+    assert lus.launches(dev) == 4
+    assert torch.equal(x, lus.lu_solve(H, g, form=form))
