@@ -696,7 +696,8 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--seed", type=int, default=0)
     pl.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run to DIR/trace.json "
-                         "(view in Perfetto or chrome://tracing)")
+                         "(view in Perfetto or chrome://tracing) and the program's "
+                         "spans to DIR/spans.json")
     pl.add_argument("--device", default="cuda")
     pl.set_defaults(fn=_cmd_pipeline)
 

@@ -41,6 +41,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.lu_solve import lu_solve
+from ..utils.profiling import span
 from .reference import PathReference
 
 
@@ -339,7 +340,8 @@ def _step_graph(cfg: MPCConfig, B: int, dev: torch.device) -> _StepGraph:
     g = _graphs.get(key)
     if g is None:
         try:
-            g = _StepGraph(cfg, B, dev)
+            with span("mpc.capture"):
+                g = _StepGraph(cfg, B, dev)
         except Exception as e:
             raise RuntimeError(f"capturing the tracker step at batch {B} on {dev} failed: "
                                f"{type(e).__name__}: {e}") from e
@@ -369,11 +371,12 @@ def _simulate_captured(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor
         buf = g.buf
         buf.start(states0, last0)
         try:
-            for i in range(S):
-                buf.ref.copy_(refs[:, i])
-                g.graph.replay()
-                states[:, i + 1] = buf.state
-                controls[:, i] = buf.last
+            with span("mpc.replays", device=dev):
+                for i in range(S):
+                    buf.ref.copy_(refs[:, i])
+                    g.graph.replay()
+                    states[:, i + 1] = buf.state
+                    controls[:, i] = buf.last
         except Exception as e:
             raise RuntimeError(f"replaying the tracker step at batch {B} on {dev} "
                                f"failed: {type(e).__name__}: {e}") from e

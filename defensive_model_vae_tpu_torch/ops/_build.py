@@ -32,6 +32,11 @@ import threading
 import time
 from typing import Dict
 
+if __package__:
+    from ..utils.profiling import span
+else:  # loaded as a module of its own (scripts/p1_stream_ab.py, mint_provenance_probe.py)
+    from contextlib import nullcontext as span
+
 PKG_ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "build"
@@ -341,13 +346,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     if name in _LOADED:
         return _LOADED[name]
-    started = _start_build(name)
-    if started is not None:
-        _finish_build(name, started, 300.0)
-    lib = ctypes.CDLL(str(_lib_path(name)))
-    for fn, (restype, argtypes) in KERNELS[name][1].items():
-        f = getattr(lib, fn)
-        f.restype = restype
-        f.argtypes = argtypes
+    with span(f"build.{name}"):
+        started = _start_build(name)
+        if started is not None:
+            _finish_build(name, started, 300.0)
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        for fn, (restype, argtypes) in KERNELS[name][1].items():
+            f = getattr(lib, fn)
+            f.restype = restype
+            f.argtypes = argtypes
     _LOADED[name] = lib
     return lib

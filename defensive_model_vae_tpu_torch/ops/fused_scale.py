@@ -83,6 +83,7 @@ from .fused_trainer import (
     philox_normal,
     unpack_kernel_params,
 )
+from ..utils.profiling import span
 from .manual_grad import manual_value_and_grad
 
 # the one model shape the CUDA kernels are compiled for (CVAEConfig defaults)
@@ -729,9 +730,10 @@ def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
     JAX package's params, and a spawned rank's program reaches the run only
     through this entry's arguments.
 
-    With ``fused_train_scale_dp.epoch_events`` set to a list on a CUDA
-    device, each epoch appends its CUDA events (before K4, after K4, after
-    the all-reduce) to it; None (the default) records none."""
+    Each epoch is two spans (``utils.profiling.span``, with CUDA events on
+    a card): ``fused_train_scale_dp.k4``, the K4 call, and
+    ``fused_train_scale_dp.allreduce``, the all-reduce (empty without a
+    mesh)."""
     cfg, noise, backward = _check_scale_args(windows, tile, compute_dtype, mixed_style,
                                              eps, noise, backward)
     if mesh is not None:
@@ -753,7 +755,6 @@ def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
     m = [torch.zeros_like(a) for a in plist]
     v = [torch.zeros_like(a) for a in plist]
     metrics = torch.zeros((epochs, 8), dtype=torch.float32, device=dev)
-    events = fused_train_scale_dp.epoch_events if dev.type == "cuda" else None
     for e in range(epochs):
         stream = d * epochs + e
         eps_epoch = None
@@ -761,29 +762,19 @@ def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,
             g = _noise_generator(seed, stream, dev)
             eps_epoch = torch.randn((packed.shape[0], cfg.latent_dim), generator=g,
                                     device=dev).to(packed.dtype)
-        marks = None if events is None else [torch.cuda.Event(enable_timing=True)
-                                             for _ in range(3)]
-        if marks:
-            marks[0].record()
-        grads, mrow = _grad_epoch_call(plist, packed, seed + stream * local_tiles, cfg,
-                                       weights, tile, float(n), compute_dtype, noise,
-                                       eps_epoch, backward, mixed_style)
-        if marks:
-            marks[1].record()
-        if mesh is not None:
-            from ..parallel.mesh import all_reduce_sum
+        with span("fused_train_scale_dp.k4", device=dev):
+            grads, mrow = _grad_epoch_call(plist, packed, seed + stream * local_tiles, cfg,
+                                           weights, tile, float(n), compute_dtype, noise,
+                                           eps_epoch, backward, mixed_style)
+        with span("fused_train_scale_dp.allreduce", device=dev):
+            if mesh is not None:
+                from ..parallel.mesh import all_reduce_sum
 
-            *grads, mrow = all_reduce_sum(list(grads) + [mrow], mesh.data_group)
-        if marks:
-            marks[2].record()
-            events.append(marks)
+                *grads, mrow = all_reduce_sum(list(grads) + [mrow], mesh.data_group)
         tf = torch.tensor(float(e + 1), dtype=torch.float32, device=dev)
         plist, m, v = _adam_step(plist, grads, m, v, tf, lr)
         metrics[e] = mrow[0]
     return _unflatten_params(plist), _history(metrics)
-
-
-fused_train_scale_dp.epoch_events = None
 
 
 # ---- the oracle ----------------------------------------------------------------

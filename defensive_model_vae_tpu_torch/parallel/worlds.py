@@ -232,34 +232,31 @@ def dp_timed(device, windows, **kwargs):
     epochs → {"params", "history", "wall_s", "k4_launches" (this rank's K4
     launches in the run), "k4_ms" (the median of its K4 calls) and
     "allreduce_ms" (the median of its all-reduces, one an epoch), both by
-    the run's CUDA events (None off CUDA), "block_rows" (this rank's
-    rows)}."""
+    the device times of the run's epoch spans (None off CUDA),
+    "block_rows" (this rank's rows)}."""
     from ..ops import fused_scale as fs
+    from ..utils.profiling import recording
 
     mesh = create_mesh(device=device)
     cuda = mesh.device.type == "cuda"
-    events = [] if cuda else None
     before = fs._grad_epoch_call.launches
-    fs.fused_train_scale_dp.epoch_events = events
-    try:
+    with recording() as rec:
         t0 = time.perf_counter()
         params, hist = fs.fused_train_scale_dp(windows, mesh=mesh, **kwargs)
         if cuda:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        fs.fused_train_scale_dp.epoch_events = None
     launches = fs._grad_epoch_call.launches - before
 
-    def median_ms(i):
-        if not events:
-            return None
-        times = sorted(m[i].elapsed_time(m[i + 1]) for m in events)
-        return times[len(times) // 2]
+    def median_ms(phase):
+        times = sorted(r.device_ms for r in rec.spans
+                       if r.name == f"fused_train_scale_dp.{phase}" and r.device_ms is not None)
+        return times[len(times) // 2] if times else None
 
     tile, dp = kwargs.get("tile", 2048), mesh.shape["data"]
     return {"params": to_numpy(params), "history": hist, "wall_s": wall,
-            "k4_launches": launches, "k4_ms": median_ms(0), "allreduce_ms": median_ms(1),
+            "k4_launches": launches, "k4_ms": median_ms("k4"),
+            "allreduce_ms": median_ms("allreduce"),
             "block_rows": -(-len(windows) // (dp * tile)) * tile}
 
 
