@@ -2637,15 +2637,17 @@ def main() -> int:
             fail(f"the LU kernel spills: {lu_spills}")
         info["lu_nvcc_s"] = sum(info["lu_solve"]["nvcc_s"].values())
         info["k1_nvcc_s"] = max(info["fused_trainer"]["nvcc_s"].values(), default=None)
-        # K3's and K4's bf16 weight gradients on the tensor cores: their
-        # library's SASS holds mma instructions (HMMA; HGMMA for wgmma);
-        # P1-sol's products on wgmma (HGMMA); P1-stream/abl's, on FMA,
-        # counted beside them
+        # K3's and K4's bf16 weight gradients on the tensor cores (HMMA)
+        # and their manual bf16 step products on wgmma (HGMMA); P1-sol's
+        # products on wgmma (HGMMA); P1-stream/abl's, on FMA, counted
+        # beside them
         sass_mma = {name: _build.tensor_core_ops(_build._lib_path(name))
                     for name in ("fused_scale", "scale_ablation", "p1_sol")}
         info["sass_mma"] = sass_mma
-        if not sass_mma["fused_scale"]["HMMA"] + sass_mma["fused_scale"]["HGMMA"]:
-            fail(f"K3/K4's library holds no tensor-core instruction: {sass_mma}")
+        if not sass_mma["fused_scale"]["HMMA"]:
+            fail(f"K3/K4's weight gradients are not on the tensor cores: {sass_mma}")
+        if not sass_mma["fused_scale"]["HGMMA"]:
+            fail(f"K3/K4's step products are not on wgmma: {sass_mma}")
         if not sass_mma["p1_sol"]["HGMMA"]:
             fail(f"P1-sol's library holds no HGMMA: {sass_mma}")
         info["build_s"] = time.perf_counter() - t_build

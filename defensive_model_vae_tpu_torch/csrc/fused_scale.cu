@@ -33,20 +33,51 @@
 //       and applies Adam (K3), refreshing the bf16 copy of the params, or
 //       writes the sum (K4); block 0 writes the epoch's metrics row.
 // K3's entry point makes the bf16 copy once, then launches (a) and (b) once
-// per epoch on the caller's stream; K4's makes it at every call.  The
-// products (csrc/scale_common.cuh): the step's forward and activation
-// gradients on float32 FMA over shared-memory tiles (32 x 128 outputs,
-// depth 32, 4 x 4 outputs a thread, each output one chain over k in
-// order), their operands staged by 16-byte cp.async one depth step ahead
-// (in bf16 the weights from the bf16 copy, half the bytes); in bf16 mode
-// both operands rounded to bf16 (nearest even) and the sum float32: the
-// arithmetic of the JAX f32_acts mode.  The deferred weight gradients run
-// mma.sync m16n8k16 bf16 -> float32 on the tensor cores.  The step's
-// products stay off the tensor cores because their outputs are rounded to
-// bf16 again as the next product's operands, and a sum in another order
-// than the plain version's flips some of those roundings past K3_TOL
-// (scale_common.cuh, gemm).  Time differences, bias gradients, the head
-// math and the loss stay float32.
+// per epoch on the caller's stream; K4's makes it at every call.
+//
+// The products (csrc/scale_common.cuh).  In bf16 both operands are rounded
+// to bf16 (nearest even) and the sums are float32: the arithmetic of the
+// JAX f32_acts mode.  The manual bf16 instances run the step's forward and
+// activation-gradient products on wgmma (wg_product), transposed: wgmma's
+// M (64 a warpgroup) is the layer's outputs, tile t of the first 128 on
+// warpgroup t and any outputs past them in one tile that both warpgroups
+// run on half the rows each, and its N the step's 32 rows.  So the step,
+// its chunking, the scratch and the shared-memory plan stay as they are (a
+// 64-row step would halve the weights' reads from L2 but move all of
+// them).  The weights from the bf16 copy are A, from registers, loaded from
+// L2 a product ahead: each product loads the next one's fragments while it
+// runs and leaves them in per-thread slots at the end of the ring, so the
+// L2's latency is off the step's chain of products.  The step's rows,
+// rounded as they are read, are B, in 128-byte-swizzled K-major atoms.
+// Ragged K (cond_0's 2, enc_0's 30, dec_0's 136, dec_3's activation
+// gradient's 30) and M (the head's 16, dec_3's 30, dec_0's activation
+// gradient's 136) are padded with zeros, which change no sum of real terms.
+// Each k16 slice is summed from zero by the tensor core and added in
+// float32 with rounding to nearest: the tensor core's chained accumulation
+// truncates, and that bias would reach the next product through its bf16
+// rounding.  Only the order of each product's sum differs from the FMA
+// engine's: the rounding points, the epilogue (bias, add, relu, mask, the
+// chaincd roundings), the loss and head math stay as they were.  A sum in
+// another order flips some bf16 roundings of the next product's operands.
+// In the backward that is order noise, which chip_smoke.py's K3_TOL holds
+// (twice the plain version's own spread under permuted summation orders,
+// scripts/k3_order_noise.py, and K3 and K4 bit for bit on an order-free
+// case).  In the forward it is not: the loss of an untrained model is
+// carried by a few rows, and the flips moved the first epoch's loss 2e-6 to
+// 6e-6 from the benchmark's reference (which sums in the FMA engine's
+// order; its limit is 4e-6).  So the forward hands on exactly the FMA
+// engine's bf16 activations: an output whose rounded activation is not the
+// same over a margin around its wgmma sum (FIX: 8 units of 2^-24 |a| |b|,
+// 2.7 times the largest gap measured) takes the FMA engine's chain, about
+// 0.5% of them, and the mu/logvar head, whose outputs reach dec_0 through
+// exp, runs on FMA (head_fma).  The deferred weight gradients run mma.sync
+// m16n8k16 bf16 -> float32 on the tensor cores.  The FMA engine (gemm: 32
+// x 128 output tiles, depth 32, 4 x 4 outputs a thread, each output one
+// chain over k in order, its operands staged by 16-byte cp.async one depth
+// step ahead) stays for float32 (TF32 off), the autodiff instances, P1's
+// kernels (no bf16 copy) and the noacc knob (FMA_KNOBS), which each compile
+// time picks by dtype, backward and knob bits.  Time differences, bias
+// gradients, the head math and the loss stay float32.
 //
 // Bound (bench shape: 131,072 windows x 200 epochs, tile 2048).  The
 // products are 2 (2 sum in.out + sum in.out without cond_0 and enc_0) =
@@ -260,8 +291,8 @@ long long ks_partial_floats() { return PART_STRIDE; }
 
 long long ks_chunks(long long n_pad, int sms) { return n_chunks_of(n_pad, sms); }
 
-// what the engine does: E_TENSOR_CORES
-int ks_engine() { return E_TENSOR_CORES; }
+// what the engine does: E_TENSOR_CORES | E_STEP_WGMMA
+int ks_engine() { return E_TENSOR_CORES | E_STEP_WGMMA; }
 
 // the bf16 elements of the deferred weight gradients' scratch of the
 // manual bf16 instances: one chunk's rows (its steps x 32) of SCR_ROW each

@@ -5,9 +5,12 @@
 //
 // What lives here: the model's shape and its flat parameter layout, the
 // shared-memory layout of one block (every activation of a 32-row step),
-// the product engine (`gemm`: float32 FMA over cp.async-staged tiles; the
-// deferred weight gradients, mma.sync on the tensor cores over a per-chunk
-// scratch of bf16 operands) and its forward /
+// the product engines (`wg_product`: the manual bf16 step's forward and
+// activation-gradient products on wgmma, its forward's near-ties and the
+// mu/logvar head (`head_fma`) in the FMA engine's order; `gemm`: float32
+// FMA over cp.async-staged tiles, for every other instance; the deferred
+// weight gradients, mma.sync on the tensor cores over a per-chunk scratch
+// of bf16 operands) and their forward /
 // weight-gradient / activation-gradient forms, the Philox noise, and the
 // pieces of one step of K3: stage the rows, the forward, the loss sums
 // with d_recon, the manual backward (with the ablation knobs as template
@@ -84,8 +87,9 @@ enum Knob { K_NOADAM = 1, K_NOACC = 2, K_BIASDOT = 4, K_CHAINCD = 8, K_NODW = 16
 enum AutoMode { A_F32 = 0, A_ACTS = 1, A_CHAIN = 2 };
 
 // what the engine does (ks_engine): the bf16 weight gradients on the
-// tensor cores
-enum Engine { E_TENSOR_CORES = 1 };
+// tensor cores; the manual bf16 step's forward and activation-gradient
+// products on wgmma
+enum Engine { E_TENSOR_CORES = 1, E_STEP_WGMMA = 2 };
 
 // whether a rounded weight operand is staged from the bf16 copy of the
 // params, which K3's and K4's entries always pass; P1's kernels have no
@@ -95,6 +99,17 @@ constexpr bool WEIGHT_COPY = false;
 #else
 constexpr bool WEIGHT_COPY = true;
 #endif
+
+// the knob instances whose step products stay on float32 FMA: noacc, whose
+// loss rows are held to a limit (NOACC_TOL) set against that engine's
+// summation order before any order spread was measured
+constexpr int FMA_KNOBS = K_NOACC;
+
+// whether the manual instance (dtype BF, knobs AB) runs its step's products
+// on wgmma: bf16 with the weights' bf16 copy, and not a knob of FMA_KNOBS
+__host__ __device__ constexpr bool step_wgmma(bool bf, int ab) {
+  return bf && WEIGHT_COPY && (ab & FMA_KNOBS) == 0;
+}
 
 // the staging of the step's products: FM_S slots of A [TK][TMP] and B,
 // float32 [TK][TNP] (n contiguous) or [TN][FM_BK] (k contiguous), bf16
@@ -141,6 +156,14 @@ static_assert(SMEM_BYTES <= 232448, "shared memory of one block");
 static_assert(S_STG % 4 == 0 && S_BSUM % 4 == 0 && STG_BYTES % 16 == 0, "16-byte slots");
 static_assert(5 * NT * 4 <= STG_BYTES, "the loss sums fit in the ring");
 static_assert(D_S * D_SLOT <= S_STG * 4, "the deferred products' ring fits in the step's buffers");
+
+// the bf16 step products on wgmma (wg_product) take the ring for their B:
+// the step's R rows of the operand rounded to bf16, K-major in
+// 128-byte-swizzled atoms of R rows x 64 values (K <= 256), on a 1024-byte
+// boundary; their A (the weights) goes from the bf16 copy to registers
+constexpr int WB_ATOM = R * 128;
+constexpr int WB_BYTES = 4 * WB_ATOM;
+static_assert(1008 + WB_BYTES <= STG_BYTES, "the wgmma products' B fits in the ring, aligned");
 
 extern __shared__ __align__(16) float sm[];
 
@@ -208,6 +231,69 @@ __device__ __forceinline__ void mma16816(float d[4], const unsigned a[4], unsign
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a wgmma descriptor of a K-major operand in 128-byte-swizzled atoms: start
+// address, leading offset 16 bytes (unused by this layout), stride 1024
+// bytes between groups of 8 rows, layout 1 (128-byte swizzle)
+__device__ __forceinline__ uint64_t sw128_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d = a . b, m64n32k16, bf16 in, float32 out: A's fragment from registers,
+// B by descriptor, d overwritten (scale-d 0: the product summed from zero)
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], const unsigned (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
+// the same at n16 (8 outputs a thread)
+__device__ __forceinline__ void wgmma_m64n16(float (&d)[8], const unsigned (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// shared-memory stores of the generic proxy made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// keep the compiler from moving a register that an asynchronous product
+// reads or writes across the wait for it
+__device__ __forceinline__ void fence_reg(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+__device__ __forceinline__ void fence_reg(unsigned& r) { asm volatile("" : "+r"(r)::"memory"); }
+
 // ---- end of the device-only helpers ----------------------------------------
 
 // acc += a . b, the 16-deep product summed by the tensor core from zero and
@@ -261,15 +347,11 @@ __device__ __forceinline__ void stage8(bf16* dst, const bf16* Bb, long long off,
 // the activation gradient (dY . W^T) and, in float32 and f32_acts, the
 // weight gradient (act^T . dY), on float32 FMA: an operand rounded to bf16
 // when RA / RB, tiles of TM x TN, each thread 4 x 4 outputs, every output
-// one FMA chain over k in order.  The order matters: these products'
-// outputs are rounded to bf16 again as the next product's operands, and
-// summed in another order than the plain version's (the tensor cores:
-// PERF.md §6) some of them (about 2^-13) round to the other bf16
-// neighbour, which moved K3's first-epoch loss rows 1.37e-5 of themselves
-// from the plain version's (chip_smoke.py's K3_TOL: 1e-5) and, with the
-// activation gradients there too, twenty epochs' rows 7.5e-3 (1e-3).  The
-// bf16 weight gradients, whose float32 sums are never rounded again, run
-// on the tensor cores (wgrad_deferred).  The depth in steps of TK through a
+// one FMA chain over k in order.  It is the step engine of float32 K3 and
+// K4 (whose digest holds that order bit for bit), of the autodiff
+// instances, of P1's kernels (no bf16 copy) and of the knob instances of
+// FMA_KNOBS; the manual bf16 instances run their step's products on
+// wgmma (wg_product).  The depth in steps of TK through a
 // ring of FM_S slots: A (shared memory) copied in rounded when RA; B, when
 // it lies in global memory (the weights), by cp.async one step ahead along
 // its contiguous index (n: the forward; k: the activation gradients' W^T,
@@ -488,8 +570,414 @@ __device__ void gemm(int M, int N, int K, const float* A, int sam, int sak, cons
   __syncthreads();
 }
 
-// forward layer over the step's rows: out = act(in . W + b), B from the
-// bf16 copy Pb of the weights when it is given
+// byte offset of element (k, n) of wg_product's B: atom k / 64, row n, the
+// 16-byte chunk (k % 64) / 8 swizzled by n % 8
+__device__ __forceinline__ int wb_offset(int k, int n) {
+  const int kk = k & 63;
+  return (k >> 6) * WB_ATOM + n * 128 + (((kk >> 3) ^ (n & 7)) << 4) + (kk & 7) * 2;
+}
+
+// the weights of one wgmma product, from the bf16 copy: M outputs, K deep,
+// W(m, k) = w[k ldw + m] in the forward, w[m ldw + k] in the activation
+// gradients (M, K and ldw even)
+struct WOp {
+  const bf16* w;
+  int ldw, M, K;
+};
+
+__host__ __device__ constexpr int ks_of(int k) { return (k + 15) / 16; }
+
+// the forward's outputs m and m + 1 at depth k as one register (low half
+// first); zero past M or K
+__device__ __forceinline__ unsigned w_pair_fwd(const WOp& op, int m, int k) {
+  if (m >= op.M || k >= op.K) return 0u;
+  return __ldg(reinterpret_cast<const unsigned*>(op.w + k * op.ldw + m));
+}
+
+// the activation gradients' output m at depths k .. k + 3 as two registers;
+// zero past M or K
+__device__ __forceinline__ uint2 w_quad_ag(const WOp& op, int m, int k) {
+  if (m >= op.M || k >= op.K) return make_uint2(0u, 0u);
+  const bf16* p = op.w + m * op.ldw + k;
+  if (k + 4 <= op.K && (op.ldw & 3) == 0) return __ldg(reinterpret_cast<const uint2*>(p));
+  return make_uint2(__ldg(reinterpret_cast<const unsigned*>(p)),
+                    k + 2 < op.K ? __ldg(reinterpret_cast<const unsigned*>(p + 2)) : 0u);
+}
+
+// The A fragments of a 64-output tile over KS k16 slices, from the bf16
+// copy.  This thread's fragment rows g and g + 8 are the outputs m and m + 1
+// (m = the warp's 16 + 2 g).  TR: slice s's depths 16 s + 2 t4, + 1, + 8,
+// + 9 as the fragment lays them out, by four 4-byte loads (m and m + 1 at
+// one depth each) paired by byte permutes.  Else the depths 16 s + 4 t4 ..
+// + 3 of each row by one 8-byte load, the first pair as the fragment's
+// depths 2 t4, + 1 and the second as 2 t4 + 8, + 9; wg_product stages B in
+// that order.  Either way a warp's loads read whole 32-byte sectors.
+template <bool TR, int KS>
+__device__ __forceinline__ void w_frags(unsigned (&a)[KS][4], const WOp& op, int m, int t4) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    if constexpr (TR) {
+      const int k = 16 * s + 2 * t4;
+      const unsigned u0 = w_pair_fwd(op, m, k), u1 = w_pair_fwd(op, m, k + 1);
+      const unsigned u2 = w_pair_fwd(op, m, k + 8), u3 = w_pair_fwd(op, m, k + 9);
+      a[s][0] = __byte_perm(u0, u1, 0x5410);
+      a[s][1] = __byte_perm(u0, u1, 0x7632);
+      a[s][2] = __byte_perm(u2, u3, 0x5410);
+      a[s][3] = __byte_perm(u2, u3, 0x7632);
+    } else {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint2 q = w_quad_ag(op, m + h, 16 * s + 4 * t4);
+        a[s][h] = q.x;
+        a[s][2 + h] = q.y;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&b);
+}
+
+// FIX's margin: T = FIX_C |a_m| |b_n| against |wgmma's sum - the FMA
+// chain's|, which read at most 2.9 units of 2^-24 |a_m| |b_n| (Cauchy-
+// Schwarz over sum_k |a_k b_k|) over 4M outputs a layer of the model's
+// forward at init, emulated on the CPU: 8 units
+constexpr float FIX_C = 0x1p-21f;
+
+// The bf16 step product on wgmma, transposed: C[r][m] = epilogue(sum_k
+// W(m, k) . rnd(Bv[r ldb + k])) for the step's R rows r and outputs m < M of
+// op.  The outputs are wgmma's M: FULLT, the first 128 in two tiles of 64,
+// tile t on warpgroup t at n32 over the R rows; PART, those past them (fewer
+// than 64) in one tile that both warpgroups run at n16, each on half the
+// rows.  So both warpgroups run the same instructions and no wgmma lies in
+// a divergent path.  K is padded with zeros to KS k16 slices and M to whole
+// tiles, which changes no sum of real terms.
+//
+// A from registers (w_frags), loaded from the bf16 copy (L2) before B is
+// staged; B, the rows rounded to bf16 nearest even as gemm rounds them, by
+// descriptor from its swizzled atoms, its depths within a slice in the
+// order of A's.  Each k16 slice is summed by the tensor core from zero and
+// added to the float32 sum with rounding to nearest, in k order
+// (mma16816_add's note), the next slice's product running beside the add.
+// Epilogue as gemm's (RO, bias unrounded), on each output once, two outputs
+// at a time; no atomics, so the same bits on every run.  FIX (the forward's
+// relu products): an output whose rounded activation could differ in the
+// FMA engine's order (within FIX_C |a_m| |b_n| of a bf16 rounding boundary
+// or of 0) takes gemm's FMA chain instead, so the forward hands on gemm's
+// bf16 activations (fused_scale.cu's note says why).  One instance a shape
+// (not inlined), to keep the objects' build short.
+template <bool TR, int RO, int KS, bool FULLT, bool PART, bool FIX>
+__device__ __noinline__ void wg_product(WOp op, const float* Bv, int ldb, float* Cm, int ldc,
+                                        const float* bias, bool relu, const float* add,
+                                        int lda, const float* mask, int ldm) {
+  static_assert(FULLT || PART, "a product has outputs");
+  static_assert(16 * KS <= 4 * 64, "B fits its four atoms");
+  static_assert(!FIX || (TR && FULLT && !PART), "FIX: a forward product of whole tiles");
+  char* ring = reinterpret_cast<char*>(sm + S_STG);
+  const unsigned ring_s = smem_u32(ring);
+  const unsigned b_s = (ring_s + 1023) & ~1023u;
+  char* bbuf = ring + (b_s - ring_s);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mf = wg * 64 + warp * 16 + 2 * g;            // FULLT: tile wg
+  const int mq = (FULLT ? 128 : 0) + warp * 16 + 2 * g;  // PART
+  unsigned af[FULLT ? KS : 1][4], ap[PART ? KS : 1][4];
+  if constexpr (FULLT) w_frags<TR, KS>(af, op, mf, t4);
+  if constexpr (PART) w_frags<TR, KS>(ap, op, mq, t4);
+  // B: the operand's rows rounded to bf16, 8 values a 16-byte store, zeros
+  // from K to the last slice's end
+  const int K = op.K;
+  if constexpr (TR) {
+    constexpr int OCT = 2 * KS;
+    for (int i = tid; i < R * OCT; i += NT) {
+      const int n = i / OCT, k8 = (i % OCT) * 8;
+      const float* src = Bv + n * ldb + k8;
+      uint4 v;
+      if ((ldb & 3) == 0 && k8 + 8 <= K) {
+        const float4 lo = *reinterpret_cast<const float4*>(src);
+        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+        v = make_uint4(bf16_pair(lo.x, lo.y), bf16_pair(lo.z, lo.w), bf16_pair(hi.x, hi.y),
+                       bf16_pair(hi.z, hi.w));
+      } else {
+        unsigned w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = k8 + 2 * e;
+          w[e] = bf16_pair(k < K ? src[2 * e] : 0.f, k + 1 < K ? src[2 * e + 1] : 0.f);
+        }
+        v = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+      *reinterpret_cast<uint4*>(bbuf + wb_offset(k8, n)) = v;
+    }
+  } else {
+    // a slice's depth pair 2 j + h at the fragment's pair j of half h (w_frags)
+    for (int i = tid; i < R * KS; i += NT) {
+      const int n = i / KS, k0 = 16 * (i % KS);
+      const float* src = Bv + n * ldb + k0;
+      unsigned w[2][4];
+      if ((ldb & 3) == 0 && k0 + 16 <= K) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 q = *reinterpret_cast<const float4*>(src + 4 * j);
+          w[0][j] = bf16_pair(q.x, q.y);
+          w[1][j] = bf16_pair(q.z, q.w);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = k0 + 4 * j + 2 * h;
+            w[h][j] = bf16_pair(k < K ? src[k - k0] : 0.f, k + 1 < K ? src[k - k0 + 1] : 0.f);
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint4*>(bbuf + wb_offset(k0 + 8 * h, n)) =
+            make_uint4(w[h][0], w[h][1], w[h][2], w[h][3]);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();  // B in place, for both proxies
+  float2 bf = make_float2(0.f, 0.f), bq = bf;  // the bias pairs, read once the last slice runs
+  float na[2] = {0.f, 0.f};  // FIX: |a_m|^2, |a_m+1|^2
+  float accf[16], accp[8], df[2][16], dp[2][8];
+#pragma unroll
+  for (int q = 0; q < 16; ++q) accf[q] = df[0][q] = df[1][q] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) accp[q] = dp[0][q] = dp[1][q] = 0.f;
+  const unsigned b_half = b_s + wg * 16 * 128;  // PART: this warpgroup's 16 rows
+#pragma unroll
+  for (int s = 0; s <= KS; ++s) {
+    if (s < KS) {  // slice s, from zero
+      const unsigned off = (s >> 2) * WB_ATOM + (s & 3) * 32;
+      wgmma_fence();
+      if constexpr (FULLT) wgmma_m64n32(df[s & 1], af[s], sw128_desc(b_s + off));
+      if constexpr (PART) wgmma_m64n16(dp[s & 1], ap[s], sw128_desc(b_half + off));
+      wgmma_commit();
+      // FIX, beside the last slice: |a_m|^2 from the fragments (over the
+      // four lanes of a row pair), and each row's |b_n|^2 into S_DREC (free
+      // in the forward)
+      if constexpr (FIX) {
+        if (s == KS - 1) {
+#pragma unroll
+          for (int t = 0; t < KS; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                const unsigned x = af[t][h + 2 * u];
+                const float lo = __uint_as_float(x << 16), hi = __uint_as_float(x & 0xFFFF0000u);
+                na[h] = fmaf(hi, hi, fmaf(lo, lo, na[h]));
+              }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            na[h] += __shfl_xor_sync(0xFFFFFFFFu, na[h], 1);
+            na[h] += __shfl_xor_sync(0xFFFFFFFFu, na[h], 2);
+          }
+          const int n = tid >> 3, part = tid & 7;
+          float nb = 0.f;
+          for (int k = part; k < K; k += 8) {
+            const float a = rnd<true>(Bv[n * ldb + k]);
+            nb = fmaf(a, a, nb);
+          }
+          nb += __shfl_xor_sync(0xFFFFFFFFu, nb, 1);
+          nb += __shfl_xor_sync(0xFFFFFFFFu, nb, 2);
+          nb += __shfl_xor_sync(0xFFFFFFFFu, nb, 4);
+          if (part == 0) sm[S_DREC + n] = nb;
+        }
+      }
+      if (s == KS - 1 && bias) {
+        if constexpr (FULLT) bf = *reinterpret_cast<const float2*>(bias + mf);
+        if constexpr (PART) if (mq < op.M) bq = *reinterpret_cast<const float2*>(bias + mq);
+      }
+    }
+    const int r = s - 1;  // slice r, added, slice s running beside it
+    if (r >= 0) {
+      if (s < KS) wgmma_wait<1>();
+      else wgmma_wait<0>();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (FULLT) fence_reg(af[r][q]);
+        if constexpr (PART) fence_reg(ap[r][q]);
+      }
+      if constexpr (FULLT) {
+#pragma unroll
+        for (int q = 0; q < 16; ++q) {
+          fence_reg(df[r & 1][q]);
+          accf[q] += df[r & 1][q];
+        }
+      }
+      if constexpr (PART) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          fence_reg(dp[r & 1][q]);
+          accp[q] += dp[r & 1][q];
+        }
+      }
+    }
+  }
+  // epilogue, as gemm's: d[4j + 2h + e] holds output m + h (fragment row
+  // g + 8h) of row 8j + 2 t4 + e
+  auto epi = [&](float v, float b, float ad, float mk) {
+    if constexpr (RO >= 1) v = rnd<true>(v);
+    if (bias) v += b;
+    if (add) v += ad;
+    if constexpr (RO == 2) v = rnd<true>(v);
+    if (relu) v = fmaxf(v, 0.f);
+    if (mask) v = v * (mk > 0.f ? 1.f : 0.f);
+    return v;
+  };
+  auto out2 = [&](float v0, float v1, int n, int m, float2 b) {
+    float2 ad = make_float2(0.f, 0.f), mk = ad;
+    if (add) ad = *reinterpret_cast<const float2*>(add + n * lda + m);
+    if (mask) mk = *reinterpret_cast<const float2*>(mask + n * ldm + m);
+    *reinterpret_cast<float2*>(Cm + n * ldc + m) =
+        make_float2(epi(v0, b.x, ad.x, mk.x), epi(v1, b.y, ad.y, mk.y));
+  };
+  if constexpr (FIX) {
+    // an output whose rounded activation (bias, relu, bf16) is not the same
+    // over +-T around its value may round otherwise in the FMA engine's
+    // order; it takes that order (below), so every bf16 operand the
+    // forward hands on is the FMA engine's
+    __syncthreads();  // every row's |b_n|^2 in S_DREC
+    unsigned flags = 0u;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int h = (q >> 1) & 1, n = 8 * (q >> 2) + 2 * t4 + (q & 1);
+      const float T = FIX_C * sqrtf(na[h] * sm[S_DREC + n]), x = accf[q] + (h ? bf.y : bf.x);
+      if (rnd<true>(fmaxf(x - T, 0.f)) != rnd<true>(fmaxf(x + T, 0.f))) flags |= 1u << q;
+    }
+    // gemm's value of each flagged output: the FMA chain over k in order
+    // from zero (rounded activations times the weights), then gemm's
+    // zero-padded depth past K (one fmaf(0, 0, .) where K is not a multiple
+    // of TK: -0 becomes +0).  Row m + h's weights come from the four lanes
+    // that hold its fragments (lane t: depths 2t, 2t + 1 and 2t + 8, 2t + 9
+    // of each slice), so the warp runs its lanes' flagged outputs one at a
+    // time together
+    const int rounds = __reduce_max_sync(0xFFFFFFFFu, __popc(flags)), base = lane & ~3;
+    for (int i = 0; i < rounds; ++i) {
+      const bool mine = flags != 0u;
+      const int q = mine ? __ffs(flags) - 1 : 0;
+      flags &= flags - 1u;
+      const int h = (q >> 1) & 1, n = 8 * (q >> 2) + 2 * t4 + (q & 1);
+      const float* arow = Bv + n * ldb;
+      float v = 0.f;
+#pragma unroll
+      for (int t = 0; t < KS; ++t) {
+        float av[16];  // the slice's activations, loaded ahead of its chain
+        if (mine) {
+          if ((ldb & 3) == 0) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float4 a4 = *reinterpret_cast<const float4*>(arow + 16 * t + 4 * u);
+              av[4 * u] = a4.x; av[4 * u + 1] = a4.y; av[4 * u + 2] = a4.z; av[4 * u + 3] = a4.w;
+            }
+          } else {
+#pragma unroll
+            for (int u = 0; u < 16; ++u) av[u] = arow[16 * t + u];
+          }
+        }
+        unsigned lo[4], hi[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const unsigned r0 = __shfl_sync(0xFFFFFFFFu, af[t][0], base + u);
+          const unsigned r1 = __shfl_sync(0xFFFFFFFFu, af[t][1], base + u);
+          const unsigned r2 = __shfl_sync(0xFFFFFFFFu, af[t][2], base + u);
+          const unsigned r3 = __shfl_sync(0xFFFFFFFFu, af[t][3], base + u);
+          lo[u] = h ? r1 : r0;
+          hi[u] = h ? r3 : r2;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const int k = 16 * t + kk;
+          const unsigned word = kk < 8 ? lo[kk >> 1] : hi[(kk - 8) >> 1];
+          const float w = (kk & 1) ? __uint_as_float(word & 0xFFFF0000u) : __uint_as_float(word << 16);
+          if (mine && k < K) v = fmaf(rnd<true>(av[kk]), w, v);
+        }
+      }
+      if (K % TK) v = fmaf(0.f, 0.f, v);
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (mine && u == q) accf[u] = v;
+    }
+  }
+  if constexpr (FULLT) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) out2(accf[4 * j + e], accf[4 * j + 2 + e], 8 * j + 2 * t4 + e, mf, bf);
+  }
+  if constexpr (PART) {
+    if (mq < op.M) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out2(accp[4 * j + e], accp[4 * j + 2 + e], wg * 16 + 8 * j + 2 * t4 + e, mq, bq);
+    }
+  }
+  __syncthreads();
+}
+
+// The mu/logvar head's forward on FMA, each output as gemm computes it
+// (one chain over k in order from zero, rounded activations times the bf16
+// copy's weights, then the bias), two outputs a thread: z = mu + eps
+// e^(logvar/2) is rounded to bf16 for dec_0 and its inputs come through
+// exp, so the head keeps the FMA engine's order where the wgmma products
+// fix only their near-ties
+__device__ __forceinline__ void head_fma(const float* __restrict__ P,
+                                         const bf16* __restrict__ Pb) {
+  static_assert(R * Z2 == 2 * NT && H2 % 4 == 0, "two outputs a thread");
+  const int r = threadIdx.x >> 3, j = 2 * (threadIdx.x & 7);
+  const float* h = sm + S_HCAT + r * H2;
+  const unsigned* w = reinterpret_cast<const unsigned*>(Pb + w_off(L_ML) + j);
+  float a0 = 0.f, a1 = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < H2; k += 4) {
+    const float4 hv = *reinterpret_cast<const float4*>(h + k);
+    const float hk[4] = {rnd<true>(hv.x), rnd<true>(hv.y), rnd<true>(hv.z), rnd<true>(hv.w)};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned wv = __ldg(w + (k + u) * (Z2 / 2));
+      a0 = fmaf(hk[u], __uint_as_float(wv << 16), a0);
+      a1 = fmaf(hk[u], __uint_as_float(wv & 0xFFFF0000u), a1);
+    }
+  }
+  const float* b = P + b_off(L_ML) + j;
+  sm[S_ML + r * Z2 + j] = a0 + b[0];
+  sm[S_ML + r * Z2 + j + 1] = a1 + b[1];
+  __syncthreads();
+}
+
+// the forward product of layer L on wgmma (RELU: relu, and the near-tie
+// fix of the activations it hands on)
+template <int L, bool RELU = true>
+__device__ __forceinline__ void fwd_tc(const float* in, int ldi, const float* P, const bf16* Pb,
+                                       float* out, int ldo) {
+  constexpr int fi = layer_in(L), fo = layer_out(L), off = w_off(L);
+  static_assert(fo < 64 || fo / 64 == 2, "no tile of 64 outputs alone");
+  wg_product<true, 0, ks_of(fi), (fo >= 128), (fo % 64 != 0), RELU>(
+      WOp{Pb + off, fo, fo, fi}, in, ldi, out, ldo, P + b_off(L), RELU, nullptr, 0, nullptr, 0);
+}
+
+// the activation-gradient product of layer L for its inputs nf .. nf + NC
+// on wgmma (agrad's)
+template <int L, int RO, int NC>
+__device__ __forceinline__ void ag_tc(const bf16* Pb, int nf, const float* dy, int ldy,
+                                      float* d_in, int ldd, const float* add, int lda,
+                                      const float* mask, int ldm) {
+  constexpr int fo = layer_out(L), off = w_off(L);
+  static_assert(NC < 64 || NC / 64 == 2, "no tile of 64 outputs alone");
+  wg_product<false, RO, ks_of(fo), (NC >= 128), (NC % 64 != 0), false>(
+      WOp{Pb + off + nf * fo, fo, NC, fo}, dy, ldy, d_in, ldd, nullptr, false, add, lda, mask,
+      ldm);
+}
+
+// forward layer over the step's rows on float32 FMA: out = act(in . W + b),
+// B from the bf16 copy Pb of the weights when it is given
 template <bool BF, int L>
 __device__ void fwd(const float* in, int ldi, const float* P, const bf16* Pb, float* out,
                     int ldo, bool relu) {
@@ -726,10 +1214,10 @@ __device__ __forceinline__ void wgrad_ab(const float* in, int ldi, const float* 
   }
 }
 
-// activation gradient of layer L for inputs n_first .. n_first + n_cnt:
-// d_in = (dy . W[n_first:, :]^T (+ add)) * (mask > 0), operands rounded
-// when RA / RB (B from the bf16 copy Pb when it is given), the output as
-// gemm's RO says
+// activation gradient of layer L for inputs n_first .. n_first + n_cnt on
+// float32 FMA: d_in = (dy . W[n_first:, :]^T (+ add)) * (mask > 0),
+// operands rounded when RA / RB (B from the bf16 copy Pb when it is given),
+// the output as gemm's RO says
 template <bool RA, bool RB, int RO, int L>
 __device__ void agrad(const float* dy, int ldy, const float* P, const bf16* Pb, int n_first,
                       int n_cnt, float* d_in, int ldd, const float* add, int lda,
@@ -826,7 +1314,7 @@ __device__ __forceinline__ void load_step(const typename Elem<BF>::type* __restr
 }
 
 // the forward of the staged rows: every activation into its buffer
-template <bool BF>
+template <bool BF, bool TC = false>
 __device__ __forceinline__ void forward_step(const float* __restrict__ P,
                                              const bf16* __restrict__ Pb) {
   float* X = sm + S_X;
@@ -844,23 +1332,40 @@ __device__ __forceinline__ void forward_step(const float* __restrict__ P,
   float* G3 = sm + S_G3;
   float* REC = sm + S_REC;
   const int tid = threadIdx.x;
-  fwd<BF, L_C0>(CND, C, P, Pb, C0, H, true);
-  fwd<BF, L_C1>(C0, H, P, Pb, HCAT + H, H2, true);   // hc -> hcat[:, H:]
-  fwd<BF, L_E0>(X, F, P, Pb, E0, H, true);
-  fwd<BF, L_E1>(E0, H, P, Pb, E1, H, true);
-  fwd<BF, L_E2>(E1, H, P, Pb, E2, H, true);
-  fwd<BF, L_E3>(E2, H, P, Pb, HCAT, H2, true);       // h -> hcat[:, :H]
-  fwd<BF, L_ML>(HCAT, H2, P, Pb, ML, Z2, false);     // [mu | logvar]
+  if constexpr (TC) {
+    fwd_tc<L_C0>(CND, C, P, Pb, C0, H);
+    fwd_tc<L_C1>(C0, H, P, Pb, HCAT + H, H2);
+    fwd_tc<L_E0>(X, F, P, Pb, E0, H);
+    fwd_tc<L_E1>(E0, H, P, Pb, E1, H);
+    fwd_tc<L_E2>(E1, H, P, Pb, E2, H);
+    fwd_tc<L_E3>(E2, H, P, Pb, HCAT, H2);
+    head_fma(P, Pb);
+  } else {
+    fwd<BF, L_C0>(CND, C, P, Pb, C0, H, true);
+    fwd<BF, L_C1>(C0, H, P, Pb, HCAT + H, H2, true);   // hc -> hcat[:, H:]
+    fwd<BF, L_E0>(X, F, P, Pb, E0, H, true);
+    fwd<BF, L_E1>(E0, H, P, Pb, E1, H, true);
+    fwd<BF, L_E2>(E1, H, P, Pb, E2, H, true);
+    fwd<BF, L_E3>(E2, H, P, Pb, HCAT, H2, true);       // h -> hcat[:, :H]
+    fwd<BF, L_ML>(HCAT, H2, P, Pb, ML, Z2, false);     // [mu | logvar]
+  }
   for (int i = tid; i < R * GIN; i += NT) {
     const int r = i / GIN, j = i % GIN;
     GINb[i] = j < Z ? ML[r * Z2 + j] + EPS[r * Z + j] * expf(0.5f * ML[r * Z2 + Z + j])
                     : HCAT[r * H2 + H + (j - Z)];
   }
   __syncthreads();
-  fwd<BF, L_D0>(GINb, GIN, P, Pb, G1, H, true);
-  fwd<BF, L_D1>(G1, H, P, Pb, G2, H, true);
-  fwd<BF, L_D2>(G2, H, P, Pb, G3, H, true);
-  fwd<BF, L_D3>(G3, H, P, Pb, REC, F, false);
+  if constexpr (TC) {
+    fwd_tc<L_D0>(GINb, GIN, P, Pb, G1, H);
+    fwd_tc<L_D1>(G1, H, P, Pb, G2, H);
+    fwd_tc<L_D2>(G2, H, P, Pb, G3, H);
+    fwd_tc<L_D3, false>(G3, H, P, Pb, REC, F);  // recon: float32 into the loss
+  } else {
+    fwd<BF, L_D0>(GINb, GIN, P, Pb, G1, H, true);
+    fwd<BF, L_D1>(G1, H, P, Pb, G2, H, true);
+    fwd<BF, L_D2>(G2, H, P, Pb, G3, H, true);
+    fwd<BF, L_D3>(G3, H, P, Pb, REC, F, false);
+  }
 }
 
 // the step's loss sums into `a`; with DREC_OUT the fused d_recon into DREC
@@ -936,7 +1441,7 @@ template <bool BF, bool DEFER, int AB>
 __device__ __forceinline__ void backward_step(const float* __restrict__ P,
                                               const bf16* __restrict__ Pb, float* part,
                                               bf16* scr, bool accum, float kS, float& chk) {
-  constexpr bool NODW = (AB & K_NODW) != 0;
+  constexpr bool NODW = (AB & K_NODW) != 0, TC = step_wgmma(BF, AB);
   constexpr int RO1 = (AB & K_CHAINCD) ? 1 : 0, RO2 = (AB & K_CHAINCD) ? 2 : 0;
   float* X = sm + S_X;
   float* CND = sm + S_CND;
@@ -956,32 +1461,46 @@ __device__ __forceinline__ void backward_step(const float* __restrict__ P,
 
   // ---- decoder ------------------------------------------------------------
   KS_WG(L_D3, G3, H, DREC, F);
-  agrad<BF, BF, RO1, L_D3>(DREC, F, P, Pb, 0, H, G3, H, nullptr, 0, G3, H);
+  if constexpr (TC) ag_tc<L_D3, RO1, H>(Pb, 0, DREC, F, G3, H, nullptr, 0, G3, H);
+  else agrad<BF, BF, RO1, L_D3>(DREC, F, P, Pb, 0, H, G3, H, nullptr, 0, G3, H);
   KS_WG(L_D2, G2, H, G3, H);
-  agrad<BF, BF, RO1, L_D2>(G3, H, P, Pb, 0, H, G2, H, nullptr, 0, G2, H);
+  if constexpr (TC) ag_tc<L_D2, RO1, H>(Pb, 0, G3, H, G2, H, nullptr, 0, G2, H);
+  else agrad<BF, BF, RO1, L_D2>(G3, H, P, Pb, 0, H, G2, H, nullptr, 0, G2, H);
   KS_WG(L_D1, G1, H, G2, H);
-  agrad<BF, BF, RO1, L_D1>(G2, H, P, Pb, 0, H, G1, H, nullptr, 0, G1, H);
+  if constexpr (TC) ag_tc<L_D1, RO1, H>(Pb, 0, G2, H, G1, H, nullptr, 0, G1, H);
+  else agrad<BF, BF, RO1, L_D1>(G2, H, P, Pb, 0, H, G1, H, nullptr, 0, G1, H);
   KS_WG(L_D0, GINb, GIN, G1, H);
-  agrad<BF, BF, RO1, L_D0>(G1, H, P, Pb, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);  // [dz | dhc_dec]
+  // [dz | dhc_dec]
+  if constexpr (TC) ag_tc<L_D0, RO1, GIN>(Pb, 0, G1, H, GINb, GIN, nullptr, 0, nullptr, 0);
+  else agrad<BF, BF, RO1, L_D0>(G1, H, P, Pb, 0, GIN, GINb, GIN, nullptr, 0, nullptr, 0);
 
   // ---- heads ----------------------------------------------------------------
   head_grad(kS);
   KS_WG(L_ML, HCAT, H2, ML, Z2);
   // encoder top cotangent, relu-masked by h; condition cotangent from both
   // concats, relu-masked by hc
-  agrad<BF, BF, RO1, L_ML>(ML, Z2, P, Pb, 0, H, HCAT, H2, nullptr, 0, HCAT, H2);
-  agrad<BF, BF, RO2, L_ML>(ML, Z2, P, Pb, H, H, HCAT + H, H2, GINb + Z, GIN, HCAT + H, H2);
+  if constexpr (TC) {
+    ag_tc<L_ML, RO1, H>(Pb, 0, ML, Z2, HCAT, H2, nullptr, 0, HCAT, H2);
+    ag_tc<L_ML, RO2, H>(Pb, H, ML, Z2, HCAT + H, H2, GINb + Z, GIN, HCAT + H, H2);
+  } else {
+    agrad<BF, BF, RO1, L_ML>(ML, Z2, P, Pb, 0, H, HCAT, H2, nullptr, 0, HCAT, H2);
+    agrad<BF, BF, RO2, L_ML>(ML, Z2, P, Pb, H, H, HCAT + H, H2, GINb + Z, GIN, HCAT + H, H2);
+  }
 
   // ---- encoder and condition chains -----------------------------------------
   KS_WG(L_E3, E2, H, HCAT, H2);
-  agrad<BF, BF, RO1, L_E3>(HCAT, H2, P, Pb, 0, H, E2, H, nullptr, 0, E2, H);
+  if constexpr (TC) ag_tc<L_E3, RO1, H>(Pb, 0, HCAT, H2, E2, H, nullptr, 0, E2, H);
+  else agrad<BF, BF, RO1, L_E3>(HCAT, H2, P, Pb, 0, H, E2, H, nullptr, 0, E2, H);
   KS_WG(L_E2, E1, H, E2, H);
-  agrad<BF, BF, RO1, L_E2>(E2, H, P, Pb, 0, H, E1, H, nullptr, 0, E1, H);
+  if constexpr (TC) ag_tc<L_E2, RO1, H>(Pb, 0, E2, H, E1, H, nullptr, 0, E1, H);
+  else agrad<BF, BF, RO1, L_E2>(E2, H, P, Pb, 0, H, E1, H, nullptr, 0, E1, H);
   KS_WG(L_E1, E0, H, E1, H);
-  agrad<BF, BF, RO1, L_E1>(E1, H, P, Pb, 0, H, E0, H, nullptr, 0, E0, H);
+  if constexpr (TC) ag_tc<L_E1, RO1, H>(Pb, 0, E1, H, E0, H, nullptr, 0, E0, H);
+  else agrad<BF, BF, RO1, L_E1>(E1, H, P, Pb, 0, H, E0, H, nullptr, 0, E0, H);
   KS_WG(L_E0, X, F, E0, H);
   KS_WG(L_C1, C0, H, HCAT + H, H2);
-  agrad<BF, BF, RO1, L_C1>(HCAT + H, H2, P, Pb, 0, H, C0, H, nullptr, 0, C0, H);
+  if constexpr (TC) ag_tc<L_C1, RO1, H>(Pb, 0, HCAT + H, H2, C0, H, nullptr, 0, C0, H);
+  else agrad<BF, BF, RO1, L_C1>(HCAT + H, H2, P, Pb, 0, H, C0, H, nullptr, 0, C0, H);
   if constexpr (!NODW) {
     wgrad_ab<BF, DEFER, AB, L_C0>(CND, C, C0, H, part, scr, accum);
   } else {
@@ -1100,7 +1619,7 @@ ks_grad_kernel(const typename Elem<BF>::type* __restrict__ packed, int width,
     if (!accum) first = step;
     done = step + 1;
     load_step<BF>(packed, width, eps_hbm, noise, n_pad, tile, seed_base, r0);
-    forward_step<BF>(P, Pb);
+    forward_step<BF, step_wgmma(BF, AB)>(P, Pb);
     loss_step<!FWDONLY, (AB & K_CHAINCD) != 0, false>(acc, k, nullptr);
     if constexpr (!FWDONLY)
       backward_step<BF, DEFER, AB>(P, Pb, part, BF ? scr + (long long)step * R * SCR_ROW : nullptr,

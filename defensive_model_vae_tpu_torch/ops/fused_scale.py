@@ -103,8 +103,13 @@ _KNOB_LEVERS = {"biasdot": ("bias_via_dot", True), "chaincd": ("chain_cd", True)
 AUTO_MODES = {"float32": 0, "f32_acts": 1, "bf16_chain": 2}
 
 # what the CUDA engine reports (ks_engine's bits): the bf16 weight
-# gradients on the tensor cores
+# gradients on the tensor cores; the manual bf16 step's forward and
+# activation-gradient products on wgmma
 ENGINE_TENSOR_CORES = 1
+ENGINE_STEP_WGMMA = 2
+# the knob instances whose step products stay on float32 FMA
+# (csrc/scale_common.cuh::FMA_KNOBS): noacc, held to NOACC_TOL's loss rows
+FMA_KNOBS = frozenset({"noacc"})
 
 # Guards, restated for an 80 GB H100 and this port:
 # - the tile is the unit of the noise stream (prng keys, hbm row blocks)
@@ -379,15 +384,30 @@ def weights_bf16(params: torch.Tensor) -> torch.Tensor:
 
 # ---- the CUDA kernels' wrappers --------------------------------------------
 
-def _check_engine(lib, compute_dtype):
+def step_engine(compute_dtype, backward="manual", bits=0) -> str:
+    """The engine of a kernel instance's step products, as it is compiled:
+    "wgmma" for the manual bf16 instances (but the knobs of
+    :data:`FMA_KNOBS`), "fma" for float32 and the autodiff instances."""
+    knobs = {k for k, bit in ABLATE_BITS.items() if bits & bit}
+    if compute_dtype is None or backward != "manual" or knobs & FMA_KNOBS:
+        return "fma"
+    return "wgmma"
+
+
+def _check_engine(lib, compute_dtype, auto=False):
     """Refuse a library whose engine does not run the bf16 weight gradients
-    on the tensor cores: the bf16 instances have no other path on the card."""
+    on the tensor cores, or, for the manual bf16 instances, the step's
+    products on wgmma: those instances have no other path on the card."""
     if compute_dtype is None:
         return
     engine = getattr(lib, "ks_engine", None)
-    if engine is None or not engine() & ENGINE_TENSOR_CORES:
+    bits = engine() if engine is not None else 0
+    if not bits & ENGINE_TENSOR_CORES:
         raise RuntimeError("the fused_scale library has no tensor-core engine "
                            "(ks_engine): the bf16 kernels cannot run")
+    if not auto and not bits & ENGINE_STEP_WGMMA:
+        raise RuntimeError("the fused_scale library has no wgmma step engine "
+                           "(ks_engine): the manual bf16 kernels cannot run")
 
 
 def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=False,
@@ -411,7 +431,7 @@ def _kernel_common(plist, packed, eps, cfg, compute_dtype, tile, name, auto=Fals
         raise ValueError(f"{name}: {packed.shape[0]} corpus rows are not a multiple "
                          f"of tile={tile}")
     lib = load("fused_scale")
-    _check_engine(lib, compute_dtype)
+    _check_engine(lib, compute_dtype, auto)
     dev = packed.device
     params = pack_kernel_params(plist)
     if params.numel() != lib.ks_param_floats() or params.device != dev:
@@ -476,6 +496,7 @@ def _fused_scale_call_auto_kernel(plist, packed, seed, cfg, weights, epochs, lr,
     if err != 0:
         raise RuntimeError(f"K3 ({mode} autodiff) launch failed: CUDA error {err}")
     _fused_scale_call.auto_launches[mode] += 1
+    _fused_scale_call.step_engine_launches["fma"] += 1
     return unpack_kernel_params(params, plist), metrics
 
 
@@ -505,6 +526,7 @@ def _fused_scale_call_kernel(plist, packed, seed, cfg, weights, epochs, lr, tile
     if err != 0:
         raise RuntimeError(f"K3 launch failed: CUDA error {err}")
     _fused_scale_call.launches += 1
+    _fused_scale_call.step_engine_launches[step_engine(compute_dtype, "manual", bits)] += 1
     for knob, bit in ABLATE_BITS.items():
         if bits & bit:
             _fused_scale_call.knob_launches[knob] += 1
@@ -533,6 +555,7 @@ def _grad_epoch_call_kernel(plist, packed, stream_base, cfg, weights, tile,
         _grad_epoch_call.auto_launches[mode] += 1
     else:
         _grad_epoch_call.launches += 1
+    _grad_epoch_call.step_engine_launches[step_engine(compute_dtype, backward)] += 1
     return unpack_kernel_params(grad, plist), row
 
 
@@ -577,7 +600,8 @@ def _fused_scale_call(plist, packed, seed: int, cfg: CVAEConfig,
     None it is drawn here by :func:`hbm_noise`.  On CUDA tensors this
     launches K3 (counted in ``_fused_scale_call.launches``, those under
     each knob also in ``.knob_launches``; the autodiff instances by mode in
-    ``_fused_scale_call.auto_launches``) or raises; on
+    ``_fused_scale_call.auto_launches``; every launch by its step engine,
+    :func:`step_engine`, in ``.step_engine_launches``) or raises; on
     CPU tensors it runs K3's plain version.  ``backward`` is resolved by
     :func:`_resolve_backward`; ``_ablate`` names the ablation knobs (module
     docstring)."""
@@ -605,6 +629,7 @@ def _fused_scale_call(plist, packed, seed: int, cfg: CVAEConfig,
 _fused_scale_call.launches = 0
 _fused_scale_call.knob_launches = dict.fromkeys(ABLATE_BITS, 0)
 _fused_scale_call.auto_launches = dict.fromkeys(AUTO_MODES, 0)
+_fused_scale_call.step_engine_launches = {"wgmma": 0, "fma": 0}
 
 
 def _scale_inputs(windows, cfg, tile, compute_dtype, eps, dev, chunk=None):
@@ -675,7 +700,8 @@ def _grad_epoch_call(plist, packed, stream_base: int, cfg: CVAEConfig,
     ``noise="hbm"``) is this epoch's stream; ``prng`` keys tile i by
     ``stream_base + i``.  On CUDA tensors this launches K4 (counted in
     ``_grad_epoch_call.launches``; the autodiff instances by mode in
-    ``_grad_epoch_call.auto_launches``) or raises; on CPU tensors it runs
+    ``_grad_epoch_call.auto_launches``; every launch by its step engine in
+    ``.step_engine_launches``) or raises; on CPU tensors it runs
     K4's plain version."""
     backward = _resolve_backward(backward, compute_dtype, mixed_style)
     dev = packed.device
@@ -696,6 +722,7 @@ def _grad_epoch_call(plist, packed, stream_base: int, cfg: CVAEConfig,
 
 _grad_epoch_call.launches = 0
 _grad_epoch_call.auto_launches = dict.fromkeys(AUTO_MODES, 0)
+_grad_epoch_call.step_engine_launches = {"wgmma": 0, "fma": 0}
 
 
 def fused_train_scale_dp(windows: np.ndarray, mesh=None, epochs: int = 200,

@@ -8,9 +8,12 @@ inputs at 8,448 rows, tiles of 352, and hashes the bytes of every result
 array in order.  ``REFERENCE`` holds the digests the kernels must give:
 float32's is still the build at commit d8a64ec's (every float32 output is
 one FMA chain over k in order, as it was), the bf16 cases' the engine's
-that runs the bf16 weight gradients on the tensor cores (their sums over a
-block's rows are one product, not 32-row steps added up);
-``D8A64EC_BF16`` keeps the bf16 cases of d8a64ec.  The kernels' sums are
+that runs the manual bf16 step's forward and activation-gradient products
+on wgmma (another summation order inside each product, held to the plain
+version by chip_smoke.py's K3_TOL and bit for bit on its order-free case)
+beside the bf16 weight gradients on the tensor cores.  ``FMA_STEP_BF16``
+keeps the bf16 cases of the engine before it (the step's products on
+float32 FMA), ``D8A64EC_BF16`` those of d8a64ec.  The kernels' sums are
 laid out by the card's SM count, so the digests are keyed by it.  Prints one JSON line.  Runs on the card unless ``--device
 cpu`` (the plain versions' digests, which no reference holds).
 """
@@ -39,11 +42,21 @@ CASES = {"k3_bf16_packed": ("k3", "bfloat16", "packed"),
          "k4_bf16_packed": ("k4", "bfloat16", "packed")}
 # {SM count: {case: digest}} on an NVIDIA H100 80GB HBM3 (132 SMs), CUDA
 # 12.8: float32 from the build at commit d8a64ec, bf16 from the engine with
-# the bf16 weight gradients on the tensor cores
+# the step's products on wgmma and the bf16 weight gradients on the tensor
+# cores
 REFERENCE = {132: {
+    "k3_bf16_packed": "a44a4c106318b2208ec224a99b314a83636eaebe4e5a21814d536ea389eaf338",
+    "k3_bf16_hbm": "d4e9ceaeaebad783fd09d3883521e9ecbc0a402732e86c584bc36e23b5bb93a6",
+    "k3_f32_packed": "f76e90a1a2ae889ababcc229fa4d53c9b74b907996c327b9faae5c7e81b3fbe1",
+    "k4_bf16_packed": "339e113d7e1af29ee77adc5f8f435412ad93d20c77a5e9342dc2323733e8969f",
+}}
+# the bf16 cases of the engine with the step's forward and activation-
+# gradient products on float32 FMA (one chain over k in order) and the bf16
+# weight gradients on the tensor cores, which the parent of the wgmma step
+# engine gave
+FMA_STEP_BF16 = {132: {
     "k3_bf16_packed": "4e6bcc95d6109bb87921d23d20703def0e3616c3f707268a4f9bc25063a9e83a",
     "k3_bf16_hbm": "a99218ed459feb1183af93d6dbefe3adb1d5182d3647d5dda5eceacabd881612",
-    "k3_f32_packed": "f76e90a1a2ae889ababcc229fa4d53c9b74b907996c327b9faae5c7e81b3fbe1",
     "k4_bf16_packed": "3082d3539710533fceaa70e71076b9528d5507754ac8edda032a31722b6e8b2f",
 }}
 # the bf16 cases of the d8a64ec build, which the parent of this engine

@@ -26,7 +26,8 @@ corpus within ``ORDER_TOL`` (twice its plain version's own spread under
 permuted summation orders), the live spread within it too; its library
 must hold ``HGMMA``.  K3 with ``_ablate=()`` and K4 are held bit
 for bit to their reference digests (``scripts/k3_digest.py``: float32 the
-build before the tensor cores, bf16 the tensor-core engine's).
+build before the tensor cores, bf16 the engine's with the step's products on
+wgmma).
 """
 
 import numpy as np

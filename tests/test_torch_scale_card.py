@@ -207,7 +207,7 @@ def test_engine_reports_tensor_cores_and_the_layout_of_the_wrappers():
 
     _cuda()
     lib = load("fused_scale")
-    assert lib.ks_engine() == fs.ENGINE_TENSOR_CORES
+    assert lib.ks_engine() == fs.ENGINE_TENSOR_CORES | fs.ENGINE_STEP_WGMMA
     for n_pad, sms in ((131072, 132), (9152, 132), (16, 132), (704, 3)):
         assert lib.ks_chunks(n_pad, sms) == fs.n_chunks(n_pad, sms)
         assert lib.ks_scratch_elems(n_pad, sms) == fs.scratch_elems(n_pad, sms)
@@ -238,3 +238,97 @@ def test_k3_float32_digest_is_the_earlier_builds():
     if ref is None:
         pytest.skip("the digests are taken on a 132-SM card")
     assert k3d.digests(dev)["k3_f32_packed"] == ref["k3_f32_packed"]
+
+
+# ---- the manual bf16 step's products on wgmma: each ragged product shape
+# of the model, K3 (one epoch) and K4 against their plain versions, held to
+# chip_smoke.py's limits as they stand (K3_TOL's bf16 one-epoch row, K4_TOL)
+
+def _layer_arrays(*names):
+    return [2 * ft._LAYERS.index(n) + q for n in names for q in (0, 1)]
+
+
+# shape → the arrays whose parameters and gradients the product reaches
+# first: a forward's K or N is its own layer's, an activation gradient's K
+# reaches the layer below it (dec_2's weight gradient takes dec_3's output)
+RAGGED = {"cond_0 K=2": ("cond_0",), "enc_0 K=30": ("enc_0",), "dec_0 K=136": ("dec_0",),
+          "head N=16": ("fc_mu", "fc_logvar"), "dec_3 N=30": ("dec_3",),
+          "dec_3 agrad K=30": ("dec_2",)}
+
+
+@pytest.fixture(scope="module")
+def bf16_runs():
+    """K3 and K4 in bf16 on chip_smoke's k3_vs_plain corpus (4,096 rows,
+    tiles of 512, hbm ε), and their plain versions."""
+    dev = _cuda()
+    from defensive_model_vae_tpu_torch.scripts.scale_ablation import scale_corpus
+
+    nv, packed = fs._scale_inputs(scale_corpus(4096), CFG, 512, "bfloat16", None, dev)
+    plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), CFG, dev))
+    eps_all = fs.hbm_noise(3, 1, packed.shape[0], 8, "bfloat16", dev)
+    args = (plist, packed, 3, CFG, LW, 1, 1e-3, 512, float(nv), "bfloat16", "hbm", eps_all)
+    src = fs._eps_source("hbm", CFG, 512, packed.shape[0], eps_all, 3, dev)
+    return {"k3": fs._fused_scale_call(*args), "k3_plain": fs._fused_scale_call_plain(*args),
+            "k4": fs._grad_epoch_call(plist, packed, 3, CFG, LW, 512, float(nv), "bfloat16",
+                                      "hbm", eps_all),
+            "k4_plain": fs._plain_grad_epoch(plist, packed, 512, CFG, LW, float(nv),
+                                             "bfloat16", src)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", sorted(RAGGED))
+def test_wgmma_products_hold_the_limits_at_each_ragged_shape(bf16_runs, shape):
+    import chip_smoke
+
+    idx = _layer_arrays(*RAGGED[shape])
+    (pk, mk), (pp, mp) = bf16_runs["k3"], bf16_runs["k3_plain"]
+    (gk, rk), (gp, rp) = bf16_runs["k4"], bf16_runs["k4_plain"]
+    k3_row, k3_ok = chip_smoke.k3_gaps(([pk[i] for i in idx], mk), ([pp[i] for i in idx], mp),
+                                       chip_smoke.K3_TOL[("bfloat16", 1)])
+    k4_row, k4_ok = chip_smoke.k4_gaps(([gk[i] for i in idx], rk), ([gp[i] for i in idx], rp),
+                                       chip_smoke.K4_TOL["bfloat16"])
+    assert k3_ok and k4_ok, (k3_row, k4_row)
+
+
+@pytest.mark.gpu
+def test_engine_reports_the_wgmma_step_engine():
+    from defensive_model_vae_tpu_torch.ops import _build
+
+    _cuda()
+    lib = _build.load("fused_scale")
+    assert lib.ks_engine() & fs.ENGINE_STEP_WGMMA
+    assert _build.tensor_core_ops(_build._lib_path("fused_scale"))["HGMMA"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cd,engine", [("bfloat16", "wgmma"), (None, "fma")])
+def test_a_job_counts_one_launch_of_its_step_engine(cd, engine):
+    dev = _cuda()
+    plist, packed, nv, eps_all = _inputs(dev, 600, 64, cd, "hbm", 1)
+    k3, k4 = (dict(fs._fused_scale_call.step_engine_launches),
+              dict(fs._grad_epoch_call.step_engine_launches))
+    fs._fused_scale_call(plist, packed, 4, CFG, LW, 1, 1e-3, 64, nv, cd, "hbm", eps_all)
+    fs._grad_epoch_call(plist, packed, 4, CFG, LW, 64, nv, cd, "hbm", eps_all)
+    other = "fma" if engine == "wgmma" else "wgmma"
+    for counter, before in ((fs._fused_scale_call.step_engine_launches, k3),
+                            (fs._grad_epoch_call.step_engine_launches, k4)):
+        assert counter[engine] == before[engine] + 1
+        assert counter[other] == before[other]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noise", ["hbm", "prng"])
+def test_wgmma_forward_hands_on_the_fma_engines_activations(noise):
+    """The first epoch's loss row reads only the forward at the initial
+    params.  The production instance (wgmma, near-ties taken in the FMA
+    engine's order) and the noacc knob (the FMA engine) round every
+    activation they hand on alike, so the rows agree to float32 noise in
+    dec_3's unrounded outputs; left on the tensor core's order, the rows
+    part by about 1e-5 (bf16 roundings flipped)."""
+    dev = _cuda()
+    plist, packed, nv, eps_all = _inputs(dev, 9000, 352, "bfloat16", noise, 1)
+    args = (plist, packed, 4, CFG, LW, 1, 1e-3, 352, nv, "bfloat16", noise, eps_all)
+    _, wg = fs._fused_scale_call(*args)
+    _, fma = fs._fused_scale_call(*args, _ablate=("noacc",))
+    rel = ((wg[0, :5] - fma[0, :5]).abs() / fma[0, :5].abs().clamp(min=1e-6)).max()
+    assert float(rel) <= 1e-6, float(rel)

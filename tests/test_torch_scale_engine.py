@@ -3,11 +3,13 @@
 The engine (``csrc/scale_common.cuh``) stages the bf16 modes' forward
 weights from a bf16 copy of the params and defers their weight gradients
 to the end of each chunk, through a scratch of their bf16 operands, onto
-the tensor cores.  What the wrappers compute around it is held here:
-the C entries' arguments, the bf16 copy's rounding, the chunk and scratch
-layout, and the refusals, among them a library without the tensor-core
-engine (no fallback to another path).  The kernels themselves run on the
-card (``tests/test_torch_scale_card.py``).
+the tensor cores; the manual bf16 instances run their step's forward and
+activation-gradient products on wgmma, the others on float32 FMA.  What
+the wrappers compute around it is held here: the C entries' arguments, the
+bf16 copy's rounding, the chunk and scratch layout, the count of launches
+by step engine, and the refusals, among them a library without the
+tensor-core or the wgmma step engine (no fallback to another path).  The
+kernels themselves run on the card (``tests/test_torch_scale_card.py``).
 """
 
 import ctypes
@@ -147,7 +149,25 @@ def test_bf16_refuses_a_library_without_the_tensor_core_engine(engine):
 
 def test_float32_needs_no_tensor_core_engine():
     fs._check_engine(_stub_lib(), None)
-    fs._check_engine(_stub_lib(fs.ENGINE_TENSOR_CORES), "bfloat16")
+    fs._check_engine(_stub_lib(fs.ENGINE_TENSOR_CORES | fs.ENGINE_STEP_WGMMA), "bfloat16")
+
+
+@pytest.mark.parametrize("engine", [fs.ENGINE_TENSOR_CORES, fs.ENGINE_TENSOR_CORES | 4])
+def test_bf16_manual_refuses_a_library_without_the_wgmma_step_engine(engine):
+    with pytest.raises(RuntimeError, match="wgmma step engine"):
+        fs._check_engine(_stub_lib(engine), "bfloat16")
+
+
+@pytest.mark.parametrize("engine", [None, 0, fs.ENGINE_TENSOR_CORES])
+def test_float32_needs_no_wgmma_step_engine(engine):
+    fs._check_engine(_stub_lib(engine), None)
+    fs._check_engine(_stub_lib(engine), None, auto=True)
+
+
+def test_autodiff_modes_do_not_ask_for_the_wgmma_step_engine():
+    fs._check_engine(_stub_lib(fs.ENGINE_TENSOR_CORES), "bfloat16", auto=True)
+    with pytest.raises(RuntimeError, match="tensor-core engine"):
+        fs._check_engine(_stub_lib(fs.ENGINE_STEP_WGMMA), "bfloat16", auto=True)
 
 
 @pytest.mark.parametrize("call", ["k3", "k3_auto", "k4"])
@@ -170,3 +190,116 @@ def test_missing_tensor_core_entry_raises_before_any_launch(monkeypatch, call):
         else:
             fs._grad_epoch_call_kernel(plist, packed, 0, CFG, LossWeights(), tile, float(nv),
                                        "bfloat16", "packed", None)
+
+
+# ---- the step engine's bookkeeping, through a library that records its
+# launches in place of the card's
+
+def _recording_lib(engine, launched):
+    """A library whose entries answer the layout queries as the CUDA one
+    does and record each launch by entry name (returning 0, success)."""
+    def entry(name):
+        return lambda *args: launched.append(name) or 0
+    return types.SimpleNamespace(
+        ks_engine=lambda: engine, ks_param_floats=lambda: 128942,
+        ks_partial_floats=lambda: (128942 + 3) // 4 * 4 + 8,
+        ks_chunks=fs.n_chunks, ks_scratch_elems=fs.scratch_elems,
+        ks_chunks_auto=lambda n_pad, tile, sms: n_pad // tile,
+        ks_scratch_elems_auto=lambda n_pad, tile, sms: n_pad * fs.scratch_row(),
+        k3_train=entry("k3_train"), k4_grad_epoch=entry("k4_grad_epoch"),
+        k3_train_auto=entry("k3_train_auto"), k4_grad_epoch_auto=entry("k4_grad_epoch_auto"))
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """→ (set the library's engine bits, the launches it recorded); the
+    card's SM count and stream stand in for torch.cuda's."""
+    launched = []
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+
+    def with_engine(engine):
+        monkeypatch.setattr(_build, "load", lambda name: _recording_lib(engine, launched))
+    return with_engine, launched
+
+
+def _call(call, cd, knobs=()):
+    n, tile = 64, 32
+    plist = ft._flatten_params(init_params(torch.Generator().manual_seed(0), CFG, "cpu"))
+    eps = np.random.default_rng(1).standard_normal((n, 8)).astype(np.float32)
+    nv, packed = fs._scale_inputs(np.zeros((n, 10, 3), np.float32), CFG, tile, cd, eps, "cpu")
+    if call == "k3":
+        fs._fused_scale_call_kernel(plist, packed, 0, CFG, LossWeights(), 1, 1e-3, tile,
+                                    float(nv), cd, "packed", None,
+                                    fs._check_ablate(knobs, cd))
+    elif call == "k3_auto":
+        fs._fused_scale_call_auto_kernel(plist, packed, 0, CFG, LossWeights(), 1, 1e-3, tile,
+                                         float(nv), cd, "packed", None, "f32_acts")
+    elif call == "k4":
+        fs._grad_epoch_call_kernel(plist, packed, 0, CFG, LossWeights(), tile, float(nv), cd,
+                                   "packed", None)
+    else:
+        fs._grad_epoch_call_kernel(plist, packed, 0, CFG, LossWeights(), tile, float(nv), cd,
+                                   "packed", None, "auto")
+
+
+@pytest.mark.parametrize("call", ["k3", "k4"])
+def test_missing_wgmma_step_engine_refuses_bf16_before_any_launch(recorded, call):
+    with_engine, launched = recorded
+    with_engine(fs.ENGINE_TENSOR_CORES)
+    with pytest.raises(RuntimeError, match="wgmma step engine"):
+        _call(call, "bfloat16")
+    assert launched == []
+
+
+@pytest.mark.parametrize("call", ["k3_auto", "k4_auto"])
+def test_autodiff_bf16_launches_without_the_wgmma_step_engine(recorded, call):
+    with_engine, launched = recorded
+    with_engine(fs.ENGINE_TENSOR_CORES)
+    _call(call, "bfloat16")
+    assert launched == [{"k3_auto": "k3_train_auto", "k4_auto": "k4_grad_epoch_auto"}[call]]
+
+
+@pytest.mark.parametrize("call", ["k3", "k4"])
+def test_float32_launches_without_either_engine_bit(recorded, call):
+    with_engine, launched = recorded
+    with_engine(0)
+    _call(call, None)
+    assert launched == [{"k3": "k3_train", "k4": "k4_grad_epoch"}[call]]
+
+
+@pytest.mark.parametrize("call,cd,engine", [
+    ("k3", "bfloat16", "wgmma"), ("k3", None, "fma"), ("k4", "bfloat16", "wgmma"),
+    ("k4", None, "fma"), ("k3_auto", "bfloat16", "fma"), ("k4_auto", "bfloat16", "fma"),
+])
+def test_each_launch_counts_once_by_its_step_engine(recorded, call, cd, engine):
+    with_engine, _ = recorded
+    with_engine(fs.ENGINE_TENSOR_CORES | fs.ENGINE_STEP_WGMMA)
+    counter = (fs._fused_scale_call if call.startswith("k3") else fs._grad_epoch_call)
+    before = dict(counter.step_engine_launches)
+    _call(call, cd)
+    after = counter.step_engine_launches
+    assert after[engine] == before[engine] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+
+
+@pytest.mark.parametrize("knob", sorted(set(fs.ABLATE_BITS) - {"noadam"}))
+def test_knob_instances_count_by_their_compiled_engine(recorded, knob):
+    with_engine, _ = recorded
+    with_engine(fs.ENGINE_TENSOR_CORES | fs.ENGINE_STEP_WGMMA)
+    before = dict(fs._fused_scale_call.step_engine_launches)
+    _call("k3", "bfloat16", (knob,))
+    engine = "fma" if knob in fs.FMA_KNOBS else "wgmma"
+    assert fs._fused_scale_call.step_engine_launches[engine] == before[engine] + 1
+
+
+def test_step_engine_follows_dtype_backward_and_knob():
+    assert fs.step_engine("bfloat16") == "wgmma"
+    assert fs.step_engine(None) == "fma"
+    assert fs.step_engine("bfloat16", "auto") == "fma"
+    assert fs.step_engine("bfloat16", "manual", fs.ABLATE_BITS["noadam"]) == "wgmma"
+    assert fs.step_engine("bfloat16", "manual", fs.ABLATE_BITS["dwT"]) == "wgmma"
+    for knob in fs.FMA_KNOBS:
+        assert fs.step_engine("bfloat16", "manual", fs.ABLATE_BITS[knob]) == "fma"
