@@ -33,12 +33,18 @@ traceback and a non-zero exit:
                    epochs with the phase timer for K1's phase split;
 6. ``sample``      one trajectory per sce4 start point, with re-draws;
 7. ``track``       the samples tracked by the batched MPC (its step one
-                   captured CUDA graph a batch size, replayed a step; the
-                   LU kernel's launches on this path counted), and the SLSQP
+                   captured CUDA graph a batch size of 3 x (form, LU,
+                   update) kernels, replayed a step; the LU and step
+                   kernels' launches on this path counted), and the SLSQP
                    golden windows held to the bands of tests/test_mpc.py;
-                   the captured tracker bit for bit the eager loop at 2,
-                   16, 38 and 134 rows and 64 steps, a second
-                   call replaying without a capture; the LU kernel
+                   the captured tracker bit for bit the same kernels
+                   launched without a capture at 2, 16, 38 and 134 rows
+                   and 64 steps, a second call replaying without a
+                   capture; the step kernels (``csrc/mpc_step.cu``) bit
+                   for bit their plain mirror on one LM iteration and
+                   within tolerance of the torch step over 64 steps, their
+                   device time a step at 16 and 134 rows beside its bound
+                   and the torch step's; the LU kernel
                    (``csrc/lu_solve.cu``): its register form bit for bit
                    its shared-memory form on the tracker's, the sweep's,
                    tie and out-of-range systems
@@ -196,8 +202,10 @@ traceback and a non-zero exit:
                    CUDA-event time, its device kernels' time (torch.profiler
                    over 4 and 8 steps, extrapolated to 512) and the host
                    share; the step graph captured by the warm-up and none
-                   by the requests; the same program with its tracker run
-                   eagerly, bit for bit the served states, and its wall;
+                   by the requests; the request's launches of the step
+                   and LU kernels (3 a step each); the same program with
+                   its step kernels launched without a capture, bit for
+                   bit the served states, and its wall;
 27. ``parallel``   the data-parallel tier (``parallel/``) over
                    ``torch.distributed``: a NCCL world of one on the card
                    (``fused_train_scale_dp(mesh=create_mesh())`` at the bench
@@ -321,6 +329,20 @@ SERVE_HOST_TRACK_TOL = 1e-3
 # in turns with solve_ex (its library call) and with the shared-memory
 # form.
 TRACK_GRAPH_ROWS, TRACK_GRAPH_STEPS = (2, 16, 38, 134), 64
+# the tracker's step kernels (csrc/mpc_step.cu): the captured graph bit for
+# bit the same kernels launched without a capture (above); the kernels bit
+# for bit their plain mirror (ops/mpc_step.py) on one LM iteration at each
+# batch of TRACK_GRAPH_ROWS; the kernels' simulation against the torch step
+# (_simulate_eager, TF32 off), which sums in other orders, at
+# TRACK_GRAPH_ROWS x TRACK_GRAPH_STEPS: states within MPC_STATE_TOL (the
+# tracker's whole-simulation tolerance, tests/test_torch_mpc.py) and each
+# row's mean control gap within MPC_CONTROL_MEAN_TOL
+# (tests/test_torch_mpc_graph_card.py).  Timed at MPC_TIMED_ROWS x
+# SERVE_STEPS: a step's CUDA-event time in the replay loop, each kernel's
+# device time a step (torch.profiler over the whole run), the plain torch
+# step's wall over MPC_PLAIN_STEPS steps
+MPC_STATE_TOL, MPC_CONTROL_MEAN_TOL = 1e-3, 1e-4
+MPC_TIMED_ROWS, MPC_PLAIN_STEPS = (16, 134), 16
 LU_ROWS, LU_TIMED_CALLS = (1, 16, 38, 134), 50
 LU_U = 2.0 ** -24
 
@@ -1346,14 +1368,16 @@ def device_busy_ms(torch, fn):
 
 
 def tracker_checks(np, torch, dev, card):
-    """The captured tracker against the eager loop, the LU kernel's two
-    forms against each other and its plain version, and timed
-    (TRACK_GRAPH_*, LU_* above) → (the phase's info, the kernel's row
-    fields)."""
+    """The captured tracker against the same kernels launched without a
+    capture, the step kernels against their mirror and the torch step, the
+    LU kernel's two forms against each other and its plain version, all
+    timed (TRACK_GRAPH_*, MPC_*, LU_* above) → (the phase's info, the LU
+    kernel's row fields, the step kernels' row fields)."""
     from defensive_model_vae_tpu_torch.control import mpc
     from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
     from defensive_model_vae_tpu_torch.ops import _build
     from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+    from defensive_model_vae_tpu_torch.ops import mpc_step as ms
     from defensive_model_vae_tpu_torch.scripts import lu_checks as luc
 
     shapes = {}
@@ -1364,7 +1388,7 @@ def tracker_checks(np, torch, dev, card):
             a = mpc._simulate(tp.CFG, s0, refs, l0)
             c1 = mpc.graph_captures
             b = mpc._simulate(tp.CFG, s0, refs, l0)
-            e = mpc._simulate_eager(tp.CFG, s0, refs, l0)
+            e = mpc._simulate_kernels(tp.CFG, s0, refs, l0)
             row = {"bit_for_bit": all(torch.equal(x, y) for x, y in zip(a, e)),
                    "replay_repeats": all(torch.equal(x, y) for x, y in zip(a, b)),
                    "captures_first_call": c1 - c0,
@@ -1376,6 +1400,7 @@ def tracker_checks(np, torch, dev, card):
             if row["captures_second_call"]:
                 fail(f"a second call at {B} x {S} captured the step again: {row}")
     emit({"tracker_graph_vs_eager": shapes})
+    mpc_row = mpc_step_checks(torch, dev, mpc, tp, ms, lus)
     # the register form bit for bit the shared-memory form (and the host's
     # emulation of their arithmetic) on every case; on the tie cases the
     # wrong pivot rule's emulation unequal (scripts/lu_checks.py)
@@ -1448,7 +1473,83 @@ def tracker_checks(np, torch, dev, card):
            "form_turns": {"ms": smed, "device_ms": sdmed,
                           "spread": {"ms": sspread, "device_ms": sdspread}}}
     return {"graph_vs_eager": shapes, "lu_vs_plain": lu, "lu_forms_ok": len(forms),
-            "card": card}, row
+            "card": card}, row, mpc_row
+
+
+def mpc_step_checks(torch, dev, mpc, tp, ms, lus):
+    """The step kernels against their mirror (one LM iteration, bit for bit)
+    and the torch step (TRACK_GRAPH_*), and timed (MPC_* above) → the
+    kernels' row fields."""
+    from port_bench import mpc_step_flops
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, M = tp.CFG, tp.CFG.control_horizon
+    k = mpc._problem(cfg, dev).consts
+    mirror, vs_torch = {}, {}
+    for B in TRACK_GRAPH_ROWS:
+        s0, refs, l0 = tp.inputs(B, TRACK_GRAPH_STEPS, dev)
+        gen = torch.Generator().manual_seed(B)
+        u = (torch.randn((B, M, 2), generator=gen) * torch.tensor([3.0, 0.3])).to(dev)
+        u[0, 0] = torch.tensor([7.0, -0.5])  # on the bounds: the clip's derivative 1/2
+        last = (torch.randn((B, 2), generator=gen) * 0.3).to(dev)
+        lam = torch.full((B,), 2e-3, device=dev)
+        ref = refs[:, 1].contiguous()
+        outs = {}
+        for it, freeze in ((0, False), (2, True)):
+            for name, form, update in (("kernel", ms.form, ms.update),
+                                       ("mirror", ms._form_plain, ms._update_plain)):
+                H = torch.empty((B, 2 * M, 2 * M), device=dev)
+                g, c = torch.empty((B, 2 * M, 1), device=dev), torch.empty(B, device=dev)
+                flags = torch.ones(B, dtype=torch.int32, device=dev)
+                form(u, s0, ref, last, flags, lam, H, g, c, k, it, freeze)
+                st = [u.clone(), s0.clone(), last.clone(), flags, lam.clone()]
+                update(lus.lu_solve(H, g), st[0], st[1], ref, st[2], st[3], st[4], c, k, it,
+                       it == 2)
+                outs[(it, name)] = [H, g, c, *st]
+        mirror[B] = all(torch.equal(x, y) for it in (0, 2)
+                        for x, y in zip(outs[(it, "kernel")], outs[(it, "mirror")]))
+        got = mpc._simulate(cfg, s0, refs, l0)
+        want = mpc._simulate_eager(cfg, s0, refs, l0)
+        gc = (got[1] - want[1]).abs()
+        vs_torch[B] = {"state_max": float((got[0] - want[0]).abs().max()),
+                       "control_mean_max": float(gc.mean(dim=1).max()),
+                       "control_max": float(gc.max())}
+        if not mirror[B]:
+            fail(f"the step kernels against their mirror at {B} rows: not bit for bit")
+        if vs_torch[B]["state_max"] > MPC_STATE_TOL or \
+                vs_torch[B]["control_mean_max"] > MPC_CONTROL_MEAN_TOL:
+            fail(f"the kernel step against the torch step at {B} rows: {vs_torch[B]}")
+    emit({"mpc_step_vs_mirror": mirror, "mpc_step_vs_torch": vs_torch})
+    timed = {}
+    for B in MPC_TIMED_ROWS:
+        s0, refs, l0 = tp.inputs(B, SERVE_STEPS, dev)
+        mpc._simulate(cfg, s0, refs, l0)  # captured (or cached)
+        ev_ms = min(cuda_ms(lambda: mpc._simulate(cfg, s0, refs, l0))[0] for _ in range(3))
+        if PROFILER_WARM is not None:
+            PROFILER_WARM.join()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mpc._simulate(cfg, s0, refs, l0)
+            torch.cuda.synchronize()
+        us = {"form": 0.0, "update": 0.0, "lu": 0.0, "all": 0.0}
+        for e in prof.profiler.kineto_results.events():
+            if not (str(e.device_type()).endswith("CUDA") and e.duration_ns() > 0):
+                continue
+            name, d = e.name(), e.duration_ns() / 1e3 / SERVE_STEPS
+            us["all"] += d
+            for key, tag in (("form", "mpc_form_kernel"), ("update", "mpc_update_kernel"),
+                             ("lu", "lu_reg_kernel")):
+                us[key] += d if tag in name else 0.0
+        plain = cuda_ms(lambda: mpc._simulate_eager(cfg, s0, refs[:, :MPC_PLAIN_STEPS], l0))[0]
+        ops, nbytes = mpc_step_flops.step_flops_bytes(B, cfg.prediction_horizon, M,
+                                                      cfg.lm_iters)
+        b_ms, b_by = bound(ops, nbytes, FP32_FLOPS)
+        timed[B] = {"step_event_us": 1e3 * ev_ms / SERVE_STEPS,
+                    "device_us_per_step": us, "kernels_us_per_step": us["form"] + us["update"],
+                    "bound_us_per_step": 1e3 * b_ms, "bound_by": b_by,
+                    "plain_step_us": 1e3 * plain / MPC_PLAIN_STEPS}
+    emit({"mpc_step_timed": timed})
+    return {"bit_for_bit_mirror": mirror, "vs_torch_step": vs_torch, "timed": timed,
+            "rows": list(MPC_TIMED_ROWS), "steps": SERVE_STEPS}
 
 
 def serve_phase(np, torch, dev, w4, card):
@@ -1474,6 +1575,8 @@ def serve_phase(np, torch, dev, w4, card):
     from defensive_model_vae_tpu_torch.control import mpc as mpc_mod
     from defensive_model_vae_tpu_torch.control.mpc import _initial_tracker_state, _simulate
     from defensive_model_vae_tpu_torch.models import sample
+    from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+    from defensive_model_vae_tpu_torch.ops import mpc_step as mst
     from defensive_model_vae_tpu_torch.pipeline import fixture_starts
     from defensive_model_vae_tpu_torch.train import load_checkpoint
 
@@ -1510,7 +1613,17 @@ def serve_phase(np, torch, dev, w4, card):
         rows = [{"start_x": float(a[0]), "start_y": float(a[1]), "heading": float(b[2]),
                  "vx": float(b[3]), "vy": float(b[4])} for a, b in zip(starts, inits)]
         req = {"requests": rows, "seed": SERVE_SEED, "model": "sce4"}
+        mst.reset_launches(dev)
+        lus.reset_launches(dev)
         wall, code, body = _http(port, "/serve", req)
+        # the request's launches of the step kernels and LU: lm_iters each a
+        # replayed step (the graph was captured in the warm-up)
+        launched = {**{kn: mst.launches(dev, kn) for kn in mst.KERNELS},
+                    "lu": lus.launches(dev)}
+        info["mpc_step_launches"] = launched
+        if set(launched.values()) != {SERVE_STEPS * MPCConfig().lm_iters}:
+            fail(f"the served request's step launches {launched}, expected "
+                 f"{SERVE_STEPS * MPCConfig().lm_iters} each")
         bad = set(body.get("invalid", []))
         if code != 200 or body["n"] != SERVE_BATCH:
             fail(f"/serve: {code} n={body.get('n')}")
@@ -1554,10 +1667,11 @@ def serve_phase(np, torch, dev, w4, card):
                     profiled_kernels=[prof[lo][1], prof[hi][1]],
                     host_share=1.0 - busy / ev_ms)
 
-        # the same program with its tracker run eagerly (the parent form):
-        # bit for bit the captured one, and its wall beside the request's
+        # the same program with its step kernels launched without a
+        # capture: bit for bit the captured one, and its wall beside the
+        # request's
         real = mpc_mod._simulate
-        mpc_mod._simulate = mpc_mod._simulate_eager
+        mpc_mod._simulate = mpc_mod._simulate_kernels
         try:
             eager_fn = dr.make_serve_fn(p4, c4, mpc, SERVE_STEPS, m4.get("offset_mode", True))
         finally:
@@ -2559,6 +2673,7 @@ def main() -> int:
     from defensive_model_vae_tpu_torch.ops import fused_scale as fs
     from defensive_model_vae_tpu_torch.ops import fused_trainer as ft
     from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+    from defensive_model_vae_tpu_torch.ops import mpc_step as mst
     from defensive_model_vae_tpu_torch.ops import scale_ablation as sa
     from defensive_model_vae_tpu_torch.scripts import cache_probe
     from defensive_model_vae_tpu_torch.scripts import noise_consumer_probe as ncp
@@ -2740,6 +2855,7 @@ def main() -> int:
     with phase("track", 240) as info:
         mpc = default_mpc_cfg(scenarios.get("sce4"))
         lus.reset_launches(dev)
+        mst.reset_launches(dev)
         graphs0 = tracker_graph_counts()
         t0 = time.perf_counter()
         traces, idx = generate_and_track_from_starts(params, cfg, starts, inits,
@@ -2750,6 +2866,7 @@ def main() -> int:
         # step that each capture runs first
         lu_launches = lus.launches(dev)
         lu_by_form = {f: lus.launches(dev, f) for f in lus.FORMS}
+        mpc_launches = {kn: mst.launches(dev, kn) for kn in mst.KERNELS}
         lu_form = lus.instance(2 * mpc.control_horizon)[0]
         captured, replayed = (b - a for a, b in zip(graphs0, tracker_graph_counts()))
         lu_expected = (replayed + captured) * mpc.lm_iters
@@ -2757,13 +2874,16 @@ def main() -> int:
             fail(f"the tracker's main path ran the LU kernel {lu_by_form} times, "
                  f"expected {lu_expected} of its {lu_form} form ({replayed} replayed "
                  f"steps, {captured} captures, {mpc.lm_iters} solves a step)")
+        if set(mpc_launches.values()) != {lu_expected}:
+            fail(f"the tracker's main path ran the step kernels {mpc_launches} times, "
+                 f"expected {lu_expected} each")
         if len(traces) != int(ok.sum()):
             fail("tracked fewer paths than valid samples")
         steps = check_tracked(traces, mpc, "sce4")
         info.update(n_tracked=len(traces), tracked_steps=steps, lu_launches=lu_launches,
-                    lu_launches_by_form=lu_by_form,
+                    lu_launches_by_form=lu_by_form, mpc_step_launches=mpc_launches,
                     lu_expected=lu_expected, replayed_steps=replayed, captures=captured)
-        checks, lu_row = tracker_checks(np, torch, dev, card)
+        checks, lu_row, mpc_row = tracker_checks(np, torch, dev, card)
         info.update(checks)
 
         # the SLSQP golden windows (tests/test_mpc.py:124-148)
@@ -3865,7 +3985,8 @@ def main() -> int:
 
     # ---- 26. serve: the four committed models behind one HTTP endpoint -------
     with phase("serve", 150) as info:
-        info.update(serve_phase(np, torch, dev, w4, card))
+        serve_info = serve_phase(np, torch, dev, w4, card)
+        info.update(serve_info)
 
     # ---- 27. parallel: the data-parallel tier over torch.distributed ---------
     with phase("parallel", PAR_BUDGET_S) as info:
@@ -4251,6 +4372,18 @@ def main() -> int:
         **lu_row,
         "library_call": "torch.linalg.solve_ex (the plain version)",
         "bound_share": lu_row["bound_ms"] / lu_row["device_ms"],
+        "card": card,
+    }, {
+        "name": "mpc_step",
+        "route": "cuda",
+        "source": f"{PKG}/csrc/mpc_step.cu",
+        "replaces": "none: JAX's tracker step is plain XLA, "
+                    "defensive_model_vae_tpu/control/mpc.py:141-222",
+        # form and update on track's main path; the serve request's
+        "launches": mpc_launches,
+        "serve_launches": serve_info["mpc_step_launches"],
+        **mpc_row,
+        "plain": "control/mpc.py::_simulate_eager (the torch step)",
         "card": card,
     }]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,13 +19,17 @@ iteration is one pass of prefix sums over the 30 steps (``torch.cumsum``),
 not 30 Python-level steps.
 
 JAX runs the outer simulation as one jitted ``lax.scan``; here a step is
-one function, :func:`_step`, in place on static buffers.  On the CPU it
-runs as a Python loop (:func:`_simulate_eager`); on a CUDA device it is
-captured once per (config, batch size, device) as a CUDA graph and
-replayed once a step, so a step costs the host one replay instead of some
-350 launches.  The LM systems are solved by ``ops/lu_solve.py``, the
-port's own kernel: ``torch.linalg.solve_ex`` reaches MAGMA's batched LU
-from some batch on, which a capture cannot take.
+one function in place on static buffers.  On the CPU it is :func:`_step`,
+the torch ops above, run as a Python loop (:func:`_simulate_eager`).  On a
+CUDA device it is :func:`_kernel_step`: each LM iteration three hand-written
+launches (``ops/mpc_step.py``'s form kernel, the LU kernel, its update
+kernel), 9 a step, captured once per (config, batch size, device) as a
+CUDA graph and replayed once a step.  The LM systems are solved by
+``ops/lu_solve.py``, the port's own kernel: ``torch.linalg.solve_ex``
+reaches MAGMA's batched LU from some batch on, which a capture cannot
+take.  :func:`_simulate_eager` is the kernels' plain version; the kernels
+sum in other orders, so the two agree to float32 rounding, not bit for
+bit.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops import mpc_step
 from ..ops.lu_solve import lu_solve
 from ..utils.profiling import span
 from .reference import PathReference
@@ -124,6 +129,7 @@ class _Problem:
         P, M = cfg.prediction_horizon, cfg.control_horizon
         f32 = dict(dtype=torch.float32, device=dev)
         self.cfg, self.P, self.M = cfg, P, M
+        self.consts = mpc_step.Consts.of(cfg)
         sq = torch.tensor(cfg.q, **f32).sqrt()
         sqf = torch.tensor(cfg.qf, **f32).sqrt()
         self.w_track = torch.cat([sq.expand(P, 2), sqf[None]], dim=0)  # (P+1, 2)
@@ -268,24 +274,90 @@ def _step(prob: _Problem, buf: _StepBuffers) -> None:
     buf.first.fill_(False)
 
 
-def _simulate_eager(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
-                    last0: torch.Tensor):
-    """:func:`_simulate` as a Python loop over :func:`_step`: the CPU's
-    path, and the captured program's plain version on the card."""
+class _KernelBuffers:
+    """What :func:`_kernel_step` reads and writes, in place: the state, the
+    last applied control and the step's reference rows (as
+    :class:`_StepBuffers`), the warm start [last, 0, …] (B, M, 2) that the
+    LM iterations update, each row's first-solve flag (B,) int32 (each
+    row's block clears its own), λ, the cost at the iterate and the LM
+    system H (B, 2M, 2M), g (B, 2M, 1).  The captured graph's static
+    buffers."""
+
+    def __init__(self, cfg: MPCConfig, B: int, dev: torch.device):
+        P, M = cfg.prediction_horizon, cfg.control_horizon
+        f32 = dict(dtype=torch.float32, device=dev)
+        self.state = torch.zeros((B, 4), **f32)
+        self.last = torch.zeros((B, 2), **f32)
+        self.ref = torch.zeros((B, P + 1, 2), **f32)
+        self.u = torch.zeros((B, M, 2), **f32)
+        self.first = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.lam = torch.zeros((B,), **f32)
+        self.cost0 = torch.zeros((B,), **f32)
+        self.H = torch.zeros((B, 2 * M, 2 * M), **f32)
+        self.g = torch.zeros((B, 2 * M, 1), **f32)
+
+    def start(self, states0: torch.Tensor, last0: torch.Tensor) -> None:
+        self.state.copy_(states0)
+        self.last.copy_(last0)
+        self.u.zero_()
+        self.u[:, 0] = last0
+        self.first.fill_(1)
+
+
+def _kernel_step(prob: _Problem, buf: _KernelBuffers) -> None:
+    """:func:`_step` as the kernels run it, in place on ``buf``: each LM
+    iteration the form kernel (H, g, the cost), the LU kernel and the
+    update kernel, whose last applies the solve's first control."""
+    cfg, k = prob.cfg, prob.consts
+    for it in range(cfg.lm_iters):
+        mpc_step.form(buf.u, buf.state, buf.ref, buf.last, buf.first, buf.lam, buf.H, buf.g,
+                      buf.cost0, k, it, cfg.freeze_jacobian)
+        x = lu_solve(buf.H, buf.g)
+        mpc_step.update(x, buf.u, buf.state, buf.ref, buf.last, buf.first, buf.lam,
+                        buf.cost0, k, it, it == cfg.lm_iters - 1)
+
+
+def _check_kernel_cfg(cfg: MPCConfig) -> None:
+    """Raise where the kernel step does not take ``cfg``."""
+    mpc_step.check_bounds(cfg.prediction_horizon, cfg.control_horizon)
+    if cfg.lm_iters < 1:
+        raise ValueError(f"the kernel step runs 1 or more LM iterations, got {cfg.lm_iters}")
+
+
+def _loop(step, prob, buf, states0, refs, last0):
+    """:func:`_simulate` as a Python loop of ``step`` on ``buf``."""
     dev = states0.device
-    prob = _problem(cfg, dev)
     B, S = refs.shape[0], refs.shape[1]
-    buf = _StepBuffers(cfg, B, dev)
     buf.start(states0, last0)
     states = torch.empty((B, S + 1, 4), dtype=torch.float32, device=dev)
     controls = torch.empty((B, S, 2), dtype=torch.float32, device=dev)
     states[:, 0] = states0
     for i in range(S):
         buf.ref.copy_(refs[:, i])
-        _step(prob, buf)
+        step(prob, buf)
         states[:, i + 1] = buf.state
         controls[:, i] = buf.last
     return states, controls
+
+
+def _simulate_eager(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
+                    last0: torch.Tensor):
+    """:func:`_simulate` as a Python loop over :func:`_step`, the torch ops:
+    the CPU's path, and the kernels' plain version on the card."""
+    dev = states0.device
+    return _loop(_step, _problem(cfg, dev), _StepBuffers(cfg, refs.shape[0], dev),
+                 states0, refs, last0)
+
+
+def _simulate_kernels(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
+                      last0: torch.Tensor):
+    """:func:`_simulate` as a Python loop over :func:`_kernel_step`: on the
+    card the kernels launched without a capture (the captured graph's
+    bits), on the CPU their plain mirror."""
+    _check_kernel_cfg(cfg)
+    dev = states0.device
+    return _loop(_kernel_step, _problem(cfg, dev), _KernelBuffers(cfg, refs.shape[0], dev),
+                 states0, refs, last0)
 
 
 # the captured steps, keyed by (cfg, B, device), least recently used first;
@@ -306,27 +378,27 @@ graph_steps = 0
 
 
 class _StepGraph:
-    """:func:`_step` at one batch size captured as one CUDA graph."""
+    """:func:`_kernel_step` at one batch size captured as one CUDA graph."""
 
     def __init__(self, cfg: MPCConfig, B: int, dev: torch.device):
         prob = _problem(cfg, dev)
-        self.buf = _StepBuffers(cfg, B, dev)
+        self.buf = _KernelBuffers(cfg, B, dev)
         self.graph = torch.cuda.CUDAGraph()
         stream = _capture_streams.get(dev)
         if stream is None:
             stream = _capture_streams[dev] = torch.cuda.Stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
-            # one eager step first, on the capture stream: the cuBLAS
-            # handles and workspaces of this thread and stream are made
-            # outside the capture
-            _step(prob, self.buf)
+            # one eager step first, on the capture stream: the kernels'
+            # libraries are built and loaded, and a fault shows, outside
+            # the capture
+            _kernel_step(prob, self.buf)
             # thread_local: another thread's CUDA calls (the server's
             # caller, a rank sharing the card) neither fail this capture
             # nor are failed by it
             self.graph.capture_begin(capture_error_mode="thread_local")
             try:
-                _step(prob, self.buf)
+                _kernel_step(prob, self.buf)
             finally:
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(stream)
@@ -355,10 +427,12 @@ def _step_graph(cfg: MPCConfig, B: int, dev: torch.device) -> _StepGraph:
 
 def _simulate_captured(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
                        last0: torch.Tensor):
-    """:func:`_simulate` on a CUDA device: the step captured once per batch
-    size (:class:`_StepGraph`) and replayed S times.  A step's host work is
-    one copy of its reference rows in, the replay, and two copies out."""
+    """:func:`_simulate` on a CUDA device: the kernel step captured once per
+    batch size (:class:`_StepGraph`) and replayed S times.  A step's host
+    work is one copy of its reference rows in, the replay, and two copies
+    out."""
     global graph_steps
+    _check_kernel_cfg(cfg)
     dev = states0.device
     B, S = refs.shape[0], refs.shape[1]
     states = torch.empty((B, S + 1, 4), dtype=torch.float32, device=dev)
@@ -389,8 +463,9 @@ def _simulate(cfg: MPCConfig, states0: torch.Tensor, refs: torch.Tensor,
     """Track B paths: refs (B, S, P+1, 2) → states (B, S+1, 4), controls
     (B, S, 2) (mpc.py:189).  Solve, apply the first control, Euler-step;
     the next solve is warm-started with the applied control.  On a CUDA
-    device the step runs as one captured CUDA graph replayed S times, and a
-    failed capture or replay raises; elsewhere the eager loop runs."""
+    device the kernel step runs as one captured CUDA graph replayed S
+    times, and a shape past the kernels' bounds or a failed capture or
+    replay raises; elsewhere the eager loop of torch ops runs."""
     if states0.device.type == "cuda":
         return _simulate_captured(cfg, states0, refs, last0)
     return _simulate_eager(cfg, states0, refs, last0)

@@ -104,6 +104,15 @@ _K3_BODY = [
     _P, _P, _P, ctypes.c_int,          # params, m|v, partials, SM count
     _P,                                # metrics
 ]
+
+
+class MpcConsts(ctypes.Structure):
+    """``csrc/mpc_step.cu``'s ``MpcConsts``, passed by value."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "dt", "inv_l", "max_accel", "max_steer", "w_th", "w_v", "wf_th", "wf_v",
+        "sr_a", "sr_d", "lam0")] + [("P", ctypes.c_int), ("M", ctypes.c_int)]
+
+
 KERNELS: Dict[str, tuple] = {
     # K1's manual instances, then its autodiff instance (entries *_auto)
     "fused_trainer": ((("fused_trainer.cu", ()), ("fused_trainer.cu", ("-DK1_AUTO",))), {
@@ -193,6 +202,25 @@ KERNELS: Dict[str, tuple] = {
         "lu_solve_reg_bound": (ctypes.c_int, [ctypes.c_int]),  # n → instance, 0: none
         "lu_solve_launches": (ctypes.c_int, [ctypes.POINTER(ctypes.c_ulonglong)]),  # [2]
         "lu_solve_reset_launches": (ctypes.c_int, []),
+    }),
+    # the MPC tracker's step around the LU kernel (no Pallas counterpart:
+    # JAX's tracker is plain XLA); -fmad=false, so that its products and sums
+    # round as its plain mirror's torch ops do (csrc/mpc_step.cu)
+    "mpc_step": ((("mpc_step.cu", ("-fmad=false",)),), {
+        "mpc_form": (ctypes.c_int, [
+            _P, _P, _P, _P, _P, _P,            # u, state, ref, last, first, lam
+            _P, _P, _P,                        # H, g, cost0
+            ctypes.c_int, MpcConsts,           # B, the configuration's constants
+            ctypes.c_int, ctypes.c_int, _P,    # iteration, freeze, stream
+        ]),
+        "mpc_update": (ctypes.c_int, [
+            _P, _P, _P, _P, _P, _P, _P, _P,    # x, u, state, ref, last, first, lam, cost0
+            ctypes.c_int, MpcConsts,           # B, the configuration's constants
+            ctypes.c_int, ctypes.c_int, _P,    # iteration, apply, stream
+        ]),
+        "mpc_step_bounds": (ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]),  # [2]: P, M
+        "mpc_step_launches": (ctypes.c_int, [ctypes.POINTER(ctypes.c_ulonglong)]),  # [2]
+        "mpc_step_reset_launches": (ctypes.c_int, []),
     }),
     # P3, and its launch as a CPython function (load_module): that object
     # alone takes Python's headers, whose directory its flags name

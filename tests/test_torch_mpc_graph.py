@@ -2,13 +2,15 @@
 the CPU (the graphs themselves need the card:
 ``tests/test_torch_mpc_graph_card.py``).
 
-``_simulate_eager`` loops ``_step`` (the function the card captures) and is
-held against JAX's ``_simulate_batch_jit`` on the same numpy inputs at the
-tolerance of ``tests/test_torch_mpc.py::test_track_batch_matches_jax``
+``_simulate_eager`` loops ``_step`` (the torch step, the plain version of
+the kernel step the card captures) and is held against JAX's
+``_simulate_batch_jit`` on the same numpy inputs at the tolerance of
+``tests/test_torch_mpc.py::test_track_batch_matches_jax``
 (states and controls atol 1e-3 over the whole simulation), including the
 first solve's Δu₀ exemption.  The graph cache and the replay loop run here
-with a stand-in graph whose replay is one eager ``_step``: the loop around
-the replays must then give the eager loop's bits.
+with a stand-in graph whose replay is one eager ``_kernel_step`` (on the
+CPU the kernels' plain mirror): the loop around the replays must then give
+the bits of the same steps looped eagerly (``_simulate_kernels``).
 """
 
 import threading
@@ -127,7 +129,7 @@ def test_lu_solve_on_the_cpu_is_its_plain_version():
 
 
 class _EagerGraph:
-    """A stand-in for a captured step: replay runs the step eagerly."""
+    """A stand-in for a captured step: replay runs the kernel step eagerly."""
 
     made = []
 
@@ -135,12 +137,12 @@ class _EagerGraph:
         if B == 13:
             raise RuntimeError("refused")
         prob = mpc._problem(cfg, dev)
-        self.buf = mpc._StepBuffers(cfg, B, dev)
+        self.buf = mpc._KernelBuffers(cfg, B, dev)
         outer = self
 
         class _Replay:
             def replay(self):
-                mpc._step(prob, outer.buf)
+                mpc._kernel_step(prob, outer.buf)
 
         self.graph = _Replay()
         _EagerGraph.made.append((cfg, B))
@@ -158,7 +160,7 @@ def test_replay_loop_gives_the_eager_loops_bits(windows_sce1, stand_in_graphs):
     cfg = mpc.MPCConfig(prediction_horizon=10, control_horizon=5, dt=0.05)
     s0, refs, last0 = (torch.tensor(a) for a in _inputs(windows_sce1, (1, 3), 20, cfg,
                                                         last=(0.5, 0.0)))
-    eager = mpc._simulate_eager(cfg, s0, refs, last0)
+    eager = mpc._simulate_kernels(cfg, s0, refs, last0)
     captures, steps = mpc.graph_captures, mpc.graph_steps
     for _ in range(2):  # the second call reuses the cached buffers
         got = mpc._simulate_captured(cfg, s0, refs, last0)
@@ -182,7 +184,7 @@ def test_threads_that_miss_together_capture_once(windows_sce1, stand_in_graphs,
     monkeypatch.setattr(mpc, "_StepGraph", _SlowGraph)
     cfg = mpc.MPCConfig(prediction_horizon=10, control_horizon=5, dt=0.05)
     s0, refs, last0 = (torch.tensor(a) for a in _inputs(windows_sce1, (1, 3), 8, cfg))
-    eager = mpc._simulate_eager(cfg, s0, refs, last0)
+    eager = mpc._simulate_kernels(cfg, s0, refs, last0)
     captures, steps = mpc.graph_captures, mpc.graph_steps
     got = [None, None]
 

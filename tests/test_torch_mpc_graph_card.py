@@ -1,4 +1,5 @@
-"""The tracker's captured step graph and its LU kernel on the card.
+"""The tracker's captured step graph, its step kernels and its LU kernel
+on the card.
 
 These tests need a CUDA card and skip without one.  They import neither
 jax nor the JAX package, so they also run on a machine that has only the
@@ -6,9 +7,19 @@ port's dependencies:
 
     python -m pytest --noconftest -m gpu tests/test_torch_mpc_graph_card.py -q
 
-The captured step replays the eager step's kernels on the same shapes, so
-captured and eager states and controls are held bit for bit (no
-tolerance).  The LU kernel against ``torch.linalg.solve_ex`` as
+The captured step replays the kernel step's launches (``_kernel_step``: 3
+× form, LU, update) on the same shapes, so captured and uncaptured states
+and controls are held bit for bit (no tolerance); so are the step kernels
+and their plain mirror (``ops/mpc_step.py``: the same operations in the
+same order).  The kernels' simulation against the torch step
+(``_simulate_eager``, TF32 off), which sums in other orders, within
+``KERNEL_STATE_TOL`` (the JAX parity tolerance of
+``tests/test_torch_mpc.py``, 65 times the largest reading at 16–134 rows ×
+512 steps, 1.5e-5) and, for the controls, each row's mean gap over the
+run within ``KERNEL_CONTROL_MEAN_TOL`` (14 times the reading, 7.0e-6)
+and any single control within ``KERNEL_CONTROL_TOL`` (43 times, 2.3e-4):
+near a bound or a tie one control can part for a step, which the mean
+holds (as the serve cell's ``control_mean_gap`` does).  The LU kernel against ``torch.linalg.solve_ex`` as
 ``chip_smoke.py`` holds it: each solve's normwise backward error within
 n·2^-24; its register form bit for bit its shared-memory form at every
 order the repo runs, and each form's count of its runs on the card.
@@ -27,7 +38,10 @@ from defensive_model_vae_tpu_torch.control import mpc
 from defensive_model_vae_tpu_torch.control import tracker_inputs as tp
 from defensive_model_vae_tpu_torch.control.sweep import COMBOS
 from defensive_model_vae_tpu_torch.ops import lu_solve as lus
+from defensive_model_vae_tpu_torch.ops import mpc_step as ms
 from defensive_model_vae_tpu_torch.scripts import lu_checks as luc
+
+KERNEL_STATE_TOL, KERNEL_CONTROL_MEAN_TOL, KERNEL_CONTROL_TOL = 1e-3, 1e-4, 1e-2
 
 
 def _cuda():
@@ -44,11 +58,87 @@ def _equal(a, b):
 @pytest.mark.parametrize("steps", [64, 512])
 @pytest.mark.parametrize("rows", [2, 16, 38, 134])
 def test_captured_equals_eager_bit_for_bit(rows, steps):
+    """The captured graph against the same kernels launched without a
+    capture."""
     dev = _cuda()
     s0, refs, l0 = tp.inputs(rows, steps, dev)
     got = mpc._simulate(tp.CFG, s0, refs, l0)
     assert torch.isfinite(got[0]).all()
-    assert _equal(got, mpc._simulate_eager(tp.CFG, s0, refs, l0))
+    assert _equal(got, mpc._simulate_kernels(tp.CFG, s0, refs, l0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [16, 38, 134])
+def test_kernel_step_tracks_the_torch_step(rows):
+    dev = _cuda()
+    s0, refs, l0 = tp.inputs(rows, 512, dev)
+    got = mpc._simulate(tp.CFG, s0, refs, l0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = mpc._simulate_eager(tp.CFG, s0, refs, l0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    gap_c = (got[1] - want[1]).abs()
+    assert float((got[0] - want[0]).abs().max()) <= KERNEL_STATE_TOL
+    assert float(gap_c.mean(dim=1).max()) <= KERNEL_CONTROL_MEAN_TOL
+    assert float(gap_c.max()) <= KERNEL_CONTROL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [16, 134])
+@pytest.mark.parametrize("it,first,freeze", [(0, 1, False), (1, 0, False), (2, 1, True)])
+def test_step_kernels_equal_their_mirror_bit_for_bit(rows, it, first, freeze):
+    """One LM iteration's form and update against ``_form_plain`` and
+    ``_update_plain`` on the card, on controls that sit on their bounds."""
+    dev = _cuda()
+    cfg = tp.CFG
+    k, M = mpc._problem(cfg, dev).consts, cfg.control_horizon
+    s0, refs, _ = tp.inputs(rows, 2, dev)
+    ref = refs[:, 1].contiguous()
+    gen = torch.Generator().manual_seed(rows + it)
+    u = (torch.randn((rows, M, 2), generator=gen) * torch.tensor([3.0, 0.3])).to(dev)
+    u[0, 2, 0], u[1, M - 1, 0], u[2, 3, 1], u[3, 0, 1] = 7.0, -7.0, -0.5, 0.5
+    last = (torch.randn((rows, 2), generator=gen) * 0.3).to(dev)
+    lam = (torch.rand(rows, generator=gen) * 1e-2).to(dev)
+    flags = torch.full((rows,), first, dtype=torch.int32, device=dev)
+    outs = {}
+    for name, form, update in (("kernel", ms.form, ms.update),
+                               ("mirror", ms._form_plain, ms._update_plain)):
+        H, g = torch.empty((rows, 2 * M, 2 * M), device=dev), torch.empty((rows, 2 * M, 1),
+                                                                          device=dev)
+        cost = torch.empty(rows, device=dev)
+        form(u, s0, ref, last, flags, lam, H, g, cost, k, it, freeze)
+        x = lus.lu_solve(H, g)
+        st = [u.clone(), s0.clone(), last.clone(), flags.clone(), lam.clone()]
+        update(x, st[0], st[1], ref, st[2], st[3], st[4], cost, k, it, it == 2)
+        outs[name] = [H, g, cost, *st]
+    assert all(torch.equal(a, b) for a, b in zip(outs["kernel"], outs["mirror"]))
+
+
+@pytest.mark.gpu
+def test_the_step_kernels_count_their_runs_in_replays():
+    """A step is 3 x (form, LU, update): 9 launches, each kernel counting
+    lm_iters runs a replayed step."""
+    dev = _cuda()
+    s0, refs, l0 = tp.inputs(16, 64, dev)
+    mpc._simulate(tp.CFG, s0, refs, l0)  # captured (or already cached)
+    ms.reset_launches(dev)
+    lus.reset_launches(dev)
+    mpc._simulate(tp.CFG, s0, refs, l0)
+    per = 64 * tp.CFG.lm_iters
+    assert (ms.launches(dev, "form"), ms.launches(dev, "update"), lus.launches(dev)) == \
+        (per, per, per)
+    assert ms.launches(dev) + lus.launches(dev) == 9 * 64
+
+
+@pytest.mark.gpu
+def test_a_shape_past_the_kernels_bound_raises_naming_it():
+    dev = _cuda()
+    cfg = mpc.MPCConfig(prediction_horizon=80, control_horizon=20)
+    s0, refs, l0 = tp.inputs(2, 4, dev, cfg)
+    with pytest.raises(ValueError, match=r"\(P, M\) = \(80, 20\)"):
+        mpc._simulate(cfg, s0, refs, l0)
 
 
 @pytest.mark.gpu
@@ -92,7 +182,7 @@ def test_a_new_batch_evicts_within_the_bound(monkeypatch):
 @pytest.mark.gpu
 def test_a_failed_capture_raises_and_returns_nothing(monkeypatch):
     dev = _cuda()
-    real = mpc._step
+    real = mpc._kernel_step
     calls = []
 
     def syncing_step(prob, buf):
@@ -101,7 +191,7 @@ def test_a_failed_capture_raises_and_returns_nothing(monkeypatch):
         real(prob, buf)
         torch.cuda.synchronize()
 
-    monkeypatch.setattr(mpc, "_step", syncing_step)
+    monkeypatch.setattr(mpc, "_kernel_step", syncing_step)
     monkeypatch.setattr(mpc, "_graphs", type(mpc._graphs)())
     s0, refs, l0 = tp.inputs(11, 64, dev)
     with pytest.raises(RuntimeError, match="capturing the tracker step at batch 11"):
